@@ -177,41 +177,52 @@ def _attn_mask(torch, B, S, T, kv_len, q_start):
             & (kpos[None, None, :] < kv_len[:, None, None]))[:, None]
 
 
-def check_flash(torch, F, rows, results, B, Hq, Hkv, S, D, seq_lens,
-                record: bool):
+def check_flash(torch, F, rows, results, B, Hq, Hkv, S, D, fill,
+                record: bool, q_start=None, T=None):
+    """Fresh prefill (q_start None): K/V are the just-computed [B, S, Hkv,
+    D] read transposed, kv_len = fill. Chunked prefill: K/V are layer 1
+    of a stacked [2, B, Hkv, T, D] cache, queries at q_start[b] + s,
+    kv_len = q_start + fill < T."""
     from turboinfer_tpu_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(2)
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-    q, k, v = rnd(B, S, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
-    kv_len = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
-    q_start = torch.zeros((B,), dtype=torch.int32, device="cuda")
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)      # [B, Hkv, S, D] views
-    got = fa.flash_prefill(q, kt, vt, kv_len, q_start)
-    want = fa.prefill_plain(q, kt, vt, kv_len, q_start)
+    q = rnd(B, S, Hq, D)
+    if q_start is None:
+        q_start, T = [0] * B, S
+        kt, vt = (rnd(B, S, Hkv, D).transpose(1, 2) for _ in range(2))
+        what = ""
+    else:
+        kt, vt = (rnd(2, B, Hkv, T, D)[1] for _ in range(2))
+        what = f"stacked layer 1 T={T} q_start={list(q_start)} "
+    lens = [a + f for a, f in zip(q_start, fill)]
+    need(max(lens) <= T, "check_flash: kv_len beyond the cache")
+    qs = torch.tensor(q_start, dtype=torch.int32, device="cuda")
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    got = fa.flash_prefill(q, kt, vt, kv_len, qs)
+    want = fa.prefill_plain(q, kt, vt, kv_len, qs)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     tol = 2e-2        # bf16 probabilities in P V, plus one bf16 ulp
-    need(within(torch, got, want, tol), f"flash_prefill D={D} Hq={Hq} "
+    need(within(torch, got, want, tol), f"flash_prefill {what}D={D} Hq={Hq} "
          f"Hkv={Hkv}: max_abs_err {err} beyond {tol} + 1 bf16 ulp")
-    ms = cuda_ms(torch, lambda i: fa.flash_prefill(q, kt, vt, kv_len, q_start), 10)
+    ms = cuda_ms(torch, lambda i: fa.flash_prefill(q, kt, vt, kv_len, qs), 10)
     plain_ms = cuda_ms(torch, lambda i: fa.prefill_plain(q, kt, vt, kv_len,
-                                                         q_start), 2, reps=3)
-    mask = _attn_mask(torch, B, S, S, kv_len, q_start)
+                                                         qs), 2, reps=3)
+    mask = _attn_mask(torch, B, S, T, kv_len, qs)
     qh = q.transpose(1, 2)
     lib_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
         qh, kt, vt, attn_mask=mask, enable_gqa=Hq != Hkv), 10)
     # work this data needs: valid query rows, each against its visible keys
-    lens = [int(x) for x in seq_lens]
-    pairs = sum(min(s + 1, n) for n in lens for s in range(n))
+    pairs = sum(a + s + 1 for a, f in zip(q_start, fill) for s in range(f))
     flops = 4.0 * D * Hq * pairs
     nbytes = 2 * (2 * B * S * Hq * D + 2 * Hkv * D * sum(lens))
     b, by = bound_ms(nbytes, flops)
     row = dict(kernel="flash_prefill",
-               shape=f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D}", max_abs_err=err,
-               tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-               bound_ms=b, bound_by=by)
+               shape=f"{what}B={B} Hq={Hq} Hkv={Hkv} S={S} D={D}",
+               max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=b, bound_by=by)
     rows.append(row)
     say(f"  flash_prefill {row['shape']}: max_abs_err={err:.4g} (tol {tol}) "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}) "
@@ -310,6 +321,12 @@ def phase_kernels(torch, report):
                 record=False)
     check_flash(torch, F, rows, results, 2, 4, 4, 64, 32, [64, 9],
                 record=False)
+    # the chunked-prefill read of the stacked cache (PERF.md row 6)
+    check_flash(torch, F, rows, results, 8, 32, 32, 128, 128,
+                [128, 128, 100, 128, 77, 5, 128, 1], record=False,
+                q_start=[384, 0, 512, 256, 880, 128, 64, 700], T=1024)
+    check_flash(torch, F, rows, results, 2, 4, 4, 32, 32, [32, 19],
+                record=False, q_start=[40, 7], T=96)
     check_cache_write(torch, rows, results)
     check_decode(torch, F, rows, results, 8, 32, 32, 1024, 128,
                  [1, 513, 960, 1024, 700, 64, 300, 1000], record=True)

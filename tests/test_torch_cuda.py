@@ -63,3 +63,26 @@ def test_cuda_attention_kernels_match_plain(D, Hq, Hkv):
     got = decode_attention.decode_attention(q[:, 0], kc, vc, lens, 1).float()
     want = decode_attention.decode_plain(q[:, 0], kc, vc, lens, 1).float()
     torch.testing.assert_close(got, want, atol=1e-2, rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Hq,Hkv", [(32, 4, 4), (64, 8, 2), (128, 2, 1)])
+def test_cuda_flash_prefill_stacked_chunk_matches_plain(D, Hq, Hkv):
+    """A chunked-prefill read: layer li of the stacked [L, B, Hkv, T, D]
+    cache, queries at q_start > 0, keys masked at kv_len < T."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(D + 1)
+    L, B, S, T = 3, 3, 24, 160
+    kc = torch.randn((L, B, Hkv, T, D), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    vc = torch.randn((L, B, Hkv, T, D), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    q = torch.randn((B, S, Hq, D), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    q_start = torch.tensor([40, 0, 97], dtype=torch.int32, device="cuda")
+    kv_len = torch.tensor([64, 11, 121], dtype=torch.int32, device="cuda")
+    got = flash_attention.flash_prefill(q, kc[1], vc[1], kv_len,
+                                        q_start).float()
+    want = flash_attention.prefill_plain(q, kc[1], vc[1], kv_len,
+                                         q_start).float()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2.0 ** -7)

@@ -108,13 +108,16 @@ def test_eos_and_max_seq_stops_match():
 
 
 def test_host_loop_and_chunked_prefill_match_scan():
-    je, te = engines("gqa_d128")
+    """The host decode loop and chunked prefill (which reads the stacked
+    cache at q_start > 0) each match the JAX engine in the same setting,
+    and the port's scan path."""
+    _, te = engines("gqa_d128")
     prompts = [[3, 1, 4, 1, 5, 9, 2, 6], [2, 7, 1, 8, 2, 8]]
     want = te.generate_batch(prompts, 10, temperature=0.0)
-    _, te_host = engines("gqa_d128", decode_loop="host")
-    _, te_chunk = engines("gqa_d128", prefill_chunk=4)
-    for other in (te_host, te_chunk):
-        got = other.generate_batch(prompts, 10, temperature=0.0)
+    for icfg in (dict(decode_loop="host"), dict(prefill_chunk=4)):
+        je_o, te_o = engines("gqa_d128", **icfg)
+        got = te_o.generate_batch(prompts, 10, temperature=0.0)
+        _same(je_o.generate_batch(prompts, 10, temperature=0.0), got)
         assert [r.tokens for r in got] == [r.tokens for r in want]
 
 

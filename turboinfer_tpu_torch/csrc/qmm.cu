@@ -216,11 +216,9 @@ __device__ __forceinline__ void store_dequant(__nv_bfloat16* lo_row,
   *reinterpret_cast<uint4*>(hi_row) = *reinterpret_cast<const uint4*>(hi);
 }
 
-// kVecX: g is a multiple of 64, so the 32 byte rows of a K step lie in
-// one scale group and the step's 64 x columns are two contiguous runs
-// of 32; x then moves in 16-byte vectors, prefetched into registers one
-// step ahead. Otherwise each x element is gathered on its own.
-template <bool kVecX>
+// g is a multiple of 64, so the 32 byte rows of a K step lie in one
+// scale group and the step's 64 x columns are two contiguous runs of 32;
+// x moves in 16-byte vectors, prefetched into registers one step ahead.
 __global__ void __launch_bounds__(kTcThreads, 2)
 qmm_tc_kernel(const __nv_bfloat16* __restrict__ x,
               const uint8_t* __restrict__ w,
@@ -244,16 +242,14 @@ qmm_tc_kernel(const __nv_bfloat16* __restrict__ x,
   uint4 sr[kWVec];
 
   auto fetch = [&](int r0) {
-    if (kVecX) {
-      const int j = r0 / half, kb = j * g + (r0 - j * half);
+    const int j = r0 / half, kb = j * g + (r0 - j * half);
 #pragma unroll
-      for (int i = 0; i < kXVec; ++i) {
-        const int idx = tid + i * kTcThreads, m = idx >> 3, v = idx & 7;
-        const int k = kb + (v < 4 ? v * 8 : half + (v - 4) * 8);
-        xr[i] = (bm0 + m < M) ? __ldg(reinterpret_cast<const uint4*>(
-                                    x + (size_t)(bm0 + m) * K + k))
-                              : make_uint4(0u, 0u, 0u, 0u);
-      }
+    for (int i = 0; i < kXVec; ++i) {
+      const int idx = tid + i * kTcThreads, m = idx >> 3, v = idx & 7;
+      const int k = kb + (v < 4 ? v * 8 : half + (v - 4) * 8);
+      xr[i] = (bm0 + m < M) ? __ldg(reinterpret_cast<const uint4*>(
+                                  x + (size_t)(bm0 + m) * K + k))
+                            : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
     for (int i = 0; i < kWVec; ++i) {
@@ -278,21 +274,11 @@ qmm_tc_kernel(const __nv_bfloat16* __restrict__ x,
   fetch(0);
   for (int r0 = 0; r0 < KB; r0 += kTcBR) {
     __syncthreads();   // the previous step's tiles are consumed
-    if (kVecX) {
+    // column c < 32: low-nibble row of byte row r0 + c; c >= 32: high.
 #pragma unroll
-      for (int i = 0; i < kXVec; ++i) {
-        const int idx = tid + i * kTcThreads, m = idx >> 3, v = idx & 7;
-        *reinterpret_cast<uint4*>(xs + m * kXsLd + v * 8) = xr[i];
-      }
-    } else {
-      // column c < 32: low-nibble row of byte row r0 + c; c >= 32: high.
-      for (int i = tid; i < kTcBM * kTcBK; i += kTcThreads) {
-        const int m = i / kTcBK, c = i - m * kTcBK;
-        const int r = r0 + (c & (kTcBR - 1)), j = r / half;
-        const int k = j * g + (r - j * half) + (c >= kTcBR ? half : 0);
-        xs[m * kXsLd + c] = (bm0 + m < M) ? x[(size_t)(bm0 + m) * K + k]
-                                           : __float2bfloat16(0.f);
-      }
+    for (int i = 0; i < kXVec; ++i) {
+      const int idx = tid + i * kTcThreads, m = idx >> 3, v = idx & 7;
+      *reinterpret_cast<uint4*>(xs + m * kXsLd + v * 8) = xr[i];
     }
 #pragma unroll
     for (int i = 0; i < kWVec; ++i) {
@@ -371,7 +357,7 @@ long long ti_qmm_workspace(int M, int K, int N) {
 
 // x: bf16 [M, K] contiguous; w: uint8 [K/2, N] contiguous (one layer);
 // s: bf16 [K/g, N] contiguous; y: bf16 [M, N]; partial: f32 scratch of
-// ti_qmm_workspace(M, K, N) elements. Needs K % 64 == 0, g even dividing
+// ti_qmm_workspace(M, K, N) elements. Needs g a multiple of 64 dividing
 // K, N % 8 == 0 and 16-byte aligned w and s.
 int ti_qmm_int4(const void* x, const void* w, const void* s, void* y,
                 void* partial, int M, int K, int N, int g, void* stream) {
@@ -392,10 +378,7 @@ int ti_qmm_int4(const void* x, const void* w, const void* s, void* y,
       launch_gemv<8>(xb, wb, sb, yb, pb, M, K, N, g, st);
   } else {
     dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM);
-    if (g % 64 == 0)
-      qmm_tc_kernel<true><<<grid, kTcThreads, 0, st>>>(xb, wb, sb, yb, M, K, N, g);
-    else
-      qmm_tc_kernel<false><<<grid, kTcThreads, 0, st>>>(xb, wb, sb, yb, M, K, N, g);
+    qmm_tc_kernel<<<grid, kTcThreads, 0, st>>>(xb, wb, sb, yb, M, K, N, g);
   }
   return ti::launch_status();
 }

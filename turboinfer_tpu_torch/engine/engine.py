@@ -66,7 +66,7 @@ class InferenceEngine:
 
     def __init__(self, params: Dict[str, Any], model_config: ModelConfig,
                  config: Optional[InferenceConfig] = None,
-                 device="cuda", params_are_prepared: bool = False):
+                 device="cuda"):
         self.device = resolve_device(device)
         self._model = registry.get_model(model_config.architecture)
         self._model.check_supported(model_config)
@@ -80,8 +80,7 @@ class InferenceEngine:
         if self.config.decode_loop not in ("scan", "host"):
             raise ValueError(f"decode_loop must be 'scan' or 'host', got "
                              f"{self.config.decode_loop!r}")
-        params = params_to(params, self.device)
-        self.params = params if params_are_prepared else prepare_params(params)
+        self.params = prepare_params(params_to(params, self.device))
         self.stats = EngineStats()
         self._gen = self._new_generator()
         self._cache_pool: Dict[Tuple[int, int], KVCache] = {}

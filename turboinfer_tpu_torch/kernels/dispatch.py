@@ -42,11 +42,9 @@ def attention_decode(q, k_cache, v_cache, kv_len, layer_index=None):
                                              layer_index)
 
 
-def prepare_params(params: Any, fuse: bool = True) -> Any:
+def prepare_params(params: Any) -> Any:
     """One-time engine setup: fuse same-input projections (wq/wk/wv ->
-    wqkv, w_gate/w_up -> w_gateup). The JAX package's scale pre-tiling
-    is a TPU layout workaround with no counterpart here."""
-    if not fuse:
-        return params
+    wqkv, w_gate/w_up -> w_gateup). Idempotent. The JAX package's scale
+    pre-tiling is a TPU layout workaround with no counterpart here."""
     from turboinfer_tpu_torch.models.common import fuse_projections
     return fuse_projections(params)

@@ -39,10 +39,10 @@ def _check(x: torch.Tensor, qt: QTensor, layer_index) -> None:
             or qt.scales.device != x.device:
         raise KernelError("qmm_int4: weight must be uint8 on x's device")
     g = qt.group_size
-    if K % 64 or g % 2 or K % g or N % 8 or x.shape[-1] != K:
-        raise KernelError(f"qmm_int4 needs K % 64 == 0, even g dividing K "
-                          f"and N % 8 == 0 (K={K}, N={N}, g={g}, "
-                          f"x {tuple(x.shape)})")
+    if g <= 0 or g % 64 or K % g or N % 8 or x.shape[-1] != K:
+        raise KernelError(f"qmm_int4 needs a group size g that is a multiple"
+                          f" of 64 and divides K, and N % 8 == 0 (K={K}, "
+                          f"N={N}, g={g}, x {tuple(x.shape)})")
     if (qt.stacked and layer_index is None) or \
             (not qt.stacked and layer_index not in (None, 0)):
         raise KernelError("qmm_int4: layer_index must match the weight's "
