@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port (turboinfer_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5] [--json PATH]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7] [--json PATH]
 
 Phases:
   1. environment: card name and power limit, torch/CUDA versions, and the
      build of the CUDA kernels from csrc/ (timed);
   2. kernels: each hand-written kernel against its plain PyTorch version
-     at the main path's shapes, timed with CUDA events beside its bound
-     and one PyTorch library call computing the same function;
+     at the shapes of the paths below (the paged kernel at decode G=1 and
+     verify G=5, qmm also at M=40 and M=256), timed with CUDA events
+     beside its bound and one PyTorch library call computing the same
+     function;
   3. main path: the 7B-shape int4 (g=64) model, 32 layers, random weights
      from a seed, served through InferenceEngine.generate_batch for 8
      prompts of 512 tokens and 128 new tokens, greedy and sampled; every
      kernel's launch count is checked against the model's structure;
   4. kernels against plain versions on the same path: 7B shape, 2 layers,
      prefill and first decode-step logits, greedy-token agreement;
-  5. the tiny int4 fixture (D=32, K=128) through generate_batch.
+  5. the tiny int4 fixture (D=32, K=128) through generate_batch, then
+     briefly through both schedulers;
+  6. paged serving at full width: the 7B-shape int4 model, L=32, through
+     PagedContinuousScheduler (8 slots, 256-token pages, max_seq 1024):
+     24 requests submitted at once, 12 sharing a 512-token prefix, half
+     greedy and half sampled, then one shared-prefix request again;
+     launch counts checked step by step;
+  7. paged speculative serving: the same model with its first 4 layers
+     as the draft, spec_k=4 (verify G=5), 8 greedy requests; verify
+     logits against 5 chained decode steps on the same pages.
 Exits non-zero on any failure (no CPU fallback). The last stdout line is
 {"ok": true, "device": {...}}; before it come a {"kernels": [...]} line
 and the nvidia-smi name/power-limit line.
@@ -38,12 +49,15 @@ ROOT_REPLACES = {
     "flash_prefill": "turboinfer_tpu/kernels/pallas/flash_attention.py:314",
     "cache_write_fresh": "turboinfer_tpu/kernels/pallas/cache_write.py:58",
     "decode_attention": "turboinfer_tpu/kernels/pallas/decode_attention.py:447",
+    "paged_attention": "turboinfer_tpu/kernels/pallas/paged_attention.py:246; "
+                       "turboinfer_tpu/kernels/pallas/paged_attention.py:302",
 }
 SOURCES = {
     "qmm_int4": "turboinfer_tpu_torch/csrc/qmm.cu",
     "flash_prefill": "turboinfer_tpu_torch/csrc/flash_prefill.cu",
     "cache_write_fresh": "turboinfer_tpu_torch/csrc/cache_write.cu",
     "decode_attention": "turboinfer_tpu_torch/csrc/decode_attention.cu",
+    "paged_attention": "turboinfer_tpu_torch/csrc/paged_attention.cu",
 }
 
 
@@ -130,9 +144,11 @@ def check_qmm(torch, rows, results):
     shapes = [("wqkv", 4096, 12288), ("wo", 4096, 4096),
               ("w_gateup", 4096, 22016), ("w_down", 11008, 4096),
               ("lm_head", 4096, 32000)]
-    for M in (8, 4096):
+    # M=8: decode (B=8); M=40: a paged verify (B=8, G=5), head included;
+    # M=256: a page-wide admission prefill; M=4096: the batch prefill
+    for M in (8, 40, 256, 4096):
         for name, K, N in shapes:
-            if M > 8 and name == "lm_head":
+            if M in (256, 4096) and name == "lm_head":
                 continue       # the prefill head runs at M = B (logit_idx)
             data = torch.randint(0, 256, (L, K // 2, N), generator=gen,
                                  dtype=torch.uint8, device="cuda")
@@ -148,7 +164,7 @@ def check_qmm(torch, rows, results):
             ref = want.float().abs().max().item()
             tol = 2e-2 * ref
             need(err <= tol, f"qmm {name} M={M}: max_abs_err {err} > {tol}")
-            iters = 20 if M == 8 else 3
+            iters = {8: 20, 40: 10, 256: 5}.get(M, 3)
             ms = cuda_ms(torch, lambda i: qmm.qmm_int4(x, qt, i % L), iters)
             plain_ms = cuda_ms(torch, lambda i: qmm.qmatmul_plain(x, qt, i % L),
                                max(iters // 4, 2), reps=3)
@@ -310,6 +326,77 @@ def check_decode(torch, F, rows, results, B, Hq, Hkv, T, D, lens,
         results["decode_attention"] = row
 
 
+def paged_table(torch, gen, B, P, max_pages, need):
+    """A shuffled, non-monotone block table drawn with replacement from
+    [0, P) (so rows share pages), -1 past each row's need."""
+    table = torch.randint(0, P, (B, max_pages), generator=gen,
+                          dtype=torch.int32)
+    for b, n in enumerate(need):
+        table[b, n:] = -1
+    return table.cuda()
+
+
+def check_paged(torch, F, rows, results, B, Hq, Hkv, D, page, P, lens, G,
+                record: bool):
+    """paged_attention at G query tokens per row against paged_plain;
+    rows whose query sees no key (kv_len < G: undefined, the caller
+    discards them) are left out of the comparison."""
+    from turboinfer_tpu_torch.kernels import paged_attention as pa
+    gen = torch.Generator().manual_seed(6 + G)
+    L, T = 2, 1024
+    max_pages = -(-T // page)
+    kp = torch.randn((L, P, Hkv, page, D), generator=gen).to(
+        torch.bfloat16).cuda()
+    vp = torch.randn((L, P, Hkv, page, D), generator=gen).to(
+        torch.bfloat16).cuda()
+    q = torch.randn((B, G, Hq, D), generator=gen).to(torch.bfloat16).cuda()
+    table = paged_table(torch, gen, B, P, max_pages,
+                        [-(-max(n, 1) // page) for n in lens])
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    got = pa.paged_attention(q, kp, vp, table, kv_len, 1)
+    want = pa.paged_plain(q, kp, vp, table, kv_len, 1, G)
+    torch.cuda.synchronize()
+    kvc = kv_len.clamp(min=1)
+    valid = ((kvc[:, None] - G + torch.arange(G, device="cuda")[None, :])
+             >= 0)
+    err = (got.float() - want.float())[valid].abs().max().item()
+    tol = 1e-2        # f32 sums in another order, plus one bf16 ulp
+    what = f"G={G} D={D} Hq={Hq} Hkv={Hkv} page={page}"
+    need(within(torch, got[valid], want[valid], tol),
+         f"paged_attention {what}: max_abs_err {err} beyond {tol} + 1 bf16 ulp")
+    ms = cuda_ms(torch, lambda i: pa.paged_attention(q, kp, vp, table, kv_len,
+                                                     i % L), 20)
+    plain_ms = cuda_ms(torch, lambda i: pa.paged_plain(
+        q, kp, vp, table, kv_len, i % L, G), 5, reps=3)
+    # library yardstick: SDPA on K/V gathered beforehand (gather excluded)
+    t = table.long().clamp(0, P - 1)
+    kg = [kp[li][t].transpose(1, 2).reshape(B, Hkv, max_pages * page, D)
+          for li in range(L)]
+    vg = [vp[li][t].transpose(1, 2).reshape(B, Hkv, max_pages * page, D)
+          for li in range(L)]
+    qpos = kvc[:, None] - G + torch.arange(G, device="cuda")[None, :]
+    mask = (torch.arange(max_pages * page, device="cuda")[None, None, :]
+            <= qpos[:, :, None])[:, None]
+    qh = q.transpose(1, 2)
+    lib_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qh, kg[i % L], vg[i % L], attn_mask=mask, enable_gqa=Hq != Hkv), 20)
+    fill = sum(max(1, n) for n in lens)
+    nbytes = 2 * Hkv * fill * D * 2 + 2 * B * G * Hq * D * 2
+    pairs = sum(max(0, min(max(n, 1), max(n, 1) - G + g + 1))
+                for n in lens for g in range(G))
+    b, by = bound_ms(nbytes, 4.0 * Hq * pairs * D)
+    row = dict(kernel="paged_attention", shape=f"{what} B={B} P={P} "
+               f"kv_len={list(lens)}", max_abs_err=err, tol=tol, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b, bound_by=by)
+    rows.append(row)
+    say(f"  paged_attention {row['shape']}: max_abs_err={err:.4g} (tol {tol}) "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}) "
+        f"library_ms={lib_ms:.4f} (SDPA, gather excluded)")
+    if record:
+        results["paged_attention"] = row
+    del kp, vp, kg, vg
+
+
 def phase_kernels(torch, report):
     import torch.nn.functional as F
     say("phase 2: kernels against their plain versions")
@@ -334,6 +421,14 @@ def phase_kernels(torch, report):
                  record=False)
     check_decode(torch, F, rows, results, 2, 4, 4, 256, 32, [1, 256],
                  record=False)
+    paged_lens = [1, 1000, 257, 512, 700, 64, 999, 300]
+    for G in (1, 5):        # decode, and a spec_k=4 verify
+        check_paged(torch, F, rows, results, 8, 32, 32, 128, 256, 33,
+                    paged_lens, G, record=G == 1)
+    check_paged(torch, F, rows, results, 3, 8, 2, 64, 16, 40, [0, 77, 200],
+                3, record=False)
+    check_paged(torch, F, rows, results, 2, 4, 4, 32, 8, 40, [5, 130], 2,
+                record=False)
     report["kernel_rows"] = rows
     return results
 
@@ -345,7 +440,8 @@ def expected_launches(L: int, decode_forwards: int, prefills: int = 1):
     return {"qmm_int4": per_fwd * (prefills + decode_forwards),
             "flash_prefill": L * prefills,
             "cache_write_fresh": L * prefills,
-            "decode_attention": L * decode_forwards}
+            "decode_attention": L * decode_forwards,
+            "paged_attention": 0}
 
 
 def run_counted(torch, kernels, eng, prompts, max_new, label, **kw):
@@ -369,31 +465,29 @@ def run_counted(torch, kernels, eng, prompts, max_new, label, **kw):
                              launches=counts)
 
 
-def trace_decode(torch, eng, prompts, steps: int = 8):
-    """Device busy share of greedy decode steps, from a torch.profiler
+def trace_steps(torch, step, steps: int, label: str):
+    """Device busy share of `steps` calls of step(), from a torch.profiler
     trace: the summed duration of the CUDA kernels over the wall time of
     the window (kernels of one stream do not overlap). The profiler
     slows the host, so the traced share is a lower bound of the
-    untraced one. Also reports the host ops that cost the most."""
+    untraced one. Also reports the host ops and the device kernels that
+    cost the most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    B = len(prompts)
-    tokens, seq_lens, _ = eng._pad_batch(prompts)
-    cache = eng._take_cache(B)
-    logits, cache = eng._run_prefill(tokens, seq_lens, cache)
-    tok = logits.argmax(-1).to(torch.int32)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            lg, cache = eng._decode_step(tok, cache)
-            tok = lg.argmax(-1).to(torch.int32)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    eng._put_cache(B, cache)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_kernel = {}
+    for e in kernels:
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
     top = sorted((e for e in prof.key_averages()
                   if e.device_type == DeviceType.CPU),
                  key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
@@ -403,19 +497,38 @@ def trace_decode(torch, eng, prompts, steps: int = 8):
                busy_share=busy_ms / wall_ms if kernels else None,
                top_host_ops=[(e.key, e.count / steps,
                               e.self_cpu_time_total / 1e3 / steps)
-                             for e in top])
+                             for e in top],
+               top_device_kernels=[(k, v / steps) for k, v in sorted(
+                   by_kernel.items(), key=lambda kv: -kv[1])[:6]])
     if not kernels:
-        say("  decode trace: the profiler recorded no device kernels "
+        say(f"  {label} trace: the profiler recorded no device kernels "
             "(device busy share not measured)")
-    else:
-        say(f"  decode trace ({steps} greedy steps, profiler on): "
-            f"wall {res['wall_ms_per_step']:.3f} ms/step, device busy "
-            f"{res['device_busy_ms_per_step']:.3f} ms/step (share "
-            f"{res['busy_share']:.3f}), {res['kernels_per_step']:.1f} "
-            f"kernels/step")
-        for key, n, ms in res["top_host_ops"]:
-            say(f"    host {key}: {n:.1f} calls/step, {ms:.3f} ms/step "
-                f"self CPU")
+        return res
+    say(f"  {label} trace ({steps} steps, profiler on): wall "
+        f"{res['wall_ms_per_step']:.3f} ms/step, device busy "
+        f"{res['device_busy_ms_per_step']:.3f} ms/step (share "
+        f"{res['busy_share']:.3f}), {res['kernels_per_step']:.1f} "
+        f"kernels/step")
+    for key, n, ms in res["top_host_ops"]:
+        say(f"    host {key}: {n:.1f} calls/step, {ms:.3f} ms/step self CPU")
+    for key, ms in res["top_device_kernels"]:
+        say(f"    device {key[:60]}: {ms:.3f} ms/step")
+    return res
+
+
+def trace_decode(torch, eng, prompts, steps: int = 8):
+    """trace_steps over greedy decode steps of generate_batch's path."""
+    B = len(prompts)
+    tokens, seq_lens, _ = eng._pad_batch(prompts)
+    cache = eng._take_cache(B)
+    logits, cache = eng._run_prefill(tokens, seq_lens, cache)
+    state = dict(tok=logits.argmax(-1).to(torch.int32), cache=cache)
+
+    def step():
+        lg, state["cache"] = eng._decode_step(state["tok"], state["cache"])
+        state["tok"] = lg.argmax(-1).to(torch.int32)
+    res = trace_steps(torch, step, steps, "decode")
+    eng._put_cache(B, state["cache"])
     return res
 
 
@@ -593,12 +706,279 @@ def phase_tiny(torch, report):
     say(f"  tiny prefill logits kernel vs plain: max_abs_err={err:.4g} "
         f"(tol {tol:.3g})")
     stats["logits_max_abs_err"] = err
+    # both schedulers, so the D=32 paged kernel runs on a real path
+    from turboinfer_tpu_torch.engine.scheduler import (
+        ContinuousBatchingScheduler, PagedContinuousScheduler)
+    icfg = InferenceConfig(max_seq_len=256, temperature=0.0, seed=0,
+                           eos_token_id=-1)
+    gen = torch.Generator().manual_seed(5)
+    reqs = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+            for n in (5, 40, 17, 90, 33)]
+    toks = {}
+    for name, cls, kw in (("contiguous", ContinuousBatchingScheduler, {}),
+                          ("paged", PagedContinuousScheduler,
+                           dict(page_size=16))):
+        sched = cls(params, cfg, icfg, batch_slots=2, device="cuda", **kw)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        rids = [sched.submit(r, 24) for r in reqs]
+        res = sched.run()
+        counts = kernels.launch_counts()
+        need(all(res[i].finished and res[i].stop_reason == "length"
+                 and len(res[i].tokens) == len(r) + 24
+                 for i, r in zip(rids, reqs)),
+             f"tiny {name} scheduler: requests did not finish as expected")
+        path_kernel = "paged_attention" if name == "paged" else \
+            "decode_attention"
+        other = "decode_attention" if name == "paged" else "paged_attention"
+        need(counts[path_kernel] > 0 and counts[other] == 0,
+             f"tiny {name} scheduler: launch counts {counts}")
+        toks[name] = [res[i].tokens for i in rids]
+        say(f"  tiny {name} scheduler: 5 requests x 24 tokens, launches "
+            f"{counts}")
+        stats[f"{name}_scheduler_launches"] = counts
+    agree = sum(a == b for a, b in zip(toks["contiguous"], toks["paged"]))
+    say(f"  tiny schedulers: greedy trajectories equal in {agree}/5 requests "
+        f"(contiguous decode kernel vs paged kernel, bf16)")
+    stats["scheduler_greedy_agreement"] = agree
     report["tiny"] = stats
+
+
+# -- phases 6 and 7 ---------------------------------------------------------
+
+def first_layers(params, n: int):
+    """The draft of phase 7: the first n layers of a stacked parameter
+    tree, with its embedding, final norm and head."""
+    import dataclasses
+    from turboinfer_tpu_torch.core.qtensor import QTensor
+    layers = {k: (dataclasses.replace(v, data=v.data[:n], scales=v.scales[:n])
+                  if isinstance(v, QTensor) else v[:n])
+              for k, v in params["layers"].items()}
+    return {**params, "layers": layers}
+
+
+def serving_model(torch, L: int, T: int):
+    from turboinfer_tpu_torch.config import llama7b_config
+    from turboinfer_tpu_torch.kernels.dispatch import prepare_params
+    from turboinfer_tpu_torch.loader.synthetic import \
+        create_synthetic_quantized_model
+    cfg = llama7b_config(num_layers=L, max_seq_len=T)
+    params = prepare_params(create_synthetic_quantized_model(
+        cfg, bits=4, group_size=64, device="cuda", seed=0).params)
+    return cfg, params
+
+
+def pct(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def phase_serving(torch, report):
+    from turboinfer_tpu_torch import kernels
+    from turboinfer_tpu_torch.config import InferenceConfig
+    from turboinfer_tpu_torch.engine.scheduler import PagedContinuousScheduler
+    L, T, B, PAGE = 32, 1024, 8, 256
+    say(f"phase 6: paged serving, 7B shape int4 g=64, L={L}, {B} slots, "
+        f"page {PAGE}, max_seq {T}, 24 requests")
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = serving_model(torch, L, T)
+    sched = PagedContinuousScheduler(
+        params, cfg, InferenceConfig(max_seq_len=T, temperature=0.8, top_k=50,
+                                     top_p=0.9, seed=0, eos_token_id=-1),
+        batch_slots=B, page_size=PAGE, device="cuda")
+    del params
+    gen = torch.Generator().manual_seed(6)
+
+    def rand(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+    system = rand(2 * PAGE)                   # two full shared pages
+    shared = [system + rand(n) for n in torch.linspace(
+        32, 190, 12).long().tolist()]
+    unique = [rand(n) for n in torch.linspace(64, 700, 12).long().tolist()]
+    reqs = []                                 # interleaved, shared last
+    for i in range(12):
+        reqs += [unique[i], shared[i]]
+    max_new = torch.linspace(32, 96, 24).long().tolist()
+    # first logits row of each admission prefill, by request id
+    first_logits = {}
+    prefill = sched._paged_prefill
+
+    def recording_prefill(req, m, *a):
+        out = prefill(req, m, *a)
+        first_logits[req.rid] = (m, out[2].float())
+        return out
+    sched._paged_prefill = recording_prefill
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [sched.submit(r, n, **({"temperature": 0.0} if i % 2 else {}))
+            for i, (r, n) in enumerate(zip(reqs, max_new))]
+    kernels.reset_launch_counts()
+    prev = kernels.launch_counts()
+    decode_ms, steps = [], 0
+    per_fwd = 4 * L + 1
+    while sched.pending:
+        q0 = len(sched._queue)
+        ts = time.perf_counter()
+        sched.step()
+        dt = (time.perf_counter() - ts) * 1e3
+        adm = q0 - len(sched._queue)
+        now = kernels.launch_counts()
+        d = {k: now[k] - prev[k] for k in now}
+        prev = now
+        want = {"qmm_int4": per_fwd * (adm + 1), "flash_prefill": L * adm,
+                "cache_write_fresh": 0, "decode_attention": 0,
+                "paged_attention": L}
+        need(d == want, f"step {steps} ({adm} admissions): launches {d} != "
+                        f"{want}")
+        if adm == 0:
+            decode_ms.append(dt)
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    res = sched.run()
+    need(len(res) == 24, f"{len(res)} of 24 requests completed")
+    need(all(r.finished and r.stop_reason == "length" for r in res.values()),
+         "a request ended with an unexpected stop reason")
+    need(all(len(res[i].tokens) == len(r) + n
+             for i, r, n in zip(rids, reqs, max_new)),
+         "a request produced the wrong number of tokens")
+    need(all(0 <= t < cfg.vocab_size for r in res.values() for t in r.tokens),
+         "token out of range")
+    need(sched.pool.hits > 0, "no prefix-cache hits")
+    need(sched.pool.live_pages == 1
+         and sched.pool.available == sched.pool.num_pages - 1,
+         f"pages leaked: {sched.pool.live_pages} live, "
+         f"{sched.pool.available} available of {sched.pool.num_pages}")
+    new_tokens = sum(max_new)
+    prefill_ms = [r.prefill_time_ms for r in res.values()]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = dict(requests=24, steps=steps, wall_s=wall, requests_per_s=24 / wall,
+               tokens_per_s=new_tokens / wall, new_tokens=new_tokens,
+               prefill_ms_median=statistics.median(prefill_ms),
+               prefill_ms_p90=pct(prefill_ms, 0.9),
+               decode_ms_per_step_median=statistics.median(decode_ms),
+               decode_steps_timed=len(decode_ms), peak_gib=peak,
+               launches=counts, prefix_hits=sched.pool.hits,
+               prefix_misses=sched.pool.misses)
+    say(f"  24 requests in {wall:.3f} s over {steps} steps: "
+        f"{out['requests_per_s']:.3f} req/s, {out['tokens_per_s']:.1f} tok/s "
+        f"({new_tokens} new tokens); prefill_ms median "
+        f"{out['prefill_ms_median']:.2f} p90 {out['prefill_ms_p90']:.2f}; "
+        f"decode {out['decode_ms_per_step_median']:.3f} ms/step (median of "
+        f"{len(decode_ms)} steps without admission); peak {peak:.2f} GiB")
+    say(f"  launches {counts}, as expected at every step; prefix pool hits "
+        f"{sched.pool.hits} misses {sched.pool.misses}; all pages but the "
+        f"trash page free or evictable")
+    # the first shared-prefix request (a cold admission), again: its
+    # prefix pages are cached now, and its greedy tokens must not change
+    j = 1
+    rid = sched.submit(reqs[j], max_new[j], temperature=0.0)
+    again = sched.run()[rid]
+    need(again.tokens == res[rids[j]].tokens,
+         "resubmitted shared-prefix request: greedy tokens differ")
+    (m0, lg0), (m1, lg1) = first_logits[rids[j]], first_logits[rid]
+    dlogit = (lg0 - lg1).abs().max().item()
+    out.update(rerun_shared_pages=(m0, m1), rerun_first_logit_max_abs_diff=dlogit)
+    say(f"  shared-prefix request again ({m0} then {m1} shared pages): same "
+        f"{len(again.tokens) - len(reqs[j])} greedy tokens, first-token "
+        f"max|dlogit|={dlogit:.4g}")
+    # where a serving step's time goes: 8 greedy requests in flight
+    for r in unique[:B]:
+        sched.submit(r, 64, temperature=0.0)
+    sched.step()                       # admissions and the first step
+    out["decode_trace"] = trace_steps(torch, sched.step, 8, "paged decode")
+    sched.run()
+    report["paged_serving"] = out
+    del sched
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_speculative(torch, report):
+    from turboinfer_tpu_torch import kernels
+    from turboinfer_tpu_torch.config import InferenceConfig
+    from turboinfer_tpu_torch.engine import paged_cache
+    from turboinfer_tpu_torch.engine.scheduler import PagedContinuousScheduler
+    from turboinfer_tpu_torch.models import llama
+    L, T, B, PAGE, K, DL = 32, 1024, 8, 256, 4, 4
+    say(f"phase 7: paged speculative serving, 7B shape int4, L={L}, draft "
+        f"= first {DL} layers, spec_k={K}, 8 greedy requests x 48 tokens")
+    cfg, params = serving_model(torch, L, T)
+    dcfg = cfg.replace(num_layers=DL)
+    sched = PagedContinuousScheduler(
+        params, cfg, InferenceConfig(max_seq_len=T, temperature=0.0, seed=0,
+                                     eos_token_id=-1),
+        batch_slots=B, page_size=PAGE, draft_params=first_layers(params, DL),
+        draft_config=dcfg, spec_k=K, device="cuda")
+    gen = torch.Generator().manual_seed(7)
+    reqs = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+            for n in torch.linspace(40, 600, B).long().tolist()]
+    rids = [sched.submit(r, 48) for r in reqs]
+    sched.step()                       # admissions, then the first round
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    rounds, t0 = 0, time.perf_counter()
+    while sched.pending:
+        sched.step()
+        rounds += 1
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    res = sched.run()
+    need(all(len(res[i].tokens) == len(r) + 48 for i, r in zip(rids, reqs)),
+         "speculative run: wrong number of tokens")
+    acc, prop = sched.spec_accepted, sched.spec_proposed
+    need(0 < acc < prop, f"acceptance {acc}/{prop} not strictly between 0 "
+                         f"and the proposals")
+    need(counts["paged_attention"] > 0 and counts["decode_attention"] > 0,
+         f"speculative run: launches {counts}")
+    out = dict(accepted=acc, proposed=prop, acceptance=acc / prop,
+               rounds_timed=rounds, ms_per_round=wall * 1e3 / rounds,
+               launches=counts)
+    say(f"  acceptance {acc}/{prop} = {acc / prop:.3f}; "
+        f"{wall * 1e3 / rounds:.3f} ms per round over {rounds} rounds; "
+        f"launches {counts}")
+    # verify logits against 5 chained decode steps on the same pages; the
+    # prefix K/V is random, written straight into the pages
+    g = torch.Generator(device="cuda").manual_seed(7)
+    cache = paged_cache.init_paged_cache(cfg, B, num_pages=1 + B * 4,
+                                         page_size=PAGE, max_seq=T,
+                                         device="cuda")
+    kp, vp = cache.k_pages, cache.v_pages
+    for pages in (kp, vp):
+        pages.copy_(torch.randn(pages.shape, generator=g, device="cuda"))
+    table = torch.randperm(B * 4, generator=gen).add(1).to(
+        torch.int32).reshape(B, 4).cuda()
+    lengths = torch.tensor([5, 11, 300, 3, 256, 60, 17, 511],
+                           dtype=torch.int32)
+    kp0, vp0 = kp.clone(), vp.clone()
+    chunk = torch.randint(1, cfg.vocab_size, (B, K + 1), generator=gen).cuda()
+    lens = lengths.cuda()
+    want = torch.stack([llama.forward_paged_decode(
+        sched.params, cfg, chunk[:, g], kp, vp, table, lens + g)[0]
+        for g in range(K + 1)], dim=1)
+    got = llama.forward_paged_verify(sched.params, cfg, chunk, kp0, vp0,
+                                     table, lens)[0]
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    ref = want.abs().max().item()
+    tol = 5e-2 * ref
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    need(bool(torch.isfinite(got).all()) and err <= tol,
+         f"verify vs decode chain: max_abs_err {err} > {tol}")
+    out.update(verify_max_abs_err=err, verify_tol=tol, max_abs_logit=ref,
+               verify_greedy_agreement=agree)
+    say(f"  verify vs 5 chained decode steps: logits max_abs_err={err:.4g} "
+        f"(tol {tol:.3g}, max|logit|={ref:.3g}), greedy agreement "
+        f"{agree:.3f}")
+    report["paged_speculative"] = out
+    del sched, kp, vp, kp0, vp0
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7")
     ap.add_argument("--json", default=None,
                     help="also write every measurement to this JSON file")
     args = ap.parse_args(argv)
@@ -641,6 +1021,9 @@ def main(argv=None) -> int:
             phase_path_vs_plain(torch, report)
         if 5 in phases:
             phase_tiny(torch, report)
+        paged_launches = phase_serving(torch, report) if 6 in phases else {}
+        if 7 in phases:
+            phase_speculative(torch, report)
     except (SmokeError, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         if args.json:
@@ -648,12 +1031,16 @@ def main(argv=None) -> int:
                 json.dump(dict(report, error=str(e)), f, indent=1)
         return 1
 
+    # launches: each kernel's count from the run of its path, the paged
+    # kernel from phase 6's serving run, the others from phase 3's
     kern = []
     for name in kernels.wrappers():
         r = results.get(name, {})
+        path = paged_launches if name == "paged_attention" else main_launches
         kern.append({"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": ROOT_REPLACES[name],
-                     "launches": main_launches.get(name, 0),
+                     "launches": path.get(name, 0),
+                     "launches_paged_serving": paged_launches.get(name, 0),
                      "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
                      "plain_ms": r.get("plain_ms"),
                      "bound_ms": r.get("bound_ms"),

@@ -12,7 +12,8 @@ import torch
 
 from turboinfer_tpu_torch.core.qtensor import QTensor
 from turboinfer_tpu_torch.kernels import (cache_write, decode_attention,
-                                          flash_attention, qmm)
+                                          flash_attention, paged_attention,
+                                          qmm)
 
 def _need_cuda():
     if not torch.cuda.is_available():
@@ -86,3 +87,56 @@ def test_cuda_flash_prefill_stacked_chunk_matches_plain(D, Hq, Hkv):
     want = flash_attention.prefill_plain(q, kc[1], vc[1], kv_len,
                                          q_start).float()
     torch.testing.assert_close(got, want, atol=2e-2, rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Hq,Hkv,page,G", [(128, 32, 32, 256, 1),
+                                             (128, 8, 8, 256, 5),
+                                             (64, 8, 2, 16, 3),
+                                             (32, 4, 4, 8, 2),
+                                             (64, 16, 2, 8, 16)])
+def test_cuda_paged_attention_matches_plain(D, Hq, Hkv, page, G):
+    """Layer 1 of a stacked pool through a shuffled table with shared
+    pages and -1 past each row's need; rows whose query sees no key
+    (kv_len < G) are undefined and left out."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(D + G)
+    L, P, B, max_pages = 2, 40, 3, 8
+    lens = [0, 3 * page + 5, max_pages * page]
+    kp = torch.randn((L, P, Hkv, page, D), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    vp = torch.randn((L, P, Hkv, page, D), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    q = torch.randn((B, G, Hq, D), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    table = torch.randint(0, P, (B, max_pages), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    for b, n in enumerate(lens):
+        table[b, -(-max(n, 1) // page):] = -1
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    got = paged_attention.paged_attention(q, kp, vp, table, kv_len, 1)
+    want = paged_attention.paged_plain(q, kp, vp, table, kv_len, 1, G)
+    qpos = kv_len.clamp(min=1)[:, None] - G + torch.arange(G, device="cuda")
+    valid = qpos >= 0
+    torch.testing.assert_close(got[valid].float(), want[valid].float(),
+                               atol=1e-2, rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_attention_refuses_unsupported_shapes():
+    _need_cuda()
+    from turboinfer_tpu_torch.utils.errors import KernelError
+    kp = torch.zeros((1, 4, 2, 12, 64), dtype=torch.bfloat16, device="cuda")
+    q = torch.zeros((1, 1, 2, 64), dtype=torch.bfloat16, device="cuda")
+    table = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    kv = torch.ones((1,), dtype=torch.int32, device="cuda")
+    with pytest.raises(KernelError):          # page 12 is not a multiple of 8
+        paged_attention.paged_attention(q, kp, kp, table, kv, 0)
+    with pytest.raises(KernelError):          # G = 17 > 16
+        paged_attention.paged_attention(
+            torch.zeros((1, 17, 2, 64), dtype=torch.bfloat16, device="cuda"),
+            kp[:, :, :, :8].contiguous(), kp[:, :, :, :8].contiguous(),
+            table, kv, 0)
+    with pytest.raises(KernelError):          # f32 is not taken
+        paged_attention.paged_attention(q.float(), kp.float(), kp.float(),
+                                        table, kv, 0)

@@ -179,7 +179,8 @@ def test_cpu_wrappers_never_launch():
     qmm.qmm_int4(x, qt)
     assert kernels.launch_counts() == {"qmm_int4": 0, "flash_prefill": 0,
                                        "cache_write_fresh": 0,
-                                       "decode_attention": 0}
+                                       "decode_attention": 0,
+                                       "paged_attention": 0}
 
 
 # -- plain ops against turboinfer_tpu/kernels/ops.py --------------------------

@@ -14,6 +14,9 @@ import torch
 
 from turboinfer_tpu_torch.config import tiny_config
 from turboinfer_tpu_torch.engine.engine import InferenceEngine
+from turboinfer_tpu_torch.engine.paged_cache import init_paged_cache
+from turboinfer_tpu_torch.engine.scheduler import (ContinuousBatchingScheduler,
+                                                   PagedContinuousScheduler)
 from turboinfer_tpu_torch.loader.synthetic import \
     create_synthetic_quantized_model
 from turboinfer_tpu_torch.models import llama
@@ -33,6 +36,13 @@ def _imports(path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             yield node.module
+
+
+def test_the_serving_slice_is_under_the_import_rule():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("engine/scheduler.py", "engine/paged_cache.py",
+                "engine/speculative.py", "kernels/paged_attention.py"):
+        assert f"turboinfer_tpu_torch/{mod}" in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -57,6 +67,21 @@ def test_entry_points_default_to_cuda(monkeypatch):
                      llama.init_params(cfg, device="cpu"), cfg)):
         with pytest.raises(DeviceError):
             call()
+
+
+@pytest.mark.parametrize("sched", [ContinuousBatchingScheduler,
+                                   PagedContinuousScheduler])
+def test_schedulers_default_to_cuda(monkeypatch, sched):
+    _no_cuda(monkeypatch)
+    cfg = tiny_config(dtype=torch.float32, num_layers=1)
+    params = llama.init_params(cfg, device="cpu")
+    with pytest.raises(DeviceError):
+        sched(params, cfg, batch_slots=2)
+    with pytest.raises(DeviceError):
+        init_paged_cache(cfg, 2, num_pages=4)
+    s = sched(params, cfg, batch_slots=2, device="cpu")
+    rid = s.submit([1, 2, 3], 3)
+    assert len(s.run()[rid].tokens) == 6
 
 
 def test_explicit_cpu_runs(monkeypatch):

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from turboinfer_tpu_torch.core.qtensor import QEmbed, QTensor
+from turboinfer_tpu_torch.engine.paged_cache import PagedKVCache
 from turboinfer_tpu_torch.models.common import KVCache
 from turboinfer_tpu_torch.utils.device import resolve_device
 
@@ -58,6 +59,17 @@ def cache_from_numpy(k, v, length, device="cuda") -> KVCache:
                                             device))
 
 
+def paged_cache_from_numpy(k_pages, v_pages, table, lengths,
+                           device="cuda") -> PagedKVCache:
+    """A paged pool [L, P, Hkv, page, D] with its block table [B,
+    max_pages] and lengths [B] from numpy arrays."""
+    return PagedKVCache(
+        k_pages=tensor_from_numpy(k_pages, device),
+        v_pages=tensor_from_numpy(v_pages, device),
+        block_table=tensor_from_numpy(np.asarray(table, np.int32), device),
+        lengths=tensor_from_numpy(np.asarray(lengths, np.int32), device))
+
+
 def to_numpy(tree: Any) -> Any:
     """The reverse of params_from_numpy (bf16 comes back as float32)."""
     if isinstance(tree, dict):
@@ -74,6 +86,8 @@ def to_numpy(tree: Any) -> Any:
     if isinstance(tree, KVCache):
         return {"k": to_numpy(tree.k), "v": to_numpy(tree.v),
                 "length": to_numpy(tree.length)}
+    if isinstance(tree, PagedKVCache):
+        return {name: to_numpy(t) for name, t in tree._asdict().items()}
     if isinstance(tree, torch.Tensor):
         t = tree.detach().cpu()
         if t.dtype == torch.bfloat16:

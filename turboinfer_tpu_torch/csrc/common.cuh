@@ -40,6 +40,23 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& u, float* f) {
   }
 }
 
+// Merges the ns split-T partial results of one output row with
+// log-sum-exp rescaling: split s wrote its unnormalised output
+// po[s * D + d] and its running max and sum pml[2 s], pml[2 s + 1].
+__device__ __forceinline__ float merge_splits(const float* po,
+                                              const float* pml, int ns,
+                                              int D, int d) {
+  float mx = kNegInf;
+  for (int s = 0; s < ns; ++s) mx = fmaxf(mx, pml[2 * s]);
+  float l = 0.f, o = 0.f;
+  for (int s = 0; s < ns; ++s) {
+    const float w = __expf(pml[2 * s] - mx);
+    l += w * pml[2 * s + 1];
+    o += w * po[(long long)s * D + d];
+  }
+  return o / fmaxf(l, 1e-30f);
+}
+
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 
 }  // namespace ti

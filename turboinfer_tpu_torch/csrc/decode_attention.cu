@@ -165,15 +165,8 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_o,
   const int kvl = max(1, min(kv_len[b], T));
   const int ns = (kvl + kSplit - 1) / kSplit;
   const long long row0 = (long long)bh * nsplit;
-  float mx = ti::kNegInf;
-  for (int s = 0; s < ns; ++s) mx = fmaxf(mx, part_ml[(row0 + s) * 2]);
-  float l = 0.f, o = 0.f;
-  for (int s = 0; s < ns; ++s) {
-    const float w = __expf(part_ml[(row0 + s) * 2] - mx);
-    l += w * part_ml[(row0 + s) * 2 + 1];
-    o += w * part_o[(row0 + s) * D + d];
-  }
-  out[(long long)bh * D + d] = __float2bfloat16(o / fmaxf(l, 1e-30f));
+  out[(long long)bh * D + d] = __float2bfloat16(
+      ti::merge_splits(part_o + row0 * D, part_ml + row0 * 2, ns, D, d));
 }
 
 template <int D, int GH>

@@ -77,15 +77,34 @@ def apply_penalties(logits: torch.Tensor, counts: torch.Tensor,
                     out_counts: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """HF-convention repetition penalty over `counts` (prompt + output),
-    OpenAI-convention presence/frequency penalties over `out_counts`."""
+    OpenAI-convention presence/frequency penalties over `out_counts`.
+    Each penalty is a scalar or a per-row [...] tensor."""
     if out_counts is None:
         out_counts = counts
-    r = max(float(repetition_penalty), 1e-3)
     x = logits.to(torch.float32)
+
+    def per_row(v):
+        if not isinstance(v, torch.Tensor):
+            return v
+        v = v.to(device=x.device, dtype=torch.float32)
+        return v[..., None] if v.dim() == x.dim() - 1 else v
+    r = repetition_penalty
+    r = (per_row(r).clamp(min=1e-3) if isinstance(r, torch.Tensor)
+         else max(float(r), 1e-3))
     penalized = torch.where(x > 0, x / r, x * r)
     x = torch.where(counts > 0, penalized, x)
-    return (x - frequency_penalty * out_counts.to(torch.float32)
-            - presence_penalty * (out_counts > 0).to(torch.float32))
+    return (x - per_row(frequency_penalty) * out_counts.to(torch.float32)
+            - per_row(presence_penalty) * (out_counts > 0).to(torch.float32))
+
+
+def categorical(generator: torch.Generator, logits: torch.Tensor
+                ) -> torch.Tensor:
+    """One draw per row from softmax(logits) over the last axis, by
+    Gumbel-max (as jax.random.categorical draws) -> int64 indices."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device,
+                   dtype=torch.float32).clamp_(
+                       min=torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
 def sample(generator: torch.Generator, logits: torch.Tensor,
@@ -119,9 +138,7 @@ def sample(generator: torch.Generator, logits: torch.Tensor,
         x = apply_top_k(x, params.top_k)
         x = apply_top_p(x, params.top_p)
     x = apply_min_p(x, params.min_p)
-    u = torch.rand(x.shape, generator=generator, device=x.device,
-                   dtype=torch.float32).clamp_(min=torch.finfo(torch.float32).tiny)
-    return torch.argmax(x - torch.log(-torch.log(u)), dim=-1).to(torch.int32)
+    return categorical(generator, x).to(torch.int32)
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -168,3 +185,66 @@ def filtered_dist_per_slot(logits: torch.Tensor, temperature: torch.Tensor,
     onehot = torch.nn.functional.one_hot(x.argmax(dim=-1), V).to(torch.float32)
     g = (temperature <= 0.0).reshape(bshape + (1,))
     return torch.where(g, onehot, dist)
+
+
+def per_slot_candidates(logits: torch.Tensor, temperature: torch.Tensor,
+                        top_k: torch.Tensor, top_p: torch.Tensor,
+                        num_candidates: int = 128, min_p=None,
+                        repetition_penalty=None, presence_penalty=None,
+                        frequency_penalty=None, counts=None, out_counts=None):
+    """The filtered candidate window of sample_per_slot -> (xs [B, C]
+    tempered candidate logits, NEG_INF where a filter drops one; idx
+    [B, C] their token ids, logits descending; x [B, V] the penalised
+    logits). softmax(xs) is the distribution a sampled row draws from."""
+    B, V = logits.shape
+    C = min(num_candidates, V)
+    x = logits.to(torch.float32)
+    if counts is not None:
+        # per-row penalties over the whole vocabulary before candidate
+        # selection (greedy rows respect them too)
+        x = apply_penalties(
+            x, counts,
+            1.0 if repetition_penalty is None else repetition_penalty,
+            0.0 if presence_penalty is None else presence_penalty,
+            0.0 if frequency_penalty is None else frequency_penalty,
+            out_counts=out_counts)
+    vals, idx = torch.topk(x, C, dim=-1)
+    xs = vals / temperature.to(torch.float32).clamp(min=1e-6)[:, None]
+    pos = torch.arange(C, device=x.device)[None, :]
+    k = torch.where(top_k <= 0, torch.full_like(top_k, C),
+                    top_k.clamp(max=C))[:, None]
+    xs = _masked(xs, pos >= k)
+    # top-p among the kept candidates (the first candidate crossing p
+    # is kept, as in apply_top_p)
+    probs = torch.softmax(xs, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    tp = top_p.to(torch.float32)
+    p = torch.where((tp <= 0.0) | (tp >= 1.0), torch.ones_like(tp), tp)
+    xs = _masked(xs, (cum - probs) >= p[:, None])
+    if min_p is not None:
+        # min-p floor within the window (softmax over the candidates)
+        mp = min_p.to(torch.float32)[:, None]
+        floor = mp * probs.amax(dim=-1, keepdim=True)
+        xs = _masked(xs, (probs < floor) & (mp > 0.0))
+    return xs, idx, x
+
+
+def sample_per_slot(generator: torch.Generator, logits: torch.Tensor,
+                    temperature: torch.Tensor, top_k: torch.Tensor,
+                    top_p: torch.Tensor, num_candidates: int = 128,
+                    min_p=None, repetition_penalty=None,
+                    presence_penalty=None, frequency_penalty=None,
+                    counts=None, out_counts=None) -> torch.Tensor:
+    """Per-ROW sampling knobs: each batch slot has its own temperature,
+    top-k, top-p and min-p (temperature, top_p, min_p [B] f32; top_k
+    [B] int), and its own penalties over counts [B, V]. A row with
+    temperature <= 0 is greedy. Filtering runs inside a fixed
+    num_candidates-wide top-k window (a row's k is clamped to it), as in
+    the JAX package. logits [B, V] -> tokens [B] int32."""
+    xs, idx, x = per_slot_candidates(
+        logits, temperature, top_k, top_p, num_candidates, min_p,
+        repetition_penalty, presence_penalty, frequency_penalty, counts,
+        out_counts)
+    drawn = idx.gather(1, categorical(generator, xs)[:, None])[:, 0]
+    return torch.where(temperature <= 0.0, torch.argmax(x, dim=-1),
+                       drawn).to(torch.int32)

@@ -14,11 +14,13 @@ from typing import Callable, Dict
 def wrappers() -> Dict[str, Callable]:
     """Kernel name -> wrapper function."""
     from turboinfer_tpu_torch.kernels import (cache_write, decode_attention,
-                                              flash_attention, qmm)
+                                              flash_attention, paged_attention,
+                                              qmm)
     return {"qmm_int4": qmm.qmm_int4,
             "flash_prefill": flash_attention.flash_prefill,
             "cache_write_fresh": cache_write.cache_write_fresh,
-            "decode_attention": decode_attention.decode_attention}
+            "decode_attention": decode_attention.decode_attention,
+            "paged_attention": paged_attention.paged_attention}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -41,6 +41,8 @@ SIGNATURES = {
     "ti_decode_split_rows": ([], _I),
     "ti_decode_workspace": ([_I] * 4, _LL),
     "ti_decode_attention": ([_VP] * 6 + [_I] * 5 + [_LLP, _F, _VP], _I),
+    "ti_paged_workspace": ([_I] * 5, _LL),
+    "ti_paged_attention": ([_VP] * 7 + [_I] * 9 + [_LLP, _F, _VP], _I),
 }
 
 _lock = threading.Lock()

@@ -42,6 +42,25 @@ def attention_decode(q, k_cache, v_cache, kv_len, layer_index=None):
                                              layer_index)
 
 
+def attention_paged_decode(q, k_pages, v_pages, block_table, kv_len,
+                           layer_index):
+    """q: [B, Hq, D]; pools stacked [L, P, Hkv, page, D] read at
+    `layer_index` through block_table [B, max_pages] -> [B, Hq, D]."""
+    from turboinfer_tpu_torch.kernels import paged_attention
+    return paged_attention.paged_attention(q[:, None], k_pages, v_pages,
+                                           block_table, kv_len,
+                                           layer_index)[:, 0]
+
+
+def attention_paged_verify(q, k_pages, v_pages, block_table, kv_len,
+                           layer_index):
+    """q: [B, G, Hq, D], the G chunk tokens already in their pages and
+    counted in kv_len (query g at kv_len - G + g) -> [B, G, Hq, D]."""
+    from turboinfer_tpu_torch.kernels import paged_attention
+    return paged_attention.paged_attention(q, k_pages, v_pages, block_table,
+                                           kv_len, layer_index)
+
+
 def prepare_params(params: Any) -> Any:
     """One-time engine setup: fuse same-input projections (wq/wk/wv ->
     wqkv, w_gate/w_up -> w_gateup). Idempotent. The JAX package's scale

@@ -203,3 +203,43 @@ def attention_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bht,bhtd->bhd", probs, v).to(q.dtype)
 
+
+
+def _gather_pages(pages: torch.Tensor, block_table: torch.Tensor
+                  ) -> torch.Tensor:
+    """[P, Hkv, page, D] pages through a [B, n] table (ids clamped to
+    [0, P-1]) -> contiguous [B, Hkv, n * page, D]."""
+    P, Hkv, page, D = pages.shape
+    B, n = block_table.shape
+    t = block_table.long().clamp(0, P - 1)
+    return pages[t].transpose(1, 2).reshape(B, Hkv, n * page, D)
+
+
+def attention_paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor,
+                               block_table: torch.Tensor,
+                               kv_len: torch.Tensor) -> torch.Tensor:
+    """Single-token attention over ONE layer's paged cache: gather the
+    sequence's pages, then attention_decode_ref. q: [B, Hq, D];
+    k/v_pages: [P, Hkv, page, D]; block_table: [B, max_pages] (-1 =
+    unassigned); kv_len: [B] (the current token included)."""
+    k = _gather_pages(k_pages, block_table).to(q.dtype)
+    v = _gather_pages(v_pages, block_table).to(q.dtype)
+    return attention_decode_ref(q, k, v, kv_len)
+
+
+def attention_paged_verify_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor,
+                               block_table: torch.Tensor,
+                               kv_len: torch.Tensor) -> torch.Tensor:
+    """Multi-query paged attention (speculative verify). q: [B, G, Hq, D],
+    the G chunk tokens already written into their pages; kv_len [B]
+    includes them, so query g sits at kv_len - G + g (causal among the
+    chunk). Gathers the pages, then attention_prefill_ref."""
+    G = q.shape[1]
+    k = _gather_pages(k_pages, block_table).to(q.dtype)
+    v = _gather_pages(v_pages, block_table).to(q.dtype)
+    positions = (kv_len - G)[:, None] + torch.arange(
+        G, device=q.device)[None, :]
+    return attention_prefill_ref(q, k, v, causal=True, positions=positions,
+                                 kv_len=kv_len)

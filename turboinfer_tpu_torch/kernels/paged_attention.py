@@ -1,0 +1,102 @@
+"""Paged decode and verify attention: the wrapper of csrc/paged_attention.cu.
+
+Counterpart of turboinfer_tpu/kernels/pallas/paged_attention.py
+paged_decode_pallas and paged_verify_pallas (one Pallas body,
+_paged_decode, at g_tokens = 1 and G) for a model-dtype pool: the G
+query tokens q [B, G, Hq, D] of each sequence attend layer `layer_index`
+of the stacked pool [L, P, Hkv, page, D] through the block table
+[B, max_pages], read in place through a pointer offset. Query g sits at
+kv_len - G + g and sees keys at or before it. Table ids are clamped to
+[0, P-1] and kv_len to at least 1, as the JAX kernel clamps them.
+
+On CUDA tensors paged_attention launches the kernel or raises; on CPU
+tensors it runs paged_plain.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from turboinfer_tpu_torch.kernels import _build, ops
+from turboinfer_tpu_torch.utils.errors import KernelError
+
+HEAD_DIMS = (32, 64, 128)
+MAX_GROUP = 8          # query heads per kv head
+MAX_TOKENS = 16        # G, the chunk tokens of a verify
+MAX_PAGE = 256
+
+
+def paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                v_pages: torch.Tensor, table: torch.Tensor,
+                kv_len: torch.Tensor, layer_index: int,
+                g_tokens: int) -> torch.Tensor:
+    """Plain PyTorch version on the gathered pages. q: [B, G, Hq, D] with
+    G = g_tokens -> [B, G, Hq, D]."""
+    kp, vp = k_pages[layer_index], v_pages[layer_index]
+    kv = kv_len.clamp(min=1)
+    if g_tokens == 1:
+        return ops.attention_paged_decode_ref(q[:, 0], kp, vp, table,
+                                              kv)[:, None]
+    return ops.attention_paged_verify_ref(q, kp, vp, table, kv)
+
+
+def _check(q, k_pages, v_pages, table, layer_index) -> None:
+    B, G, Hq, D = q.shape
+    L, P, Hkv, page, Dc = k_pages.shape
+    if q.dtype != torch.bfloat16 or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise KernelError(f"paged_attention takes a bf16 query and pool, "
+                          f"got {q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
+    if (D not in HEAD_DIMS or Dc != D or Hq % Hkv or Hq // Hkv > MAX_GROUP
+            or not 1 <= G <= MAX_TOKENS or page % 8 or not 8 <= page <= MAX_PAGE
+            or v_pages.shape != k_pages.shape or table.dim() != 2
+            or table.shape[0] != B or not 0 <= int(layer_index) < L):
+        raise KernelError(f"paged_attention: unsupported shapes q "
+                          f"{tuple(q.shape)} pool {tuple(k_pages.shape)} "
+                          f"table {tuple(table.shape)}")
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()) \
+            or k_pages.device != q.device or v_pages.device != q.device:
+        raise KernelError("paged_attention: contiguous pools on q's device "
+                          "required")
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, table: torch.Tensor,
+                    kv_len: torch.Tensor, layer_index: int) -> torch.Tensor:
+    """q [B, G, Hq, D] -> [B, G, Hq, D] in q.dtype (see paged_plain)."""
+    if q.device.type == "cpu":
+        return paged_plain(q, k_pages, v_pages, table, kv_len, layer_index,
+                           q.shape[1])
+    _check(q, k_pages, v_pages, table, layer_index)
+    B, G, Hq, D = q.shape
+    _, P, Hkv, page, _ = k_pages.shape
+    gh, max_pages = Hq // Hkv, table.shape[1]
+    R = G * gh
+    # token-major rows per kv head: row r is token r // gh, head r % gh
+    # of the group (a view for G == 1, one small copy for a verify)
+    q4 = q.reshape(B, G, Hkv, gh, D).transpose(1, 2).reshape(B, Hkv, R, D)
+    if q4.stride(-1) != 1 or any(s % 8 for s in q4.stride()[:-1]) \
+            or q4.data_ptr() % 16:
+        q4 = q4.contiguous()
+    kp, vp = k_pages[int(layer_index)], v_pages[int(layer_index)]
+    table = table.to(device=q.device, dtype=torch.int32).contiguous()
+    kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty((B, Hkv, R, D), dtype=q.dtype, device=q.device)
+    lib = _build.library()
+    work = torch.empty((lib.ti_paged_workspace(B, Hkv, R, max_pages * page,
+                                               D),),
+                       dtype=torch.float32, device=q.device)
+    strides = _build.longlongs(q4.stride(0), q4.stride(1), q4.stride(2))
+    status = lib.ti_paged_attention(
+        q4.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
+        work.data_ptr(), table.data_ptr(), kv_len.data_ptr(), B, Hkv, R, gh,
+        G, P, page, max_pages, D, strides, 1.0 / math.sqrt(D),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, "paged_attention")
+    paged_attention.launches += 1
+    return out.reshape(B, Hkv, G, gh, D).transpose(1, 2).reshape(B, G, Hq, D)
+
+
+paged_attention.launches = 0

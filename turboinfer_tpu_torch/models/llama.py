@@ -111,26 +111,47 @@ def gate_up_proj(h, lw, li):
     return ops.qmatmul(h, lw["w_gate"], li), ops.qmatmul(h, lw["w_up"], li)
 
 
+def _attn_inputs(config: ModelConfig, x: torch.Tensor, lw: Dict[str, Any],
+                 li: int, rope, cache_dtype):
+    """RMSNorm, the q/k/v projections and RoPE of layer li -> q
+    [B, S, Hq, D] and k, v [B, S, Hkv, D] in the cache's dtype."""
+    B, S, _ = x.shape
+    Hq, Hkv, D = config.num_heads, config.kv_heads, config.head_dim_
+    h = ops.rms_norm(x, lw["attn_norm"][li], config.rms_norm_eps)
+    qk, v = qkv_proj(h, lw, li, B, S, Hq, Hkv, D)
+    qk = ops.apply_rope(qk, None, mode=config.rope_mode, tables=rope)
+    return (qk[:, :, :Hq], encode_kv(qk[:, :, Hq:], cache_dtype),
+            encode_kv(v, cache_dtype))
+
+
+def _attn_out_ffn(config: ModelConfig, x: torch.Tensor, attn: torch.Tensor,
+                  lw: Dict[str, Any], li: int) -> torch.Tensor:
+    """Output projection and residual, then RMSNorm -> SwiGLU ->
+    residual, of layer li. attn: [B, S, Hq, D]."""
+    B, S, _ = x.shape
+    attn = attn.reshape(B, S, -1).to(x.dtype)
+    x = x + ops.qmatmul(attn, lw["wo"], li)
+    h = ops.rms_norm(x, lw["ffn_norm"][li], config.rms_norm_eps)
+    gate, up = gate_up_proj(h, lw, li)
+    g = ops.glu(gate, up, config.hidden_act).to(x.dtype)
+    return x + ops.qmatmul(g, lw["w_down"], li)
+
+
 def _layer_forward(config: ModelConfig, x: torch.Tensor, lw: Dict[str, Any],
                    li: int, rope, cache: KVCache, start: torch.Tensor,
                    kv_len: torch.Tensor, fresh_prefill: bool,
-                   decode_slots) -> torch.Tensor:
+                   slots) -> torch.Tensor:
     """One decoder block (RMSNorm -> GQA attention -> residual -> RMSNorm
     -> SwiGLU -> residual) over the stacked cache, which it updates in
-    place at layer li. rope: the forward's RoPE tables; decode_slots:
-    (rows, positions) of the decode step's cache writes."""
-    B, S, _ = x.shape
-    Hq, Hkv, D = config.num_heads, config.kv_heads, config.head_dim_
-    eps = config.rms_norm_eps
+    place at layer li. rope: the forward's RoPE tables; slots: (rows,
+    positions) of a decode step's cache writes, or the host list of a
+    chunked prefill's row starts."""
+    S = x.shape[1]
     T = cache.max_seq
-    h = ops.rms_norm(x, lw["attn_norm"][li], eps)
-    qk, v = qkv_proj(h, lw, li, B, S, Hq, Hkv, D)
-    qk = ops.apply_rope(qk, None, mode=config.rope_mode, tables=rope)
-    q, k = qk[:, :, :Hq], encode_kv(qk[:, :, Hq:], cache.k.dtype)
-    v = encode_kv(v, cache.v.dtype)
+    q, k, v = _attn_inputs(config, x, lw, li, rope, cache.k.dtype)
 
     if S == 1:
-        rows, pos = decode_slots
+        rows, pos = slots
         cache.k[li, rows, :, pos] = k[:, 0]
         cache.v[li, rows, :, pos] = v[:, 0]
         attn = dispatch.attention_decode(q[:, 0], cache.k, cache.v, kv_len,
@@ -145,19 +166,13 @@ def _layer_forward(config: ModelConfig, x: torch.Tensor, lw: Dict[str, Any],
     else:
         # Chunked prefill: per-row writes at start[b], then attend the
         # stacked cache's layer li in place.
-        for b, s0 in enumerate(start.tolist()):
+        for b, s0 in enumerate(slots):
             n = min(S, T - s0)
             cache.k[li, b, :, s0:s0 + n] = k[b, :n].transpose(0, 1)
             cache.v[li, b, :, s0:s0 + n] = v[b, :n].transpose(0, 1)
         attn = dispatch.attention_prefill(q, cache.k, cache.v, kv_len=kv_len,
                                           q_start=start, layer_index=li)
-
-    attn = attn.reshape(B, S, Hq * D).to(x.dtype)
-    x = x + ops.qmatmul(attn, lw["wo"], li)
-    h = ops.rms_norm(x, lw["ffn_norm"][li], eps)
-    gate, up = gate_up_proj(h, lw, li)
-    g = ops.glu(gate, up, config.hidden_act).to(x.dtype)
-    return x + ops.qmatmul(g, lw["w_down"], li)
+    return _attn_out_ffn(config, x, attn, lw, li)
 
 
 def forward(params: Dict[str, Any], config: ModelConfig, tokens: torch.Tensor,
@@ -186,16 +201,84 @@ def forward(params: Dict[str, Any], config: ModelConfig, tokens: torch.Tensor,
                            config.rope_mode, config.rope_scaling)
     # Decode writes one token per row at start[b]; JAX's
     # dynamic_update_slice clamps the offset into the cache, and so does
-    # this indexed write.
-    decode_slots = (torch.arange(B, device=tokens.device),
-                    start.clamp(max=cache.max_seq - 1).long()) \
-        if S == 1 else None
+    # this indexed write. A chunked prefill reads the row starts once.
+    if S == 1:
+        slots = (torch.arange(B, device=tokens.device),
+                 start.clamp(max=cache.max_seq - 1).long())
+    else:
+        slots = None if fresh_prefill else start.tolist()
     layers = params["layers"]
     for li in range(config.num_layers):
         x = _layer_forward(config, x, layers, li, rope, cache, start, kv_len,
-                           fresh_prefill, decode_slots)
+                           fresh_prefill, slots)
     if logit_idx is not None:
         x = x[torch.arange(B, device=x.device), logit_idx.long()][:, None]
     x = ops.rms_norm(x, params["final_norm"], config.rms_norm_eps)
     logits = ops.qmatmul(x, params["lm_head"]).to(torch.float32)
     return logits, cache._replace(length=kv_len)
+
+
+def forward_paged_decode(params: Dict[str, Any], config: ModelConfig,
+                         tokens: torch.Tensor, k_pages: torch.Tensor,
+                         v_pages: torch.Tensor, block_table: torch.Tensor,
+                         lengths: torch.Tensor):
+    """One decode step over the paged pool: tokens [B], the new token of
+    row b written at position lengths[b]. The G=1 case of
+    forward_paged_verify (one decoder body, as in the JAX package).
+    Returns (logits [B, V] f32, k_pages, v_pages)."""
+    logits, kp, vp = forward_paged_verify(params, config, tokens[:, None],
+                                          k_pages, v_pages, block_table,
+                                          lengths)
+    return logits[:, 0], kp, vp
+
+
+def forward_paged_verify(params: Dict[str, Any], config: ModelConfig,
+                         tokens: torch.Tensor, k_pages: torch.Tensor,
+                         v_pages: torch.Tensor, block_table: torch.Tensor,
+                         lengths: torch.Tensor):
+    """G tokens per row in one pass over the paged pool [L, P, Hkv, page,
+    D] (tokens [B, G]: the current token and G-1 drafts). Token g of row
+    b is written at position lengths[b] + g, into page
+    block_table[b, pos // page]; attention runs the paged kernel (decode
+    at G=1, verify above), so each row's prefix is read once for all G
+    queries. The pools are written IN PLACE (JAX returns new ones) and
+    returned. Rollback of rejected drafts is the caller's: their K/V lies
+    past the row's length and is overwritten later.
+    Returns (logits [B, G, V] f32, k_pages, v_pages)."""
+    check_supported(config)
+    B, G = tokens.shape
+    _, P, _, page, _ = k_pages.shape
+    max_pages = block_table.shape[1]
+    dev = tokens.device
+    lengths = lengths.to(device=dev, dtype=torch.int32)
+    positions = lengths[:, None] + torch.arange(G, dtype=torch.int32,
+                                                device=dev)[None, :]
+    kv_len = lengths + G
+    # Page id and offset per (b, g). Table ids clamp into [0, P-1] as in
+    # JAX, so an inactive slot's -1 row writes trash page 0: an unclamped
+    # -1 would wrap to page P-1 and corrupt a live sequence. A position
+    # past the table (JAX's gather fills it) lands in page 0 too.
+    pidx = (positions // page).long()
+    table = block_table.to(device=dev).long()
+    pid = table.gather(1, pidx.clamp(max=max_pages - 1))
+    pid = torch.where(pidx < max_pages, pid, -1).clamp(0, P - 1).reshape(-1)
+    poff = (positions % page).long().reshape(-1)
+
+    x = ops.embed_lookup(params["embed"], tokens, config.dtype)
+    rope = ops.rope_tables(positions, config.head_dim_, config.rope_theta,
+                           config.rope_mode, config.rope_scaling)
+    layers = params["layers"]
+    for li in range(config.num_layers):
+        q, k, v = _attn_inputs(config, x, layers, li, rope, k_pages.dtype)
+        k_pages[li, pid, :, poff] = k.reshape(B * G, *k.shape[2:])
+        v_pages[li, pid, :, poff] = v.reshape(B * G, *v.shape[2:])
+        if G == 1:
+            attn = dispatch.attention_paged_decode(
+                q[:, 0], k_pages, v_pages, block_table, kv_len, li)[:, None]
+        else:
+            attn = dispatch.attention_paged_verify(
+                q, k_pages, v_pages, block_table, kv_len, li)
+        x = _attn_out_ffn(config, x, attn, layers, li)
+    x = ops.rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    logits = ops.qmatmul(x, params["lm_head"]).to(torch.float32)
+    return logits, k_pages, v_pages
