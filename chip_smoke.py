@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port (turboinfer_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7] [--json PATH]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8] [--json PATH]
 
 Phases:
   1. environment: card name and power limit, torch/CUDA versions, and the
      build of the CUDA kernels from csrc/ (timed);
   2. kernels: each hand-written kernel against its plain PyTorch version
      at the shapes of the paths below (the paged kernel at decode G=1 and
-     verify G=5, qmm also at M=40 and M=256), timed with CUDA events
-     beside its bound and one PyTorch library call computing the same
-     function;
+     verify G=5, qmm also at M=40 and M=256, the grouped qmm at
+     Mixtral's expert shapes on the full 256-plane stack, the attention
+     kernels also at Mixtral's GQA Hq=32 Hkv=8 D=128), timed with CUDA
+     events beside its bound and one PyTorch library call computing the
+     same function;
   3. main path: the 7B-shape int4 (g=64) model, 32 layers, random weights
      from a seed, served through InferenceEngine.generate_batch for 8
      prompts of 512 tokens and 128 new tokens, greedy and sampled; every
@@ -26,7 +28,14 @@ Phases:
      launch counts checked step by step;
   7. paged speculative serving: the same model with its first 4 layers
      as the draft, spec_k=4 (verify G=5), 8 greedy requests; verify
-     logits against 5 chained decode steps on the same pages.
+     logits against 5 chained decode steps on the same pages;
+  8. Mixtral-8x7B int4 g=64 at full width and depth (L=32), random
+     weights from a seed: generate_batch at B=1 (prompt 1000, 128 new
+     tokens; decode through the grouped kernel, traced, one step under
+     torch.cuda.set_sync_debug_mode("error")) and at B=8 (prompts 512,
+     64 new; the E-loop), PagedContinuousScheduler with 12 requests, and
+     kernels against plain versions at L=2 (B=1 and B=2); launch counts
+     checked against the structure.
 Exits non-zero on any failure (no CPU fallback). The last stdout line is
 {"ok": true, "device": {...}}; before it come a {"kernels": [...]} line
 and the nvidia-smi name/power-limit line.
@@ -35,6 +44,7 @@ and the nvidia-smi name/power-limit line.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -51,6 +61,7 @@ ROOT_REPLACES = {
     "decode_attention": "turboinfer_tpu/kernels/pallas/decode_attention.py:447",
     "paged_attention": "turboinfer_tpu/kernels/pallas/paged_attention.py:246; "
                        "turboinfer_tpu/kernels/pallas/paged_attention.py:302",
+    "qmm_int4_grouped": "turboinfer_tpu/kernels/pallas/qmm.py:1187",
 }
 SOURCES = {
     "qmm_int4": "turboinfer_tpu_torch/csrc/qmm.cu",
@@ -58,6 +69,7 @@ SOURCES = {
     "cache_write_fresh": "turboinfer_tpu_torch/csrc/cache_write.cu",
     "decode_attention": "turboinfer_tpu_torch/csrc/decode_attention.cu",
     "paged_attention": "turboinfer_tpu_torch/csrc/paged_attention.cu",
+    "qmm_int4_grouped": "turboinfer_tpu_torch/csrc/qmm.cu",
 }
 
 
@@ -184,6 +196,80 @@ def check_qmm(torch, rows, results):
             if name == "w_gateup" and M == 8:
                 results["qmm_int4"] = row
             del data, scales, qt
+
+
+def check_qmm_grouped(torch, rows, results):
+    """qmm_int4_grouped against qmatmul_grouped_plain at Mixtral's expert
+    shapes (G=2 routed experts, M=1) on the full flat stack of L*E = 256
+    planes, so slot 255 lies ~15 GB into the fused gate/up stack;
+    repeated slots, slot 0 and the last slot, and one G=4, M=3 case.
+    Timed beside its byte bound, the plain version, torch.bmm on the two
+    planes dequantized beforehand (gather and dequant excluded), and the
+    two qmm_int4 calls at M=1 that the grouped launch replaces."""
+    from turboinfer_tpu_torch.core.qtensor import QTensor, dequantize
+    from turboinfer_tpu_torch.kernels import qmm
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n, g = 32 * 8, 64
+    for name, K, N in (("we_gateup", 4096, 2 * 14336),
+                       ("we_gate", 4096, 14336), ("we_down", 14336, 4096)):
+        data = torch.randint(0, 256, (n, K // 2, N), generator=gen,
+                             dtype=torch.uint8, device="cuda")
+        scales = (0.005 + 0.01 * torch.rand((n, K // g, N), generator=gen,
+                                            device="cuda")).to(torch.bfloat16)
+        qt = QTensor(data=data, scales=scales, zero_points=None, bits=4,
+                     group_size=g, shape=(K, N))
+        cases = [(2, 1, [17, 200]), (2, 1, [0, n - 1]), (2, 1, [n - 1] * 2)]
+        if name == "we_gate":
+            cases.append((4, 3, [5, n - 1, 0, 5]))
+        worst = (0.0, 0.0)
+        for G, M, sl in cases:
+            x = torch.randn((G, M, K), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            slots = torch.tensor(sl, dtype=torch.int32, device="cuda")
+            got = qmm.qmm_int4_grouped(x, qt, slots)
+            want = qmm.qmatmul_grouped_plain(x, qt, slots)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = 2e-2 * want.float().abs().max().item()
+            need(err <= tol, f"qmm_int4_grouped {name} G={G} M={M} slots "
+                             f"{sl}: max_abs_err {err} > {tol}")
+            worst = max(worst, (err, tol))
+            say(f"  qmm_int4_grouped {name} K={K} N={N} G={G} M={M} slots "
+                f"{sl}: max_abs_err={err:.4g} (tol {tol:.3g})")
+        # timing: G=2, M=1, a different slot pair at every call
+        pairs_host = [[(37 * i) % n, (37 * i + 101) % n] for i in range(20)]
+        pairs = [torch.tensor(p, dtype=torch.int32, device="cuda")
+                 for p in pairs_host]
+        x = torch.randn((2, 1, K), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        ms = cuda_ms(torch, lambda i: qmm.qmm_int4_grouped(x, qt, pairs[i]),
+                     20)
+        plain_ms = cuda_ms(torch, lambda i: qmm.qmatmul_grouped_plain(
+            x, qt, pairs[i]), 4, reps=3)
+        loop_ms = cuda_ms(torch, lambda i: [
+            qmm.qmm_int4(x[j], qt, pairs_host[i][j]) for j in range(2)], 20)
+        idx = torch.tensor([17, 200], device="cuda")
+        wd = dequantize(QTensor(data=data[idx], scales=scales[idx],
+                                zero_points=None, bits=4, group_size=g,
+                                shape=(K, N)), torch.bfloat16)
+        lib_ms = cuda_ms(torch, lambda i: torch.bmm(x, wd), 20)
+        G, M = 2, 1
+        nbytes = G * (K // 2 * N + K // g * N * 2) + G * M * (K + N) * 2
+        b, by = bound_ms(nbytes, 2.0 * G * M * K * N)
+        row = dict(kernel="qmm_int4_grouped",
+                   shape=f"{name} G=2 M=1 K={K} N={N} (stack of {n})",
+                   max_abs_err=worst[0], tol=worst[1], ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, per_slot_loop_ms=loop_ms, bound_ms=b,
+                   bound_by=by)
+        rows.append(row)
+        say(f"  qmm_int4_grouped {row['shape']}: kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}) library_ms="
+            f"{lib_ms:.4f} (bmm, dequantized planes) two_qmm_int4_ms="
+            f"{loop_ms:.4f}")
+        if name == "we_gateup":
+            results["qmm_int4_grouped"] = row
+        del data, scales, qt, wd
+        torch.cuda.empty_cache()
 
 
 def _attn_mask(torch, B, S, T, kv_len, q_start):
@@ -429,6 +515,18 @@ def phase_kernels(torch, report):
                 3, record=False)
     check_paged(torch, F, rows, results, 2, 4, 4, 32, 8, 40, [5, 130], 2,
                 record=False)
+    check_qmm_grouped(torch, rows, results)
+    # Mixtral's GQA shape (Hq=32, Hkv=8, D=128) on the attention kernels
+    check_flash(torch, F, rows, results, 1, 32, 8, 1024, 128, [1000],
+                record=False)
+    check_flash(torch, F, rows, results, 8, 32, 8, 512, 128,
+                [512, 500, 384, 300, 257, 128, 64, 1], record=False)
+    check_decode(torch, F, rows, results, 1, 32, 8, 2048, 128, [1128],
+                 record=False)
+    check_decode(torch, F, rows, results, 8, 32, 8, 2048, 128,
+                 [513, 1, 575, 560, 530, 600, 512, 575], record=False)
+    check_paged(torch, F, rows, results, 8, 32, 8, 128, 256, 33, paged_lens,
+                1, record=False)
     report["kernel_rows"] = rows
     return results
 
@@ -438,6 +536,7 @@ def phase_kernels(torch, report):
 def expected_launches(L: int, decode_forwards: int, prefills: int = 1):
     per_fwd = 4 * L + 1
     return {"qmm_int4": per_fwd * (prefills + decode_forwards),
+            "qmm_int4_grouped": 0,
             "flash_prefill": L * prefills,
             "cache_write_fresh": L * prefills,
             "decode_attention": L * decode_forwards,
@@ -825,9 +924,9 @@ def phase_serving(torch, report):
         now = kernels.launch_counts()
         d = {k: now[k] - prev[k] for k in now}
         prev = now
-        want = {"qmm_int4": per_fwd * (adm + 1), "flash_prefill": L * adm,
-                "cache_write_fresh": 0, "decode_attention": 0,
-                "paged_attention": L}
+        want = {"qmm_int4": per_fwd * (adm + 1), "qmm_int4_grouped": 0,
+                "flash_prefill": L * adm, "cache_write_fresh": 0,
+                "decode_attention": 0, "paged_attention": L}
         need(d == want, f"step {steps} ({adm} admissions): launches {d} != "
                         f"{want}")
         if adm == 0:
@@ -890,7 +989,9 @@ def phase_serving(torch, report):
     out["decode_trace"] = trace_steps(torch, sched.step, 8, "paged decode")
     sched.run()
     report["paged_serving"] = out
-    del sched
+    # the recording wrapper closes over sched (a reference cycle that
+    # would keep the weights and the pool alive until a gc pass)
+    del sched._paged_prefill, sched
     torch.cuda.empty_cache()
     return counts
 
@@ -976,9 +1077,286 @@ def phase_speculative(torch, report):
     torch.cuda.empty_cache()
 
 
+# -- phase 8 ---------------------------------------------------------------
+
+def moe_expected(L: int, E: int, U: int, prefills: int, decodes: int,
+                 grouped: bool):
+    """Launches of `prefills` prefill and `decodes` decode forwards of the
+    MoE model: qmm 2L+1 per forward (wqkv, wo, head) plus U*E*L for the
+    E-loop (every prefill; decode at B > 1), the grouped kernel U*L per
+    decode at B=1 (U = 2 expert products with we_gateup fused, else 3)."""
+    loop = U * E * L
+    return {"qmm_int4": (2 * L + 1) * (prefills + decodes) + loop * prefills
+            + (0 if grouped else loop * decodes),
+            "qmm_int4_grouped": U * L * decodes if grouped else 0,
+            "flash_prefill": L * prefills, "cache_write_fresh": L * prefills,
+            "decode_attention": L * decodes, "paged_attention": 0}
+
+
+def path_logits(torch, eng, prompts):
+    """Prefill and one greedy decode step of generate_batch's path: both
+    logits finite and [B, V]."""
+    B, V = len(prompts), eng.model_config.vocab_size
+    tokens, seq_lens, _ = eng._pad_batch(prompts)
+    cache = eng._take_cache(B)
+    logits, cache = eng._run_prefill(tokens, seq_lens, cache)
+    step, cache = eng._decode_step(logits.argmax(-1).to(torch.int32), cache)
+    eng._put_cache(B, cache)
+    torch.cuda.synchronize()
+    need(tuple(logits.shape) == (B, V) and tuple(step.shape) == (B, V)
+         and bool(torch.isfinite(logits).all())
+         and bool(torch.isfinite(step).all()),
+         f"B={B}: logits not finite or not [B, V]")
+    say(f"  B={B} logits finite: prefill max|x|="
+        f"{logits.abs().max().item():.3f}, decode step max|x|="
+        f"{step.abs().max().item():.3f}")
+
+
+def sync_free_step(torch, kernels, eng, prompt, want):
+    """One B=1 decode step (the forward and the greedy pick) under
+    torch.cuda.set_sync_debug_mode("error"): routing, the slots and the
+    grouped launches must not make the host wait. Returns the wrappers'
+    launches in that step, checked against `want`."""
+    from turboinfer_tpu_torch.engine import sampling
+    tokens, seq_lens, _ = eng._pad_batch([prompt])
+    cache = eng._take_cache(1)
+    logits, cache = eng._run_prefill(tokens, seq_lens, cache)
+    tok = logits.argmax(-1).to(torch.int32)
+    greedy = sampling.SamplingParams(temperature=0.0)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lg, cache = eng._decode_step(tok, cache)
+        sampling.sample(eng._gen, lg, greedy)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = kernels.launch_counts()
+    eng._put_cache(1, cache)
+    need(counts == want, f"one B=1 decode step: launches {counts} != {want}")
+    say(f"  one B=1 decode step under sync debug mode 'error': no host "
+        f"sync; launches {counts}")
+    return counts
+
+
+def mixtral_paged(torch, kernels, params, cfg, U, report_out):
+    """(c): PagedContinuousScheduler, 8 slots, 256-token pages, max_seq
+    1024; 12 requests at once, 6 sharing a 512-token prefix."""
+    from turboinfer_tpu_torch.config import InferenceConfig
+    from turboinfer_tpu_torch.engine.scheduler import PagedContinuousScheduler
+    L, E, T, B, PAGE = cfg.num_layers, cfg.num_experts, 1024, 8, 256
+    sched = PagedContinuousScheduler(
+        params, cfg, InferenceConfig(max_seq_len=T, temperature=0.8, top_k=50, top_p=0.9,
+                        seed=0, eos_token_id=-1),
+        batch_slots=B, page_size=PAGE, device="cuda")
+    gen = torch.Generator().manual_seed(8)
+
+    def rand(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+    system = rand(2 * PAGE)
+    shared = [system + rand(n) for n in torch.linspace(16, 188, 6).long().tolist()]
+    unique = [rand(n) for n in torch.linspace(64, 700, 6).long().tolist()]
+    reqs = [r for pair in zip(unique, shared) for r in pair]
+    max_new = torch.linspace(32, 64, 12).long().tolist()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [sched.submit(r, n, **({"temperature": 0.0} if i % 2 else {}))
+            for i, (r, n) in enumerate(zip(reqs, max_new))]
+    kernels.reset_launch_counts()
+    prev = kernels.launch_counts()
+    per_fwd = 2 * L + 1 + U * E * L
+    decode_ms, steps = [], 0
+    while sched.pending:
+        q0 = len(sched._queue)
+        ts = time.perf_counter()
+        sched.step()
+        dt = (time.perf_counter() - ts) * 1e3
+        adm = q0 - len(sched._queue)
+        now = kernels.launch_counts()
+        d = {k: now[k] - prev[k] for k in now}
+        prev = now
+        want = {"qmm_int4": per_fwd * (adm + 1), "qmm_int4_grouped": 0,
+                "flash_prefill": L * adm, "cache_write_fresh": 0,
+                "decode_attention": 0, "paged_attention": L}
+        need(d == want, f"paged step {steps} ({adm} admissions): launches "
+                        f"{d} != {want}")
+        if adm == 0:
+            decode_ms.append(dt)
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    res = sched.run()
+    need(len(res) == 12 and all(
+        res[i].finished and res[i].stop_reason in ("length", "eos", "max_seq")
+        and len(res[i].tokens) == len(r) + n
+        and all(0 <= t < cfg.vocab_size for t in res[i].tokens)
+        for i, r, n in zip(rids, reqs, max_new)),
+        "paged Mixtral: a request did not end as expected")
+    need(sched.pool.hits > 0, "paged Mixtral: no prefix-cache hits")
+    need(sched.pool.live_pages == 1
+         and sched.pool.available == sched.pool.num_pages - 1,
+         f"paged Mixtral: pages leaked: {sched.pool.live_pages} live, "
+         f"{sched.pool.available} available of {sched.pool.num_pages}")
+    new_tokens = sum(max_new)
+    prefill_ms = [r.prefill_time_ms for r in res.values()]
+    out = dict(requests=12, steps=steps, wall_s=wall,
+               requests_per_s=12 / wall, tokens_per_s=new_tokens / wall,
+               new_tokens=new_tokens,
+               prefill_ms_median=statistics.median(prefill_ms),
+               prefill_ms_p90=pct(prefill_ms, 0.9),
+               decode_ms_per_step_median=statistics.median(decode_ms),
+               launches=counts, prefix_hits=sched.pool.hits,
+               prefix_misses=sched.pool.misses)
+    say(f"  (c) paged: 12 requests in {wall:.3f} s over {steps} steps: "
+        f"{out['requests_per_s']:.3f} req/s, {out['tokens_per_s']:.1f} tok/s "
+        f"({new_tokens} new tokens); prefill_ms median "
+        f"{out['prefill_ms_median']:.2f} p90 {out['prefill_ms_p90']:.2f}; "
+        f"decode {out['decode_ms_per_step_median']:.3f} ms/step (median of "
+        f"{len(decode_ms)}); prefix hits {sched.pool.hits}; no page leaked; "
+        f"launches {counts}, as expected at every step")
+    report_out["paged"] = out
+    del sched
+
+
+def mixtral_vs_plain(torch, report_out):
+    """(d): the kernels against their plain versions on the MoE path:
+    Mixtral's full width at L=2, prefill and first-decode logits at B=1
+    (decode through the grouped kernel) and B=2 (the E-loop)."""
+    from turboinfer_tpu_torch import kernels
+    from turboinfer_tpu_torch.config import mixtral_config
+    from turboinfer_tpu_torch.kernels.dispatch import prepare_params
+    from turboinfer_tpu_torch.loader.synthetic import \
+        create_synthetic_quantized_model
+    from turboinfer_tpu_torch.models import moe
+    from turboinfer_tpu_torch.models.common import params_to
+    L, T = 2, 256
+    cfg = mixtral_config(num_layers=L, max_seq_len=T)
+    params = prepare_params(create_synthetic_quantized_model(
+        cfg, bits=4, group_size=64, device="cuda", seed=1).params)
+    cpu_params = params_to(params, "cpu")
+    gen = torch.Generator().manual_seed(9)
+    out = {}
+    for B, lens in ((1, [61]), (2, [64, 37])):
+        S = max(lens)
+        tok = torch.zeros((B, S), dtype=torch.int32)
+        for b, n in enumerate(lens):
+            tok[b, :n] = torch.randint(1, cfg.vocab_size, (n,), generator=gen)
+        seq = torch.tensor(lens, dtype=torch.int32)
+        idx = seq - 1
+        res = {}
+        for dev, p in (("cuda", params), ("cpu", cpu_params)):
+            cache = moe.init_cache(cfg, B, max_seq=T, device=dev)
+            lg, cache = moe.forward(p, cfg, tok.to(dev), cache,
+                                    seq_lens=seq.to(dev),
+                                    logit_idx=idx.to(dev), fresh_prefill=True)
+            res[dev] = [lg[:, 0].float().cpu(), cache]
+        nxt = res["cuda"][0].argmax(-1).to(torch.int32)[:, None]
+        for dev, p in (("cuda", params), ("cpu", cpu_params)):
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+            lg, _ = moe.forward(p, cfg, nxt.to(dev), res[dev][1])
+            if dev == "cuda":
+                step_counts = kernels.launch_counts()
+            res[dev].append(lg[:, 0].float().cpu())
+        need(step_counts["qmm_int4_grouped"] == (2 * L if B == 1 else 0),
+             f"L=2 B={B} decode: launches {step_counts}")
+        for i, name in ((0, "prefill"), (2, "decode_step")):
+            a, b_ = res["cuda"][i], res["cpu"][i]
+            err = (a - b_).abs().max().item()
+            ref = b_.abs().max().item()
+            tol = 5e-2 * ref
+            need(bool(torch.isfinite(a).all()) and err <= tol,
+                 f"Mixtral L=2 B={B} {name}: kernel vs plain max_abs_err "
+                 f"{err} > {tol}")
+            agree = (a.argmax(-1) == b_.argmax(-1)).float().mean().item()
+            out[f"B{B}_{name}"] = dict(max_abs_err=err, tol=tol,
+                                       max_abs_logit=ref,
+                                       greedy_agreement=agree)
+            say(f"  (d) L=2 B={B} {name}: logits max_abs_err={err:.4g} (tol "
+                f"{tol:.3g}, max|logit|={ref:.3g}) greedy agreement "
+                f"{agree:.3f}")
+    report_out["vs_plain"] = out
+    del params, cpu_params
+    torch.cuda.empty_cache()
+
+
+def phase_mixtral(torch, report):
+    from turboinfer_tpu_torch import kernels
+    from turboinfer_tpu_torch.config import InferenceConfig, mixtral_config
+    from turboinfer_tpu_torch.engine.engine import InferenceEngine
+    from turboinfer_tpu_torch.kernels.dispatch import prepare_params
+    from turboinfer_tpu_torch.loader.synthetic import \
+        create_synthetic_quantized_model
+    cfg = mixtral_config(max_seq_len=2048)      # every width and layer
+    L, E, T = cfg.num_layers, cfg.num_experts, cfg.max_seq_len
+    say(f"phase 8: Mixtral-8x7B int4 g=64, L={L}, bf16, synthetic on the "
+        "device")
+    gc.collect()                    # nothing of the 7B phases may stay
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    params = prepare_params(create_synthetic_quantized_model(
+        cfg, bits=4, group_size=64, device="cuda", seed=0).params)
+    U = 2 if "we_gateup" in params["layers"] else 3
+    eng = InferenceEngine(params, cfg, InferenceConfig(
+        max_seq_len=T, temperature=0.0, seed=0, eos_token_id=-1,
+        measure_ttft=True), device="cuda")
+    torch.cuda.synchronize()
+    say(f"  model built in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        f"({base_gib:.2f} before the build), peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB while fusing; "
+        f"{U} expert products per expert (we_gateup fused: {U == 2})")
+    torch.cuda.reset_peak_memory_stats()
+    out = dict(config=f"mixtral-8x7b int4 g=64 L={L} E={E} top-2", U=U)
+    gen = torch.Generator().manual_seed(10)
+    # (a) B=1: prompt 1000, 128 new tokens
+    prompt = torch.randint(1, cfg.vocab_size, (1000,), generator=gen).tolist()
+    path_logits(torch, eng, [prompt])
+    res, counts, stats = run_counted(torch, kernels, eng, [prompt], 128,
+                                     "(a) B=1 greedy")
+    want = moe_expected(L, E, U, 1, 127, grouped=True)
+    need(counts == want, f"(a) launch counts {counts} != {want}")
+    need(len(res[0].tokens) == 1128, "(a) wrong number of tokens")
+    stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    stats["step_launches"] = sync_free_step(
+        torch, kernels, eng, prompt, moe_expected(L, E, U, 0, 1, True))
+    stats["decode_trace"] = trace_decode(torch, eng, [prompt])
+    say(f"  (a) launches as expected: {want}; peak {stats['peak_gib']:.2f} "
+        f"GiB")
+    out["b1"] = stats
+    # (b) B=8: prompts 512, 64 new tokens
+    prompts = torch.randint(1, cfg.vocab_size, (8, 512), generator=gen).tolist()
+    path_logits(torch, eng, prompts)
+    res, counts, stats = run_counted(torch, kernels, eng, prompts, 64,
+                                     "(b) B=8 greedy")
+    want = moe_expected(L, E, U, 1, 63, grouped=False)
+    need(counts == want, f"(b) launch counts {counts} != {want}")
+    need(all(len(r.tokens) == 512 + 64 for r in res),
+         "(b) wrong number of tokens")
+    stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    stats["decode_trace"] = trace_decode(torch, eng, prompts)
+    say(f"  (b) launches as expected: {want}; peak {stats['peak_gib']:.2f} "
+        f"GiB")
+    out["b8"] = stats
+    del eng
+    torch.cuda.empty_cache()
+    # (c) paged serving on the same weights
+    mixtral_paged(torch, kernels, params, cfg, U, out)
+    del params
+    torch.cuda.empty_cache()
+    # (d) kernels against plain versions on the path, L=2
+    mixtral_vs_plain(torch, out)
+    report["mixtral"] = out
+    return out["b1"]["launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8")
     ap.add_argument("--json", default=None,
                     help="also write every measurement to this JSON file")
     args = ap.parse_args(argv)
@@ -1024,6 +1402,7 @@ def main(argv=None) -> int:
         paged_launches = phase_serving(torch, report) if 6 in phases else {}
         if 7 in phases:
             phase_speculative(torch, report)
+        moe_launches = phase_mixtral(torch, report) if 8 in phases else {}
     except (SmokeError, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         if args.json:
@@ -1032,11 +1411,13 @@ def main(argv=None) -> int:
         return 1
 
     # launches: each kernel's count from the run of its path, the paged
-    # kernel from phase 6's serving run, the others from phase 3's
+    # kernel from phase 6's serving run, the grouped qmm from phase 8(a)'s
+    # Mixtral B=1 run, the others from phase 3's
     kern = []
     for name in kernels.wrappers():
         r = results.get(name, {})
-        path = paged_launches if name == "paged_attention" else main_launches
+        path = {"paged_attention": paged_launches,
+                "qmm_int4_grouped": moe_launches}.get(name, main_launches)
         kern.append({"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": ROOT_REPLACES[name],
                      "launches": path.get(name, 0),

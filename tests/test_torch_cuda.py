@@ -37,8 +37,73 @@ def test_cuda_qmm_matches_plain(M, K, N):
     assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
 
 
+def _expert_stack(gen, n, K, N):
+    """A flat [n, K/2, N] int4 stack with random bytes and scales."""
+    return QTensor(data=torch.randint(0, 256, (n, K // 2, N), generator=gen,
+                                      dtype=torch.uint8, device="cuda"),
+                   scales=(0.005 + 0.01 * torch.rand(
+                       (n, K // 64, N), generator=gen, device="cuda")
+                   ).to(torch.bfloat16),
+                   zero_points=None, bits=4, group_size=64, shape=(K, N))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,Hq,Hkv", [(32, 4, 4), (64, 8, 2), (128, 2, 1)])
+@pytest.mark.parametrize("G,M,K,N,slots", [
+    (2, 1, 256, 512, [5, 0]), (2, 1, 1024, 136, [3, 3]),
+    (3, 1, 512, 384, [11, 0, 11]), (4, 3, 256, 256, [2, 9, 0, 7]),
+    (2, 16, 128, 64, [1, 4]), (2, 1, 256, 64, [-3, 99])])
+def test_cuda_qmm_grouped_matches_plain(G, M, K, N, slots):
+    """The grouped kernel reads each group's slot on the device: first
+    and last planes, repeated slots, up to 16 rows per group, and
+    out-of-range ids clamped into the stack as the plain version
+    clamps them."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(G * M + K)
+    qt = _expert_stack(gen, 12, K, N)
+    x = torch.randn((G, M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    s = torch.tensor(slots, dtype=torch.int32, device="cuda")
+    before = qmm.qmm_int4_grouped.launches
+    got = qmm.qmm_int4_grouped(x, qt, s).float()
+    want = qmm.qmatmul_grouped_plain(x, qt, s).float()
+    assert got.shape == (G, M, N) and qmm.qmm_int4_grouped.launches == before + 1
+    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+    # each group equals the dense kernel on its (clamped) plane
+    for g, sl in enumerate(slots):
+        one = qmm.qmm_int4(x[g], qt, min(max(sl, 0), 11)).float()
+        assert (got[g] - one).abs().max().item() <= \
+            2e-2 * one.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_qmm_grouped_refuses_unsupported_inputs():
+    _need_cuda()
+    from turboinfer_tpu_torch.utils.errors import KernelError
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    qt = _expert_stack(gen, 4, 128, 64)
+    s = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
+    x = torch.randn((2, 1, 128), device="cuda").to(torch.bfloat16)
+    with pytest.raises(KernelError):          # M = 17 > 16 rows per group
+        qmm.qmm_int4_grouped(torch.zeros((2, 17, 128), dtype=torch.bfloat16,
+                                         device="cuda"), qt, s)
+    int8 = QTensor(data=torch.zeros((4, 128, 64), dtype=torch.int8,
+                                    device="cuda"), scales=qt.scales,
+                   zero_points=None, bits=8, group_size=64, shape=(128, 64))
+    with pytest.raises(KernelError):          # int8 weights
+        qmm.qmm_int4_grouped(x, int8, s)
+    four_d = QTensor(data=qt.data.reshape(2, 2, 64, 64),
+                     scales=qt.scales.reshape(2, 2, 2, 64), zero_points=None,
+                     bits=4, group_size=64, shape=(128, 64))
+    with pytest.raises(KernelError):          # an unflattened expert stack
+        qmm.qmm_int4_grouped(x, four_d, s)
+    with pytest.raises(KernelError):          # slots on the host
+        qmm.qmm_int4_grouped(x, qt, s.cpu())
+    assert torch.equal(qmm.qmm_int4_grouped(x, four_d.flat(), s),
+                       qmm.qmm_int4_grouped(x, qt, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Hq,Hkv", [(32, 4, 4), (64, 8, 2), (128, 2, 1),
+                                      (128, 32, 8)])
 def test_cuda_attention_kernels_match_plain(D, Hq, Hkv):
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(D)
@@ -91,6 +156,7 @@ def test_cuda_flash_prefill_stacked_chunk_matches_plain(D, Hq, Hkv):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D,Hq,Hkv,page,G", [(128, 32, 32, 256, 1),
+                                             (128, 32, 8, 256, 1),
                                              (128, 8, 8, 256, 5),
                                              (64, 8, 2, 16, 3),
                                              (32, 4, 4, 8, 2),

@@ -91,6 +91,46 @@ def test_qmm_2d_plain_matches_pallas(M):
                                rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("slots", [[4, 0, 2], [3, 3, 1]])
+def test_qmm_grouped_plain_matches_pallas(slots):
+    """qmatmul_grouped_plain (what qmm_int4_grouped runs on the CPU)
+    against qmatmul_pallas_grouped in interpret mode, as
+    tests/test_kernels.py runs it: G=3 slots of a 5-plane int4 stack,
+    different activations per group, then with a repeated slot."""
+    rng = _rng(sum(slots))
+    L, K, N, G = 5, 512, 384, 3
+    jqt, tqt = _stacked_int4(rng, L, K, N)
+    xg = rng.normal(size=(G, 1, K)).astype(np.float32)
+    s = np.asarray(slots, np.int32)
+    want = jqmm.qmatmul_pallas_grouped(jnp.asarray(xg), jqt, jnp.asarray(s),
+                                       interpret=True)
+    got = qmm.qmm_int4_grouped(torch.from_numpy(xg), tqt, torch.from_numpy(s))
+    assert got.shape == (G, 1, N) and got.dtype == torch.float32
+    assert _rel(got.numpy(), want) < KERNEL_RTOL
+    for g, sl in enumerate(slots):         # and each group on its own plane
+        np.testing.assert_allclose(
+            got[g].numpy(), qmm.qmatmul_plain(torch.from_numpy(xg[g]), tqt,
+                                              sl).numpy(), rtol=1e-5,
+            atol=1e-4)
+
+
+def test_qmatmul_grouped_fp_and_dispatch_match_jax():
+    """ops.qmatmul_grouped: the fp gather-and-batch path, and QTensors
+    through the dispatch, against the JAX package's ops.qmatmul_grouped."""
+    rng = _rng(71)
+    jqt, tqt = _stacked_int4(rng, 4, 256, 128)
+    w = rng.normal(size=(4, 256, 128)).astype(np.float32)
+    xg = rng.normal(size=(2, 3, 256)).astype(np.float32)
+    s = np.asarray([3, 1], np.int32)
+    for jw, tw in ((jnp.asarray(w), torch.from_numpy(w)), (jqt, tqt)):
+        want = jops.qmatmul_grouped(jnp.asarray(xg), jw, jnp.asarray(s))
+        got = ops.qmatmul_grouped(torch.from_numpy(xg), tw,
+                                  torch.from_numpy(s))
+        assert got.shape == (2, 3, 128)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-4)
+
+
 def test_prefill_plain_matches_pallas():
     rng = _rng(20)
     B, S, Hq, Hkv, D = 2, 16, 4, 2, 64
@@ -177,7 +217,12 @@ def test_cpu_wrappers_never_launch():
     x = torch.randn(3, 128)
     qt = quantize(torch.randn(128, 16), QuantType.INT4)
     qmm.qmm_int4(x, qt)
-    assert kernels.launch_counts() == {"qmm_int4": 0, "flash_prefill": 0,
+    stack = QTensor(data=qt.data[None].expand(2, -1, -1),
+                    scales=qt.scales[None].expand(2, -1, -1),
+                    zero_points=None, bits=4, group_size=64, shape=qt.shape)
+    qmm.qmm_int4_grouped(x[:2, None], stack, torch.tensor([1, 0]))
+    assert kernels.launch_counts() == {"qmm_int4": 0, "qmm_int4_grouped": 0,
+                                       "flash_prefill": 0,
                                        "cache_write_fresh": 0,
                                        "decode_attention": 0,
                                        "paged_attention": 0}

@@ -176,3 +176,14 @@ def llama7b_config(**kw) -> ModelConfig:
                 rope_theta=10000.0, name="llama-7b")
     base.update(kw)
     return ModelConfig(**base)
+
+
+def mixtral_config(**kw) -> ModelConfig:
+    """Mixtral-8x7B shape: 32 layers, 8 experts, top-2 routing."""
+    base = dict(vocab_size=32000, hidden_size=4096, num_layers=32,
+                num_heads=32, num_kv_heads=8, intermediate_size=14336,
+                num_experts=8, experts_per_token=2, max_seq_len=4096,
+                rope_theta=1000000.0, architecture="mixtral",
+                name="mixtral-8x7b")
+    base.update(kw)
+    return ModelConfig(**base)

@@ -6,8 +6,9 @@ quantized weight crosses between the two packages unchanged:
     scale group: of a group's g rows, the first g/2 go to the LOW nibbles
     of the group's g/2 bytes and the last g/2 to the HIGH nibbles, each
     offset by +8 so the nibbles are unsigned.
-  - scales are [G, N] for a 2-D weight and [L, G, N] for a layer stack,
-    G = K / group_size; dequant is (q - zp) * scale.
+  - scales are [G, N] for a 2-D weight, [L, G, N] for a layer stack and
+    [L, E, G, N] for a stack of MoE experts, G = K / group_size; dequant
+    is (q - zp) * scale.
 Symmetric absmax quantization:
   int8: scale = absmax/127, q = clip(round(x/scale), -127, 127)
   int4: scale = absmax/7,   q = clip(round(x/scale), -7, 7)
@@ -56,8 +57,9 @@ class QTensor:
     """A quantized weight of logical shape (K, N), K the contraction axis.
 
     data:   int8 [K, N] (bits=8) or packed uint8 [K/2, N] (bits=4), with
-            a leading [L] axis for a stack of layers
-    scales: [G, N] (or [L, G, N]) float
+            a leading [L] axis for a stack of layers, or [L, E] for the
+            experts of a MoE model (flat() views those as an [L*E] stack)
+    scales: [G, N] (or [L, G, N], [L, E, G, N]) float
     zero_points: optional, same shape as scales (None for symmetric)
     """
 
@@ -74,11 +76,27 @@ class QTensor:
 
     def layer(self, li: int) -> "QTensor":
         """Layer `li` of a stacked QTensor, as views (no copy)."""
+        if self.data.dim() == 4:
+            raise ValueError("a 4-D expert stack has no layer view; index "
+                             "slot layer*E + expert of flat()")
         if not self.stacked:
             return self
         zp = None if self.zero_points is None else self.zero_points[li]
         return QTensor(data=self.data[li], scales=self.scales[li],
                        zero_points=zp, bits=self.bits,
+                       group_size=self.group_size, shape=self.shape)
+
+    def flat(self) -> "QTensor":
+        """A 4-D expert stack [L, E, ...] as the flat [L*E, ...] stack
+        the kernels index by slot layer*E + expert: a free reshape of
+        contiguous data. Any other QTensor is returned as it is."""
+        if self.data.dim() != 4:
+            return self
+
+        def flat(a):
+            return None if a is None else a.reshape((-1,) + a.shape[2:])
+        return QTensor(data=flat(self.data), scales=flat(self.scales),
+                       zero_points=flat(self.zero_points), bits=self.bits,
                        group_size=self.group_size, shape=self.shape)
 
     def to(self, device) -> "QTensor":
@@ -155,7 +173,8 @@ def quantize(w: torch.Tensor, qtype: QuantType, *, group_size: int = 64,
 
 
 def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
-    """Reconstruct the fp weight [K, N] (or [L, K, N] for a stack)."""
+    """Reconstruct the fp weight [K, N] (or [L, K, N] / [L, E, K, N] for
+    a stack)."""
     K, N = qt.shape
     g = qt.group_size
     lead = tuple(qt.data.shape[:-2])

@@ -1,10 +1,21 @@
-// qmm_int4: y[M, N] = x[M, K] @ dequant(W), W group-wise int4.
+// qmm_int4: y[M, N] = x[M, K] @ dequant(W), W group-wise int4, and its
+// grouped form qmm_int4_grouped: y[g] = x[g] @ dequant(W[slots[g]]).
 //
 // Replaces the TPU kernels turboinfer_tpu/kernels/pallas/qmm.py
 // qmatmul_pallas_stacked (_qmm_stacked, _kernel_int4_idx) and
 // qmatmul_pallas (_qmm_2d, _kernel_int4). The layer of a stacked
 // [L, K/2, N] weight is chosen by the caller's pointer offset; the kernel
 // sees one [K/2, N] plane.
+//
+// The grouped entry replaces qmatmul_pallas_grouped (_qmm_grouped,
+// _kernel_int4_grp): MoE decode's k routed experts, G data-dependent
+// planes of the flat [L*E, K/2, N] expert stack, in ONE launch. It is
+// the GEMV body below with a group axis folded into blockIdx.z: each
+// block reads its group's slot id from device memory (no host sync),
+// clamps it into [0, L*E - 1] so a bad id never reads outside the
+// stack, and offsets the weight and scale pointers by that plane and x,
+// y and the split-K partials by the group's rows. Bound: bytes again,
+// G planes of (K/2 + 2K/g) * N bytes per call (M <= 16 only).
 //
 // Weight format (the JAX package's, byte for byte): packed byte row r
 // belongs to scale group j = r / (g/2) at offset o = r % (g/2); its low
@@ -63,21 +74,39 @@ __device__ __forceinline__ float scale_at(const uint4& sv, int b) {
   return (b & 1) ? __high2float(sp[b >> 1]) : __low2float(sp[b >> 1]);
 }
 
-template <int MT>
+// kGrouped: blockIdx.z runs over (group, M tile) pairs; group grp uses
+// plane slots[grp] of the [nslots, K/2, N] stack and rows grp*M ..
+// grp*M + M - 1 of x, y and the partials ([splits, G*M, N]).
+template <int MT, bool kGrouped>
 __global__ void __launch_bounds__(kGemvThreads, 2)
 qmm_gemv_kernel(const __nv_bfloat16* __restrict__ x,
                 const uint8_t* __restrict__ w,
                 const __nv_bfloat16* __restrict__ s,
+                const int* __restrict__ slots, int nslots,
                 __nv_bfloat16* __restrict__ y, float* __restrict__ partial,
                 int M, int K, int N, int g) {
   __shared__ __nv_bfloat162 xs[MT][kGemvRows];
   __shared__ float red[kGemvThreads / 32][MT][kGemvBN];
 
+  int mt = blockIdx.z, row0 = 0, rows = M;
+  if (kGrouped) {
+    const int mtiles = (M + MT - 1) / MT;
+    const int grp = blockIdx.z / mtiles;
+    mt = blockIdx.z - grp * mtiles;
+    row0 = grp * M;
+    rows = (gridDim.z / mtiles) * M;
+    const int slot = min(max(slots[grp], 0), nslots - 1);
+    w += (size_t)slot * (size_t)(K >> 1) * N;
+    s += (size_t)slot * (size_t)(K / g) * N;
+  }
+  x += (size_t)row0 * K;
+  y += (size_t)row0 * N;
+
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int cg = lane & 7;                 // column group in the strip
   const int rl = warp * 4 + (lane >> 3);   // row lane in the block, 0..31
   const int n0 = blockIdx.x * kGemvBN + cg * 8;
-  const int m0 = blockIdx.z * MT;
+  const int m0 = mt * MT;
   const int half = g >> 1;
   const int r0 = blockIdx.y * kGemvRows;
   const int nrows = min(kGemvRows, (K >> 1) - r0);
@@ -180,7 +209,7 @@ qmm_gemv_kernel(const __nv_bfloat16* __restrict__ x,
     if (gridDim.y == 1)
       y[(size_t)mm * N + n] = __float2bfloat16(v);
     else
-      partial[((size_t)blockIdx.y * M + mm) * N + n] = v;
+      partial[((size_t)blockIdx.y * rows + row0 + mm) * N + n] = v;
   }
 }
 
@@ -327,19 +356,40 @@ qmm_tc_kernel(const __nv_bfloat16* __restrict__ x,
 
 int gemv_splits(int K) { return ((K >> 1) + kGemvRows - 1) / kGemvRows; }
 
-template <int MT>
+template <int MT, bool kGrouped>
 void launch_gemv(const __nv_bfloat16* x, const uint8_t* w,
-                 const __nv_bfloat16* s, __nv_bfloat16* y, float* partial,
-                 int M, int K, int N, int g, cudaStream_t stream) {
+                 const __nv_bfloat16* s, const int* slots, int nslots,
+                 __nv_bfloat16* y, float* partial, int groups, int M, int K,
+                 int N, int g, cudaStream_t stream) {
   const int splits = gemv_splits(K);
-  dim3 grid((N + kGemvBN - 1) / kGemvBN, splits, (M + MT - 1) / MT);
-  qmm_gemv_kernel<MT><<<grid, kGemvThreads, 0, stream>>>(x, w, s, y, partial,
-                                                          M, K, N, g);
+  dim3 grid((N + kGemvBN - 1) / kGemvBN, splits,
+            groups * ((M + MT - 1) / MT));
+  qmm_gemv_kernel<MT, kGrouped><<<grid, kGemvThreads, 0, stream>>>(
+      x, w, s, slots, nslots, y, partial, M, K, N, g);
   if (splits > 1) {
-    const int MN = M * N;
+    const int MN = groups * M * N;
     qmm_splitk_reduce<<<(MN + 255) / 256, 256, 0, stream>>>(partial, y, MN,
                                                             splits);
   }
+}
+
+// The GEMV (M <= 16) for `groups` row blocks of M rows each.
+template <bool kGrouped>
+void gemv(const __nv_bfloat16* x, const uint8_t* w, const __nv_bfloat16* s,
+          const int* slots, int nslots, __nv_bfloat16* y, float* partial,
+          int groups, int M, int K, int N, int g, cudaStream_t st) {
+  if (M <= 1)
+    launch_gemv<1, kGrouped>(x, w, s, slots, nslots, y, partial, groups, M,
+                             K, N, g, st);
+  else if (M <= 2)
+    launch_gemv<2, kGrouped>(x, w, s, slots, nslots, y, partial, groups, M,
+                             K, N, g, st);
+  else if (M <= 4)
+    launch_gemv<4, kGrouped>(x, w, s, slots, nslots, y, partial, groups, M,
+                             K, N, g, st);
+  else
+    launch_gemv<8, kGrouped>(x, w, s, slots, nslots, y, partial, groups, M,
+                             K, N, g, st);
 }
 
 }  // namespace
@@ -368,18 +418,31 @@ int ti_qmm_int4(const void* x, const void* w, const void* s, void* y,
   float* pb = static_cast<float*>(partial);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= ti_qmm_gemv_max_m()) {
-    if (M <= 1)
-      launch_gemv<1>(xb, wb, sb, yb, pb, M, K, N, g, st);
-    else if (M <= 2)
-      launch_gemv<2>(xb, wb, sb, yb, pb, M, K, N, g, st);
-    else if (M <= 4)
-      launch_gemv<4>(xb, wb, sb, yb, pb, M, K, N, g, st);
-    else
-      launch_gemv<8>(xb, wb, sb, yb, pb, M, K, N, g, st);
+    gemv<false>(xb, wb, sb, nullptr, 0, yb, pb, 1, M, K, N, g, st);
   } else {
     dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM);
     qmm_tc_kernel<<<grid, kTcThreads, 0, st>>>(xb, wb, sb, yb, M, K, N, g);
   }
+  return ti::launch_status();
+}
+
+// x: bf16 [G, M, K] contiguous, M <= ti_qmm_gemv_max_m(); w: uint8
+// [nslots, K/2, N] and s: bf16 [nslots, K/g, N], the flat expert stack;
+// slots: int32 [G] on the device; y: bf16 [G, M, N]; partial: f32
+// scratch of G * ti_qmm_workspace(M, K, N) elements. Same layout needs
+// as ti_qmm_int4.
+int ti_qmm_int4_grouped(const void* x, const void* w, const void* s,
+                        const void* slots, void* y, void* partial, int G,
+                        int M, int K, int N, int g, int nslots,
+                        void* stream) {
+  if (M > ti_qmm_gemv_max_m() || nslots <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  gemv<true>(static_cast<const __nv_bfloat16*>(x),
+             static_cast<const uint8_t*>(w),
+             static_cast<const __nv_bfloat16*>(s),
+             static_cast<const int*>(slots), nslots,
+             static_cast<__nv_bfloat16*>(y), static_cast<float*>(partial), G,
+             M, K, N, g, static_cast<cudaStream_t>(stream));
   return ti::launch_status();
 }
 

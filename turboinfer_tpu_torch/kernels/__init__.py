@@ -17,6 +17,7 @@ def wrappers() -> Dict[str, Callable]:
                                               flash_attention, paged_attention,
                                               qmm)
     return {"qmm_int4": qmm.qmm_int4,
+            "qmm_int4_grouped": qmm.qmm_int4_grouped,
             "flash_prefill": flash_attention.flash_prefill,
             "cache_write_fresh": cache_write.cache_write_fresh,
             "decode_attention": decode_attention.decode_attention,

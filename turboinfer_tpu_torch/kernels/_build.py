@@ -36,6 +36,7 @@ SIGNATURES = {
     "ti_qmm_gemv_max_m": ([], _I),
     "ti_qmm_workspace": ([_I, _I, _I], _LL),
     "ti_qmm_int4": ([_VP] * 5 + [_I] * 4 + [_VP], _I),
+    "ti_qmm_int4_grouped": ([_VP] * 6 + [_I] * 6 + [_VP], _I),
     "ti_flash_prefill": ([_VP] * 6 + [_I] * 6 + [_LLP, _F, _VP], _I),
     "ti_cache_write_fresh": ([_VP] * 4 + [_I] * 5 + [_LLP, _VP], _I),
     "ti_decode_split_rows": ([], _I),

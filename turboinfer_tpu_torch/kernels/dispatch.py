@@ -23,6 +23,14 @@ def qmatmul(x: torch.Tensor, qt: QTensor,
     return qmm.qmm_int4(x, qt, layer_index if qt.stacked else None)
 
 
+def qmatmul_grouped(x: torch.Tensor, qt: QTensor,
+                    slots: torch.Tensor) -> torch.Tensor:
+    """x: [G, ..., K]; slots: [G] device ids into the flat [L*E] stack of
+    qt -> [G, ..., N], all G groups in one launch."""
+    from turboinfer_tpu_torch.kernels import qmm
+    return qmm.qmm_int4_grouped(x, qt, slots)
+
+
 def attention_prefill(q, k, v, *, kv_len, q_start, layer_index=None):
     """q: [B, S, Hq, D]; k/v: [B, Hkv, T, D] views, or the stacked
     [L, B, Hkv, T, D] cache with `layer_index` (read in place)."""
@@ -62,8 +70,14 @@ def attention_paged_verify(q, k_pages, v_pages, block_table, kv_len,
 
 
 def prepare_params(params: Any) -> Any:
-    """One-time engine setup: fuse same-input projections (wq/wk/wv ->
-    wqkv, w_gate/w_up -> w_gateup). Idempotent. The JAX package's scale
-    pre-tiling is a TPU layout workaround with no counterpart here."""
+    """One-time engine setup: view 4-D expert QTensors [L, E, ...] as the
+    flat [L*E] stack the kernels index (what qmm.prepare_scales does in
+    the JAX package, without its TPU scale tiling), then fuse
+    same-input projections (wq/wk/wv -> wqkv, w_gate/w_up -> w_gateup,
+    we_gate/we_up -> we_gateup). Idempotent."""
     from turboinfer_tpu_torch.models.common import fuse_projections
+    if isinstance(params, dict) and isinstance(params.get("layers"), dict):
+        params = {**params, "layers": {
+            k: v.flat() if isinstance(v, QTensor) else v
+            for k, v in params["layers"].items()}}
     return fuse_projections(params)

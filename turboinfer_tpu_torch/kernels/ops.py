@@ -150,6 +150,19 @@ def qmatmul(x: torch.Tensor, w, layer_index: Optional[int] = None
                         w.to(x.dtype).to(torch.float32)).to(x.dtype)
 
 
+def qmatmul_grouped(x: torch.Tensor, w, slots: torch.Tensor) -> torch.Tensor:
+    """out[g] = x[g] @ W[slots[g]] for G slots of a stacked weight (MoE
+    decode: the k routed experts). x: [G, ..., K]; slots: [G] int device
+    tensor -> [G, ..., N]. QTensors go to the grouped kernel; fp weights
+    gather the slots and run one batched product."""
+    if isinstance(w, QTensor):
+        from turboinfer_tpu_torch.kernels import dispatch
+        return dispatch.qmatmul_grouped(x, w, slots)
+    wg = w[slots.long()].to(x.dtype).to(torch.float32)          # [G, K, N]
+    return torch.einsum("g...k,gkn->g...n", x.to(torch.float32),
+                        wg).to(x.dtype)
+
+
 # -- attention ---------------------------------------------------------------
 
 def _repeat_kv(k: torch.Tensor, num_q_heads: int) -> torch.Tensor:

@@ -1,8 +1,9 @@
-"""Random-weight quantized LLaMA-class model built directly in the packed
-format on the device (counterpart of turboinfer_tpu/loader/synthetic.py
-create_synthetic_quantized_model): a 7B fixture never exists in fp.
-Values are random (uniform bytes, scales 0.01); use it to measure speed,
-not accuracy.
+"""Random-weight quantized LLaMA-class or MoE model built directly in the
+packed format on the device (counterpart of
+turboinfer_tpu/loader/synthetic.py create_synthetic_quantized_model): a
+7B or Mixtral fixture never exists in fp. Values are random (uniform
+bytes, scales 0.01; a bf16 router for MoE); use it to measure speed, not
+accuracy.
 """
 
 from __future__ import annotations
@@ -29,8 +30,9 @@ def create_synthetic_quantized_model(config: ModelConfig, bits: int = 4,
                                      seed: int = 0) -> ModelData:
     dev = resolve_device(device)
     c = config
-    if c.num_experts or c.kv_lora_rank:
-        raise NotImplementedError("MoE / MLA fixtures are not ported yet")
+    if c.kv_lora_rank or c.shared_expert_size:
+        raise NotImplementedError("MLA and shared-expert fixtures are not "
+                                  "ported yet")
     L, H, V, F = c.num_layers, c.hidden_size, c.vocab_size, c.ffn_dim
     QD, KVD, G = c.q_dim, c.kv_dim, group_size
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -50,16 +52,25 @@ def create_synthetic_quantized_model(config: ModelConfig, bits: int = 4,
     def ones(*shape):
         return torch.ones(shape, dtype=torch.bfloat16, device=dev)
 
-    params = {
-        "embed": (torch.randn((V, H), generator=gen, device=dev) * 0.02
-                  ).to(torch.bfloat16),
-        "layers": {
-            "attn_norm": ones(L, H), "ffn_norm": ones(L, H),
-            "wq": rq(H, QD), "wk": rq(H, KVD), "wv": rq(H, KVD),
-            "wo": rq(QD, H),
-            "w_gate": rq(H, F), "w_up": rq(H, F), "w_down": rq(F, H),
-        },
-        "final_norm": ones(H),
-        "lm_head": rq(H, V, lead=()),
-    }
+    # draw order: embedding, attention, FFN (router and experts for
+    # MoE), head
+    embed = (torch.randn((V, H), generator=gen, device=dev) * 0.02
+             ).to(torch.bfloat16)
+    layers = {"attn_norm": ones(L, H), "ffn_norm": ones(L, H),
+              "wq": rq(H, QD), "wk": rq(H, KVD), "wv": rq(H, KVD),
+              "wo": rq(QD, H)}
+    E = c.num_experts
+    if E:
+        # MoE: a bf16 router and 4-D expert stacks [L, E, ...], the layout
+        # of quant/quantizer._quantize_experts.
+        Fe = c.moe_intermediate_size or F
+        layers["router"] = (0.02 * torch.randn((L, H, E), generator=gen,
+                                               device=dev)).to(torch.bfloat16)
+        layers["we_gate"] = rq(H, Fe, lead=(L, E))
+        layers["we_up"] = rq(H, Fe, lead=(L, E))
+        layers["we_down"] = rq(Fe, H, lead=(L, E))
+    else:
+        layers.update(w_gate=rq(H, F), w_up=rq(H, F), w_down=rq(F, H))
+    params = {"embed": embed, "layers": layers, "final_norm": ones(H),
+              "lm_head": rq(H, V, lead=())}
     return ModelData(params=params, config=config)

@@ -67,7 +67,8 @@ def decode_kv(x: torch.Tensor, out_dtype) -> torch.Tensor:
 
 def fuse_projections(params: Any) -> Any:
     """Fuse same-input projections along the output axis: wq/wk/wv ->
-    "wqkv" and w_gate/w_up -> "w_gateup". Numerically identical (every
+    "wqkv", w_gate/w_up -> "w_gateup" and the MoE experts' we_gate/we_up
+    -> "we_gateup" (expert by expert). Numerically identical (every
     output column's K-reduction is unchanged); fewer kernel launches."""
     if not isinstance(params, dict) or not isinstance(
             params.get("layers"), dict):
@@ -95,6 +96,7 @@ def fuse_projections(params: Any) -> Any:
 
     fuse(("wq", "wk", "wv"), "wqkv")
     fuse(("w_gate", "w_up"), "w_gateup")
+    fuse(("we_gate", "we_up"), "we_gateup")
     return {**params, "layers": layers}
 
 

@@ -12,6 +12,10 @@ either a tensor or a QTensor:
    "final_norm": [H], "lm_head": [H, V]}
 A Python loop over layers replaces lax.scan; the kernels read layer li
 of the stacked weights and cache through pointer offsets, never copies.
+The forwards take an `ffn_fn(config, h, layers, li)` hook, as the JAX
+package's paged forwards do: the default is the dense SwiGLU block
+(dense_ffn), and models/moe.py passes its routed experts through the
+same attention body.
 """
 
 from __future__ import annotations
@@ -124,25 +128,31 @@ def _attn_inputs(config: ModelConfig, x: torch.Tensor, lw: Dict[str, Any],
             encode_kv(v, cache_dtype))
 
 
+def dense_ffn(config: ModelConfig, h: torch.Tensor, lw: Dict[str, Any],
+              li: int) -> torch.Tensor:
+    """The dense GLU FFN block of layer li (the ffn_fn default)."""
+    gate, up = gate_up_proj(h, lw, li)
+    g = ops.glu(gate, up, config.hidden_act).to(h.dtype)
+    return ops.qmatmul(g, lw["w_down"], li)
+
+
 def _attn_out_ffn(config: ModelConfig, x: torch.Tensor, attn: torch.Tensor,
-                  lw: Dict[str, Any], li: int) -> torch.Tensor:
-    """Output projection and residual, then RMSNorm -> SwiGLU ->
+                  lw: Dict[str, Any], li: int, ffn_fn) -> torch.Tensor:
+    """Output projection and residual, then RMSNorm -> ffn_fn ->
     residual, of layer li. attn: [B, S, Hq, D]."""
     B, S, _ = x.shape
     attn = attn.reshape(B, S, -1).to(x.dtype)
     x = x + ops.qmatmul(attn, lw["wo"], li)
     h = ops.rms_norm(x, lw["ffn_norm"][li], config.rms_norm_eps)
-    gate, up = gate_up_proj(h, lw, li)
-    g = ops.glu(gate, up, config.hidden_act).to(x.dtype)
-    return x + ops.qmatmul(g, lw["w_down"], li)
+    return x + ffn_fn(config, h, lw, li)
 
 
 def _layer_forward(config: ModelConfig, x: torch.Tensor, lw: Dict[str, Any],
                    li: int, rope, cache: KVCache, start: torch.Tensor,
                    kv_len: torch.Tensor, fresh_prefill: bool,
-                   slots) -> torch.Tensor:
+                   slots, ffn_fn) -> torch.Tensor:
     """One decoder block (RMSNorm -> GQA attention -> residual -> RMSNorm
-    -> SwiGLU -> residual) over the stacked cache, which it updates in
+    -> ffn_fn -> residual) over the stacked cache, which it updates in
     place at layer li. rope: the forward's RoPE tables; slots: (rows,
     positions) of a decode step's cache writes, or the host list of a
     chunked prefill's row starts."""
@@ -172,13 +182,23 @@ def _layer_forward(config: ModelConfig, x: torch.Tensor, lw: Dict[str, Any],
             cache.v[li, b, :, s0:s0 + n] = v[b, :n].transpose(0, 1)
         attn = dispatch.attention_prefill(q, cache.k, cache.v, kv_len=kv_len,
                                           q_start=start, layer_index=li)
-    return _attn_out_ffn(config, x, attn, lw, li)
+    return _attn_out_ffn(config, x, attn, lw, li, ffn_fn)
+
+
+def _resolve_ffn(config: ModelConfig, ffn_fn):
+    """ffn_fn None is this family's dense FFN, and the config is checked
+    here; a family that brings its own FFN has checked its config."""
+    if ffn_fn is None:
+        check_supported(config)
+        return dense_ffn
+    return ffn_fn
 
 
 def forward(params: Dict[str, Any], config: ModelConfig, tokens: torch.Tensor,
             cache: KVCache, *, seq_lens: Optional[torch.Tensor] = None,
             logit_idx: Optional[torch.Tensor] = None,
-            fresh_prefill: bool = False) -> Tuple[torch.Tensor, KVCache]:
+            fresh_prefill: bool = False,
+            ffn_fn=None) -> Tuple[torch.Tensor, KVCache]:
     """Forward over `tokens` [B, S] appending to `cache` (prefill S > 1 or
     decode S == 1). Queries sit at cache.length[b] + s.
 
@@ -186,8 +206,9 @@ def forward(params: Dict[str, Any], config: ModelConfig, tokens: torch.Tensor,
     logit_idx: [B] compute the head for that position only -> [B, 1, V].
     fresh_prefill: the caller guarantees cache.length == 0; attention
     then reads the just-computed K/V directly.
+    ffn_fn: the FFN block of every layer (None: dense_ffn).
     Returns (logits [B, S or 1, V] f32, cache with the new length)."""
-    check_supported(config)
+    ffn_fn = _resolve_ffn(config, ffn_fn)
     B, S = tokens.shape
     start = cache.length
     positions = start[:, None] + torch.arange(
@@ -210,7 +231,7 @@ def forward(params: Dict[str, Any], config: ModelConfig, tokens: torch.Tensor,
     layers = params["layers"]
     for li in range(config.num_layers):
         x = _layer_forward(config, x, layers, li, rope, cache, start, kv_len,
-                           fresh_prefill, slots)
+                           fresh_prefill, slots, ffn_fn)
     if logit_idx is not None:
         x = x[torch.arange(B, device=x.device), logit_idx.long()][:, None]
     x = ops.rms_norm(x, params["final_norm"], config.rms_norm_eps)
@@ -221,21 +242,21 @@ def forward(params: Dict[str, Any], config: ModelConfig, tokens: torch.Tensor,
 def forward_paged_decode(params: Dict[str, Any], config: ModelConfig,
                          tokens: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, block_table: torch.Tensor,
-                         lengths: torch.Tensor):
+                         lengths: torch.Tensor, *, ffn_fn=None):
     """One decode step over the paged pool: tokens [B], the new token of
     row b written at position lengths[b]. The G=1 case of
     forward_paged_verify (one decoder body, as in the JAX package).
     Returns (logits [B, V] f32, k_pages, v_pages)."""
     logits, kp, vp = forward_paged_verify(params, config, tokens[:, None],
                                           k_pages, v_pages, block_table,
-                                          lengths)
+                                          lengths, ffn_fn=ffn_fn)
     return logits[:, 0], kp, vp
 
 
 def forward_paged_verify(params: Dict[str, Any], config: ModelConfig,
                          tokens: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, block_table: torch.Tensor,
-                         lengths: torch.Tensor):
+                         lengths: torch.Tensor, *, ffn_fn=None):
     """G tokens per row in one pass over the paged pool [L, P, Hkv, page,
     D] (tokens [B, G]: the current token and G-1 drafts). Token g of row
     b is written at position lengths[b] + g, into page
@@ -244,8 +265,9 @@ def forward_paged_verify(params: Dict[str, Any], config: ModelConfig,
     queries. The pools are written IN PLACE (JAX returns new ones) and
     returned. Rollback of rejected drafts is the caller's: their K/V lies
     past the row's length and is overwritten later.
+    ffn_fn: as in forward.
     Returns (logits [B, G, V] f32, k_pages, v_pages)."""
-    check_supported(config)
+    ffn_fn = _resolve_ffn(config, ffn_fn)
     B, G = tokens.shape
     _, P, _, page, _ = k_pages.shape
     max_pages = block_table.shape[1]
@@ -278,7 +300,7 @@ def forward_paged_verify(params: Dict[str, Any], config: ModelConfig,
         else:
             attn = dispatch.attention_paged_verify(
                 q, k_pages, v_pages, block_table, kv_len, li)
-        x = _attn_out_ffn(config, x, attn, layers, li)
+        x = _attn_out_ffn(config, x, attn, layers, li, ffn_fn)
     x = ops.rms_norm(x, params["final_norm"], config.rms_norm_eps)
     logits = ops.qmatmul(x, params["lm_head"]).to(torch.float32)
     return logits, k_pages, v_pages

@@ -1,8 +1,9 @@
 """Model-level quantizer (counterpart of turboinfer_tpu/quant/quantizer.py
-quantize_params): symmetric absmax int4/int8 of every llama matmul
-weight, group-wise along K, byte-identical to the JAX package's. Unless
-skip_embeddings, lm_head quantizes like any matmul and the embedding
-table to per-row int8 (QEmbed)."""
+quantize_params): symmetric absmax int4/int8 of every llama or MoE
+matmul weight, group-wise along K, byte-identical to the JAX package's.
+MoE expert weights [L, E, K, N] become 4-D QTensors; the router stays
+fp. Unless skip_embeddings, lm_head quantizes like any matmul and the
+embedding table to per-row int8 (QEmbed)."""
 
 from __future__ import annotations
 
@@ -14,7 +15,10 @@ from turboinfer_tpu_torch.config import QuantizationConfig, QuantType
 from turboinfer_tpu_torch.core.qtensor import (QEmbed, QTensor, quantize,
                                                quantize_embed)
 
+# Per-layer [L, K, N] matmul slots; a MoE layer holds only the first
+# four (its experts are the 4-D slots below, its router stays fp).
 _LAYER_MATMULS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+_MOE_EXPERT_SLOTS = ("we_gate", "we_up", "we_down")
 
 
 def _quantize_stacked(w: torch.Tensor, cfg: QuantizationConfig) -> QTensor:
@@ -25,6 +29,18 @@ def _quantize_stacked(w: torch.Tensor, cfg: QuantizationConfig) -> QTensor:
                    scales=torch.stack([q.scales for q in qts]),
                    zero_points=None, bits=qts[0].bits,
                    group_size=qts[0].group_size, shape=qts[0].shape)
+
+
+def _quantize_experts(w: torch.Tensor, cfg: QuantizationConfig) -> QTensor:
+    """[L, E, K, N] -> a 4-D QTensor (data [L, E, K(/2), N], scales
+    [L, E, K/g, N]), expert by expert."""
+    L, E = w.shape[:2]
+    qt = _quantize_stacked(w.reshape((L * E,) + tuple(w.shape[2:])), cfg)
+    return QTensor(data=qt.data.reshape((L, E) + tuple(qt.data.shape[1:])),
+                   scales=qt.scales.reshape((L, E)
+                                            + tuple(qt.scales.shape[1:])),
+                   zero_points=None, bits=qt.bits, group_size=qt.group_size,
+                   shape=qt.shape)
 
 
 def quantize_params(params: Dict[str, Any], cfg: QuantizationConfig
@@ -39,6 +55,10 @@ def quantize_params(params: Dict[str, Any], cfg: QuantizationConfig
         w = layers.get(name)
         if isinstance(w, torch.Tensor) and w.dim() == 3:
             layers[name] = _quantize_stacked(w, cfg)
+    for name in _MOE_EXPERT_SLOTS:
+        w = layers.get(name)
+        if isinstance(w, torch.Tensor) and w.dim() == 4:
+            layers[name] = _quantize_experts(w, cfg)
     out["layers"] = layers
     head = params["lm_head"]
     if cfg.skip_embeddings or isinstance(head, QTensor) or head.dim() != 2:
