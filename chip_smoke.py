@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port (turboinfer_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8] [--json PATH]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9] [--json PATH]
 
 Phases:
   1. environment: card name and power limit, torch/CUDA versions, and the
@@ -35,7 +35,18 @@ Phases:
      torch.cuda.set_sync_debug_mode("error")) and at B=8 (prompts 512,
      64 new; the E-loop), PagedContinuousScheduler with 12 requests, and
      kernels against plain versions at L=2 (B=1 and B=2); launch counts
-     checked against the structure.
+     checked against the structure;
+  9. GPT-OSS-20B at full width and depth (L=24, E=32 top-4, V=201088),
+     random weights from a seed, bf16 experts, attention and head int4
+     g=64: the same four runs as phase 8 (decode through the decode
+     kernel with sinks, and 128-token windows on the even layers; B=8
+     reaches the dense expert mix; at L=2 the plain forward takes the
+     kernel path's experts, and the routings it would have chosen
+     otherwise are counted and bounded); build peak printed and held
+     < 60 GiB. Phase 2 also holds the decode kernel with sinks and
+     windows at its shapes (Hq=64, Hkv=8, D=64, T=2048), beside SDPA
+     with a sink column, and the qmm and cache write at its projection
+     and prefill shapes.
 Exits non-zero on any failure (no CPU fallback). The last stdout line is
 {"ok": true, "device": {...}}; before it come a {"kernels": [...]} line
 and the nvidia-smi name/power-limit line.
@@ -58,7 +69,8 @@ ROOT_REPLACES = {
     "qmm_int4": "turboinfer_tpu/kernels/pallas/qmm.py:957",
     "flash_prefill": "turboinfer_tpu/kernels/pallas/flash_attention.py:314",
     "cache_write_fresh": "turboinfer_tpu/kernels/pallas/cache_write.py:58",
-    "decode_attention": "turboinfer_tpu/kernels/pallas/decode_attention.py:447",
+    "decode_attention": "turboinfer_tpu/kernels/pallas/decode_attention.py:447; "
+                        "turboinfer_tpu/kernels/pallas/decode_attention.py:738",
     "paged_attention": "turboinfer_tpu/kernels/pallas/paged_attention.py:246; "
                        "turboinfer_tpu/kernels/pallas/paged_attention.py:302",
     "qmm_int4_grouped": "turboinfer_tpu/kernels/pallas/qmm.py:1187",
@@ -148,19 +160,20 @@ def cuda_ms(torch, fn, iters: int, reps: int = 5, graph: bool = True
 
 # -- phase 2 ---------------------------------------------------------------
 
-def check_qmm(torch, rows, results):
+def check_qmm(torch, rows, results, shapes=None, Ms=(8, 40, 256, 4096),
+              record=True):
     from turboinfer_tpu_torch.core.qtensor import QTensor, dequantize
     from turboinfer_tpu_torch.kernels import qmm
     gen = torch.Generator(device="cuda").manual_seed(1)
     L, g = 4, 64
-    shapes = [("wqkv", 4096, 12288), ("wo", 4096, 4096),
-              ("w_gateup", 4096, 22016), ("w_down", 11008, 4096),
-              ("lm_head", 4096, 32000)]
+    shapes = shapes or [("wqkv", 4096, 12288), ("wo", 4096, 4096),
+                        ("w_gateup", 4096, 22016), ("w_down", 11008, 4096),
+                        ("lm_head", 4096, 32000)]
     # M=8: decode (B=8); M=40: a paged verify (B=8, G=5), head included;
     # M=256: a page-wide admission prefill; M=4096: the batch prefill
-    for M in (8, 40, 256, 4096):
+    for M in Ms:
         for name, K, N in shapes:
-            if M in (256, 4096) and name == "lm_head":
+            if M >= 256 and name.endswith("lm_head"):
                 continue       # the prefill head runs at M = B (logit_idx)
             data = torch.randint(0, 256, (L, K // 2, N), generator=gen,
                                  dtype=torch.uint8, device="cuda")
@@ -176,7 +189,7 @@ def check_qmm(torch, rows, results):
             ref = want.float().abs().max().item()
             tol = 2e-2 * ref
             need(err <= tol, f"qmm {name} M={M}: max_abs_err {err} > {tol}")
-            iters = {8: 20, 40: 10, 256: 5}.get(M, 3)
+            iters = {1: 20, 8: 20, 40: 10, 256: 5}.get(M, 3)
             ms = cuda_ms(torch, lambda i: qmm.qmm_int4(x, qt, i % L), iters)
             plain_ms = cuda_ms(torch, lambda i: qmm.qmatmul_plain(x, qt, i % L),
                                max(iters // 4, 2), reps=3)
@@ -193,7 +206,7 @@ def check_qmm(torch, rows, results):
             say(f"  qmm_int4 {row['shape']}: max_abs_err={err:.4g} "
                 f"(tol {tol:.3g}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"bound_ms={b:.4f} ({by}) library_ms={lib_ms:.4f}")
-            if name == "w_gateup" and M == 8:
+            if record and name == "w_gateup" and M == 8:
                 results["qmm_int4"] = row
             del data, scales, qt
 
@@ -333,10 +346,11 @@ def check_flash(torch, F, rows, results, B, Hq, Hkv, S, D, fill,
         results["flash_prefill"] = row
 
 
-def check_cache_write(torch, rows, results):
+def check_cache_write(torch, rows, results, B=8, Hkv=32, S=512, T=1024,
+                      D=128, record=True):
     from turboinfer_tpu_torch.kernels import cache_write as cw
     gen = torch.Generator(device="cuda").manual_seed(3)
-    L, B, Hkv, T, S, D = 4, 8, 32, 1024, 512, 128
+    L = 4
     kc = torch.full((L, B, Hkv, T, D), 7.0, dtype=torch.bfloat16, device="cuda")
     vc = kc.clone()
     qkv = torch.randn((B, S, 3 * Hkv * D), generator=gen,
@@ -367,11 +381,18 @@ def check_cache_write(torch, rows, results):
     say(f"  cache_write_fresh {row['shape']}: exact={same} kernel_ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}) "
         f"library_ms={lib_ms:.4f} (two copy_ calls)")
-    results["cache_write_fresh"] = row
+    if record:
+        results["cache_write_fresh"] = row
 
 
 def check_decode(torch, F, rows, results, B, Hq, Hkv, T, D, lens,
-                 record: bool):
+                 record: bool, window=None, sinks: bool = False):
+    """decode_attention against decode_plain on layer 0 of a stacked
+    cache, optionally with a window and per-head sinks (from a seed).
+    The library yardstick is SDPA with a float mask on the same keys
+    plus one appended key column (K = 0, V = 0, mask value = the head's
+    sink), which computes exactly the sink softmax; K/V extension and
+    mask are built beforehand."""
     from turboinfer_tpu_torch.kernels import decode_attention as da
     gen = torch.Generator(device="cuda").manual_seed(4)
     L = 4 if record else 1
@@ -380,34 +401,63 @@ def check_decode(torch, F, rows, results, B, Hq, Hkv, T, D, lens,
     vc = torch.randn((L, B, Hkv, T, D), generator=gen,
                      device="cuda").to(torch.bfloat16)
     q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+    snk = (2 * torch.randn((Hq,), generator=gen, device="cuda")).to(
+        torch.bfloat16).float() if sinks else None       # f32, as prepared
     kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    got = da.decode_attention(q, kc, vc, kv_len, 0)
-    want = da.decode_plain(q, kc, vc, kv_len, 0)
+    got = da.decode_attention(q, kc, vc, kv_len, 0, window, snk)
+    want = da.decode_plain(q, kc, vc, kv_len, 0, window, snk)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     tol = 1e-2        # f32 sums in another order, plus one bf16 ulp
-    need(within(torch, got, want, tol), f"decode_attention D={D} Hq={Hq} "
-         f"Hkv={Hkv}: max_abs_err {err} beyond {tol} + 1 bf16 ulp")
+    what = (f"D={D} Hq={Hq} Hkv={Hkv} window={window} "
+            f"sinks={'yes' if sinks else 'no'}")
+    need(within(torch, got, want, tol), f"decode_attention {what}: "
+         f"max_abs_err {err} beyond {tol} + 1 bf16 ulp")
     ms = cuda_ms(torch, lambda i: da.decode_attention(q, kc, vc, kv_len,
-                                                      i % L), 20)
-    plain_ms = cuda_ms(torch, lambda i: da.decode_plain(q, kc, vc, kv_len,
-                                                        i % L), 5, reps=3)
+                                                      i % L, window, snk), 20)
+    plain_ms = cuda_ms(torch, lambda i: da.decode_plain(
+        q, kc, vc, kv_len, i % L, window, snk), 5, reps=3)
     kvc = kv_len.clamp(1, T)
-    mask = (torch.arange(T, device="cuda")[None, :] < kvc[:, None])[:, None, None]
+    lo = (kvc - window).clamp(min=0) if window else torch.zeros_like(kvc)
+    t = torch.arange(T, device="cuda")[None, :]
+    mask = (t < kvc[:, None]) & (t >= lo[:, None])            # [B, T]
     qh = q[:, :, None]
-    lib_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
-        qh, kc[i % L], vc[i % L], attn_mask=mask, enable_gqa=Hq != Hkv), 20)
-    fill = sum(max(1, min(int(n), T)) for n in lens)
+    if sinks:
+        fmask = torch.zeros((B, Hq, 1, T + 1), dtype=torch.bfloat16,
+                            device="cuda")
+        fmask[..., :T].masked_fill_(~mask[:, None, None], float("-inf"))
+        fmask[..., T] = snk[None, :, None]
+        zero = torch.zeros((B, Hkv, 1, D), dtype=torch.bfloat16, device="cuda")
+        kx = [torch.cat([kc[li], zero], 2) for li in range(L)]
+        vx = [torch.cat([vc[li], zero], 2) for li in range(L)]
+
+        def lib(i):
+            return F.scaled_dot_product_attention(
+                qh, kx[i % L], vx[i % L], attn_mask=fmask,
+                enable_gqa=Hq != Hkv)
+    else:
+        kx, vx = kc, vc
+
+        def lib(i):
+            return F.scaled_dot_product_attention(
+                qh, kc[i % L], vc[i % L], attn_mask=mask[:, None, None],
+                enable_gqa=Hq != Hkv)
+    lib_err = (lib(0)[:, :, 0].float() - want.float()).abs().max().item()
+    lib_ms = cuda_ms(torch, lib, 20)
+    del kx, vx
+    fill = int((kvc - lo).sum())
     nbytes = 2 * Hkv * fill * D * 2 + 2 * B * Hq * D * 2
     b, by = bound_ms(nbytes, 4.0 * Hq * fill * D)
     row = dict(kernel="decode_attention", shape=f"B={B} Hq={Hq} Hkv={Hkv} "
-               f"T={T} D={D} kv_len={list(lens)}", max_abs_err=err, tol=tol,
-               ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
-               bound_by=by)
+               f"T={T} D={D} window={window} sinks={'yes' if sinks else 'no'} "
+               f"kv_len={list(lens)}", max_abs_err=err, tol=tol,
+               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               library_max_abs_err=lib_err, bound_ms=b, bound_by=by)
     rows.append(row)
     say(f"  decode_attention {row['shape']}: max_abs_err={err:.4g} "
         f"(tol {tol}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"bound_ms={b:.4f} ({by}) library_ms={lib_ms:.4f}")
+        f"bound_ms={b:.4f} ({by}) library_ms={lib_ms:.4f} (SDPA"
+        f"{', sink column' if sinks else ''}; its max_abs_err {lib_err:.4g})")
     if record:
         results["decode_attention"] = row
 
@@ -527,6 +577,34 @@ def phase_kernels(torch, report):
                  [513, 1, 575, 560, 530, 600, 512, 575], record=False)
     check_paged(torch, F, rows, results, 8, 32, 8, 128, 256, 33, paged_lens,
                 1, record=False)
+    # GPT-OSS-20B's decode (Hq=64, Hkv=8, D=64, T=2048): its sliding
+    # (window 128) and full layers with per-head sinks, phase 9's kv_len,
+    # then the slice boundaries: kv_len 1, 255, 256, 257, a window start
+    # on a 256-row boundary (384 - 128), window 1, a window past kv_len;
+    # and the window without sinks (decode_pallas's window)
+    gpt = (64, 8, 2048, 64)
+    for window in (128, None):
+        check_decode(torch, F, rows, results, 1, *gpt, [1128], False,
+                     window, True)
+        check_decode(torch, F, rows, results, 8, *gpt,
+                     [1128, 1, 255, 256, 257, 384, 600, 2048], False, window,
+                     True)
+    for window, lens in ((1, [1, 256, 257, 2048]), (128, [384, 512, 129, 128]),
+                         (3000, [1, 255, 256, 2048])):
+        check_decode(torch, F, rows, results, 4, *gpt, lens, False, window,
+                     True)
+    check_decode(torch, F, rows, results, 8, *gpt,
+                 [1128, 1, 255, 256, 257, 384, 600, 2048], False, 128, False)
+    # the qmm at GPT-OSS's projection shapes (K=2880 is 45 groups; wo's
+    # N=2880 leaves a 64-column tail in the 128-wide tile): decode at
+    # M=1 and 8, phase 9's prefills at M=1024 (a) and 4096 (b)
+    check_qmm(torch, rows, results, shapes=[
+        ("gptoss wqkv", 2880, 5120), ("gptoss wo", 4096, 2880),
+        ("gptoss lm_head", 2880, 201088)], Ms=(1, 8, 1024, 4096),
+        record=False)
+    # the cache write of phase 9's fresh prefills, (a) and (b)
+    check_cache_write(torch, rows, results, 1, 8, 1024, 2048, 64, False)
+    check_cache_write(torch, rows, results, 8, 8, 512, 2048, 64, False)
     report["kernel_rows"] = rows
     return results
 
@@ -1139,12 +1217,14 @@ def sync_free_step(torch, kernels, eng, prompt, want):
     return counts
 
 
-def mixtral_paged(torch, kernels, params, cfg, U, report_out):
-    """(c): PagedContinuousScheduler, 8 slots, 256-token pages, max_seq
-    1024; 12 requests at once, 6 sharing a 512-token prefix."""
+def serve_paged(torch, kernels, params, cfg, step_want, label: str):
+    """(c) of phases 8 and 9: PagedContinuousScheduler, 8 slots, 256-token
+    pages, max_seq 1024; 12 requests at once, 6 sharing a 512-token
+    prefix, half greedy. step_want(adm): the launches of a step that
+    admits adm requests, checked at every step."""
     from turboinfer_tpu_torch.config import InferenceConfig
     from turboinfer_tpu_torch.engine.scheduler import PagedContinuousScheduler
-    L, E, T, B, PAGE = cfg.num_layers, cfg.num_experts, 1024, 8, 256
+    T, B, PAGE = 1024, 8, 256
     sched = PagedContinuousScheduler(
         params, cfg, InferenceConfig(max_seq_len=T, temperature=0.8, top_k=50, top_p=0.9,
                         seed=0, eos_token_id=-1),
@@ -1164,7 +1244,6 @@ def mixtral_paged(torch, kernels, params, cfg, U, report_out):
             for i, (r, n) in enumerate(zip(reqs, max_new))]
     kernels.reset_launch_counts()
     prev = kernels.launch_counts()
-    per_fwd = 2 * L + 1 + U * E * L
     decode_ms, steps = [], 0
     while sched.pending:
         q0 = len(sched._queue)
@@ -1175,11 +1254,9 @@ def mixtral_paged(torch, kernels, params, cfg, U, report_out):
         now = kernels.launch_counts()
         d = {k: now[k] - prev[k] for k in now}
         prev = now
-        want = {"qmm_int4": per_fwd * (adm + 1), "qmm_int4_grouped": 0,
-                "flash_prefill": L * adm, "cache_write_fresh": 0,
-                "decode_attention": 0, "paged_attention": L}
-        need(d == want, f"paged step {steps} ({adm} admissions): launches "
-                        f"{d} != {want}")
+        want = step_want(adm)
+        need(d == want, f"paged {label} step {steps} ({adm} admissions): "
+                        f"launches {d} != {want}")
         if adm == 0:
             decode_ms.append(dt)
         steps += 1
@@ -1192,11 +1269,11 @@ def mixtral_paged(torch, kernels, params, cfg, U, report_out):
         and len(res[i].tokens) == len(r) + n
         and all(0 <= t < cfg.vocab_size for t in res[i].tokens)
         for i, r, n in zip(rids, reqs, max_new)),
-        "paged Mixtral: a request did not end as expected")
-    need(sched.pool.hits > 0, "paged Mixtral: no prefix-cache hits")
+        f"paged {label}: a request did not end as expected")
+    need(sched.pool.hits > 0, f"paged {label}: no prefix-cache hits")
     need(sched.pool.live_pages == 1
          and sched.pool.available == sched.pool.num_pages - 1,
-         f"paged Mixtral: pages leaked: {sched.pool.live_pages} live, "
+         f"paged {label}: pages leaked: {sched.pool.live_pages} live, "
          f"{sched.pool.available} available of {sched.pool.num_pages}")
     new_tokens = sum(max_new)
     prefill_ms = [r.prefill_time_ms for r in res.values()]
@@ -1215,27 +1292,70 @@ def mixtral_paged(torch, kernels, params, cfg, U, report_out):
         f"decode {out['decode_ms_per_step_median']:.3f} ms/step (median of "
         f"{len(decode_ms)}); prefix hits {sched.pool.hits}; no page leaked; "
         f"launches {counts}, as expected at every step")
-    report_out["paged"] = out
     del sched
+    return out
 
 
-def mixtral_vs_plain(torch, report_out):
-    """(d): the kernels against their plain versions on the MoE path:
-    Mixtral's full width at L=2, prefill and first-decode logits at B=1
-    (decode through the grouped kernel) and B=2 (the E-loop)."""
+def mixtral_paged(torch, kernels, params, cfg, U, report_out):
+    """(c): paged serving; per step qmm 2L+1 plus the E-loop per forward,
+    the paged kernel L, flash L per admission."""
+    L, E = cfg.num_layers, cfg.num_experts
+    per_fwd = 2 * L + 1 + U * E * L
+    report_out["paged"] = serve_paged(
+        torch, kernels, params, cfg, lambda adm: {
+            "qmm_int4": per_fwd * (adm + 1), "qmm_int4_grouped": 0,
+            "flash_prefill": L * adm, "cache_write_fresh": 0,
+            "decode_attention": 0, "paged_attention": L}, "Mixtral")
+
+
+# (d): the share of layer x token routings whose plain top-k may differ
+# from the kernel path's while the plain forward takes the kernel path's
+# experts
+FLIP_SHARE = 0.10
+
+
+class SharedRouting:
+    """While active, mod.route of a CPU forward takes the experts that the
+    preceding cuda forward chose (gates from the CPU's own router logits
+    at those experts) and counts the tokens whose own top-k differs. With
+    GPT-OSS's 4 of 32 experts, a bf16 ulp in h can swap a routed expert:
+    a discontinuity of the model, not an error of the kernels."""
+
+    def __init__(self, torch, mod):
+        self.torch, self.mod, self.route = torch, mod, mod.route
+        self.chosen, self.flips, self.tokens = [], 0, 0
+
+    def __enter__(self):
+        self.mod.route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.route
+
+    def _route(self, config, h, lw, li):
+        gates, top_i = self.route(config, h, lw, li)
+        if h.device.type == "cuda":
+            self.chosen.append(top_i)
+            return gates, top_i
+        want = self.chosen.pop(0).to(h.device)
+        same = want.sort(-1).values == top_i.sort(-1).values
+        self.flips += int((~same).any(-1).sum())
+        self.tokens += top_i.shape[0] * top_i.shape[1]
+        logits = self.mod.router_logits(h, lw, li).gather(-1, want)
+        return self.torch.softmax(logits, dim=-1), want
+
+
+def kernels_vs_plain(torch, mod, cfg, params, step_want, label: str,
+                     seed: int):
+    """(d) of phases 8 and 9: the kernels against their plain versions on
+    a model's path at L=2: prefill and first-decode logits at B=1 (61
+    tokens) and B=2 (64 and 37), the plain side on the CPU. step_want(B):
+    launches the cuda decode step must show (a subset of the counts)."""
     from turboinfer_tpu_torch import kernels
-    from turboinfer_tpu_torch.config import mixtral_config
-    from turboinfer_tpu_torch.kernels.dispatch import prepare_params
-    from turboinfer_tpu_torch.loader.synthetic import \
-        create_synthetic_quantized_model
-    from turboinfer_tpu_torch.models import moe
     from turboinfer_tpu_torch.models.common import params_to
-    L, T = 2, 256
-    cfg = mixtral_config(num_layers=L, max_seq_len=T)
-    params = prepare_params(create_synthetic_quantized_model(
-        cfg, bits=4, group_size=64, device="cuda", seed=1).params)
-    cpu_params = params_to(params, "cpu")
-    gen = torch.Generator().manual_seed(9)
+    L, T = cfg.num_layers, cfg.max_seq_len
+    sides = [("cuda", params), ("cpu", params_to(params, "cpu"))]
+    gen = torch.Generator().manual_seed(seed)
     out = {}
     for B, lens in ((1, [61]), (2, [64, 37])):
         S = max(lens)
@@ -1245,40 +1365,58 @@ def mixtral_vs_plain(torch, report_out):
         seq = torch.tensor(lens, dtype=torch.int32)
         idx = seq - 1
         res = {}
-        for dev, p in (("cuda", params), ("cpu", cpu_params)):
-            cache = moe.init_cache(cfg, B, max_seq=T, device=dev)
-            lg, cache = moe.forward(p, cfg, tok.to(dev), cache,
+        for dev, p in sides:
+            cache = mod.init_cache(cfg, B, max_seq=T, device=dev)
+            lg, cache = mod.forward(p, cfg, tok.to(dev), cache,
                                     seq_lens=seq.to(dev),
                                     logit_idx=idx.to(dev), fresh_prefill=True)
             res[dev] = [lg[:, 0].float().cpu(), cache]
         nxt = res["cuda"][0].argmax(-1).to(torch.int32)[:, None]
-        for dev, p in (("cuda", params), ("cpu", cpu_params)):
+        for dev, p in sides:
             if dev == "cuda":
                 torch.cuda.synchronize()
                 kernels.reset_launch_counts()
-            lg, _ = moe.forward(p, cfg, nxt.to(dev), res[dev][1])
+            lg, _ = mod.forward(p, cfg, nxt.to(dev), res[dev][1])
             if dev == "cuda":
                 step_counts = kernels.launch_counts()
             res[dev].append(lg[:, 0].float().cpu())
-        need(step_counts["qmm_int4_grouped"] == (2 * L if B == 1 else 0),
-             f"L=2 B={B} decode: launches {step_counts}")
+        want = step_want(B)
+        need(all(step_counts[k] == v for k, v in want.items()),
+             f"{label} L={L} B={B} decode: launches {step_counts}, want {want}")
         for i, name in ((0, "prefill"), (2, "decode_step")):
             a, b_ = res["cuda"][i], res["cpu"][i]
             err = (a - b_).abs().max().item()
             ref = b_.abs().max().item()
             tol = 5e-2 * ref
             need(bool(torch.isfinite(a).all()) and err <= tol,
-                 f"Mixtral L=2 B={B} {name}: kernel vs plain max_abs_err "
+                 f"{label} L={L} B={B} {name}: kernel vs plain max_abs_err "
                  f"{err} > {tol}")
             agree = (a.argmax(-1) == b_.argmax(-1)).float().mean().item()
             out[f"B{B}_{name}"] = dict(max_abs_err=err, tol=tol,
                                        max_abs_logit=ref,
                                        greedy_agreement=agree)
-            say(f"  (d) L=2 B={B} {name}: logits max_abs_err={err:.4g} (tol "
-                f"{tol:.3g}, max|logit|={ref:.3g}) greedy agreement "
+            say(f"  (d) L={L} B={B} {name}: logits max_abs_err={err:.4g} "
+                f"(tol {tol:.3g}, max|logit|={ref:.3g}) greedy agreement "
                 f"{agree:.3f}")
-    report_out["vs_plain"] = out
-    del params, cpu_params
+    return out
+
+
+def mixtral_vs_plain(torch, report_out):
+    """(d): Mixtral's full width at L=2; decode at B=1 through the
+    grouped kernel, at B=2 through the E-loop."""
+    from turboinfer_tpu_torch.config import mixtral_config
+    from turboinfer_tpu_torch.kernels.dispatch import prepare_params
+    from turboinfer_tpu_torch.loader.synthetic import \
+        create_synthetic_quantized_model
+    from turboinfer_tpu_torch.models import moe
+    cfg = mixtral_config(num_layers=2, max_seq_len=256)
+    params = prepare_params(create_synthetic_quantized_model(
+        cfg, bits=4, group_size=64, device="cuda", seed=1).params)
+    report_out["vs_plain"] = kernels_vs_plain(
+        torch, moe, cfg, params,
+        lambda B: {"qmm_int4_grouped": 2 * cfg.num_layers if B == 1 else 0},
+        "Mixtral", 9)
+    del params
     torch.cuda.empty_cache()
 
 
@@ -1354,9 +1492,135 @@ def phase_mixtral(torch, report):
     return out["b1"]["launches"]
 
 
+# -- phase 9 ---------------------------------------------------------------
+
+def gptoss_expected(L: int, prefills: int, decodes: int, fresh: int):
+    """Launches of GPT-OSS forwards: qmm 2L+1 per forward (wqkv, wo, head;
+    the experts and the router are bf16 torch matmuls, as the JAX package
+    leaves them to XLA), the decode kernel L per decode forward, the
+    cache-write kernel L per fresh prefill (the engine's; an admission
+    prefill of the paged scheduler writes with indexing). Prefill
+    attention is the plain streaming form (jnp in the JAX package) and
+    paged decode the plain paged form (jnp there too): no flash, no paged
+    kernel."""
+    return {"qmm_int4": (2 * L + 1) * (prefills + decodes),
+            "qmm_int4_grouped": 0, "flash_prefill": 0,
+            "cache_write_fresh": L * fresh, "decode_attention": L * decodes,
+            "paged_attention": 0}
+
+
+def phase_gptoss(torch, report):
+    from turboinfer_tpu_torch import kernels
+    from turboinfer_tpu_torch.config import (InferenceConfig,
+                                             QuantizationConfig, QuantType,
+                                             gptoss20b_config)
+    from turboinfer_tpu_torch.core.qtensor import QTensor
+    from turboinfer_tpu_torch.engine.engine import InferenceEngine
+    from turboinfer_tpu_torch.kernels.dispatch import prepare_params
+    from turboinfer_tpu_torch.models import gptoss
+    from turboinfer_tpu_torch.quant.quantizer import quantize_params
+    cfg = gptoss20b_config(max_seq_len=2048)     # every width and layer
+    L, E, T = cfg.num_layers, cfg.num_experts, cfg.max_seq_len
+    say(f"phase 9: GPT-OSS-20B, L={L}, E={E} top-{cfg.experts_per_token}, "
+        f"bf16 experts, int4 g=64 attention and head, synthetic on the "
+        f"device")
+    gc.collect()                    # nothing of the Mixtral phase may stay
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    qcfg = QuantizationConfig(type=QuantType.INT4, group_size=64)
+    eng = InferenceEngine(quantize_params(gptoss.init_params(
+        cfg, seed=0, device="cuda"), qcfg), cfg, InferenceConfig(
+        max_seq_len=T, temperature=0.0, seed=0, eos_token_id=-1,
+        measure_ttft=True), device="cuda")
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated() / 2**30
+    lw = eng.params["layers"]
+    need(not isinstance(lw["we_gate"], QTensor)
+         and isinstance(lw["wqkv"], QTensor) and "b_qkv" in lw
+         and "we_gateup" not in lw,
+         "GPT-OSS params: experts must stay fp and unfused, b_qkv fused")
+    say(f"  model built in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        f"({base_gib:.2f} before the build), build peak {build_peak:.2f} "
+        f"GiB; experts bf16 and unfused (gate and up stay two stacks)")
+    need(build_peak < 60.0, f"build peak {build_peak:.2f} GiB >= 60 GiB")
+    torch.cuda.reset_peak_memory_stats()
+    out = dict(config=f"gpt-oss-20b L={L} E={E} top-{cfg.experts_per_token} "
+               f"bf16 experts, int4 g=64 attention/head", base_gib=base_gib,
+               build_peak_gib=build_peak,
+               weights_gib=torch.cuda.memory_allocated() / 2**30 - base_gib)
+    gen = torch.Generator().manual_seed(11)
+    # (a) B=1: prompt 1000, 128 new tokens; kv_len passes the window
+    prompt = torch.randint(1, cfg.vocab_size, (1000,), generator=gen).tolist()
+    path_logits(torch, eng, [prompt])
+    res, counts, stats = run_counted(torch, kernels, eng, [prompt], 128,
+                                     "(a) B=1 greedy")
+    want = gptoss_expected(L, 1, 127, 1)
+    need(counts == want, f"(a) launch counts {counts} != {want}")
+    need(len(res[0].tokens) == 1128, "(a) wrong number of tokens")
+    stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    stats["step_launches"] = sync_free_step(
+        torch, kernels, eng, prompt, gptoss_expected(L, 0, 1, 0))
+    stats["decode_trace"] = trace_decode(torch, eng, [prompt])
+    say(f"  (a) launches as expected: {want}; peak {stats['peak_gib']:.2f} "
+        f"GiB")
+    out["b1"] = stats
+    # (b) B=8: prompts 512, 64 new tokens; B*k = E: the dense expert mix
+    prompts = torch.randint(1, cfg.vocab_size, (8, 512), generator=gen).tolist()
+    path_logits(torch, eng, prompts)
+    res, counts, stats = run_counted(torch, kernels, eng, prompts, 64,
+                                     "(b) B=8 greedy")
+    want = gptoss_expected(L, 1, 63, 1)
+    need(counts == want, f"(b) launch counts {counts} != {want}")
+    need(all(len(r.tokens) == 512 + 64 for r in res),
+         "(b) wrong number of tokens")
+    stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    stats["decode_trace"] = trace_decode(torch, eng, prompts)
+    say(f"  (b) launches as expected: {want}; peak {stats['peak_gib']:.2f} "
+        f"GiB")
+    out["b8"] = stats
+    # (c) paged serving on the same weights
+    per_fwd = 2 * L + 1
+    out["paged"] = serve_paged(
+        torch, kernels, eng.params, cfg, lambda adm: {
+            "qmm_int4": per_fwd * (adm + 1), "qmm_int4_grouped": 0,
+            "flash_prefill": 0, "cache_write_fresh": 0,
+            "decode_attention": 0, "paged_attention": 0}, "GPT-OSS")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) kernels against plain versions on the path, L=2
+    cfg2 = gptoss20b_config(num_layers=2, max_seq_len=256)
+    params = prepare_params(quantize_params(
+        gptoss.init_params(cfg2, seed=1, device="cuda"), qcfg))
+
+    def step_want(B):
+        return {"decode_attention": cfg2.num_layers,
+                "qmm_int4": 2 * cfg2.num_layers + 1}
+    with SharedRouting(torch, gptoss) as shared:
+        out["vs_plain"] = kernels_vs_plain(torch, gptoss, cfg2, params,
+                                           step_want, "GPT-OSS", 12)
+    # bf16 rounding alone moves a few tokens to another expert (5 of the
+    # 384 routings at this seed on an H100); a kernel error that
+    # misroutes moves most of them
+    bound = FLIP_SHARE * shared.tokens
+    out["vs_plain"]["routing_flips"] = [shared.flips, shared.tokens]
+    say(f"  (d) tokens whose plain top-4 differed from the kernel path's: "
+        f"{shared.flips} of {shared.tokens} layer x token routings (bound "
+        f"{bound:.1f})")
+    need(shared.flips <= bound, f"GPT-OSS (d): {shared.flips} of "
+         f"{shared.tokens} routings differ, beyond {bound:.1f}")
+    del params
+    torch.cuda.empty_cache()
+    report["gptoss"] = out
+    return out["b1"]["launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9")
     ap.add_argument("--json", default=None,
                     help="also write every measurement to this JSON file")
     args = ap.parse_args(argv)
@@ -1403,6 +1667,7 @@ def main(argv=None) -> int:
         if 7 in phases:
             phase_speculative(torch, report)
         moe_launches = phase_mixtral(torch, report) if 8 in phases else {}
+        gptoss_launches = phase_gptoss(torch, report) if 9 in phases else {}
     except (SmokeError, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         if args.json:
@@ -1412,7 +1677,8 @@ def main(argv=None) -> int:
 
     # launches: each kernel's count from the run of its path, the paged
     # kernel from phase 6's serving run, the grouped qmm from phase 8(a)'s
-    # Mixtral B=1 run, the others from phase 3's
+    # Mixtral B=1 run, the others from phase 3's; launches_gptoss from
+    # phase 9(a)'s GPT-OSS B=1 run
     kern = []
     for name in kernels.wrappers():
         r = results.get(name, {})
@@ -1422,6 +1688,7 @@ def main(argv=None) -> int:
                      "replaces": ROOT_REPLACES[name],
                      "launches": path.get(name, 0),
                      "launches_paged_serving": paged_launches.get(name, 0),
+                     "launches_gptoss": gptoss_launches.get(name, 0),
                      "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
                      "plain_ms": r.get("plain_ms"),
                      "bound_ms": r.get("bound_ms"),

@@ -15,6 +15,9 @@ from turboinfer_tpu_torch.kernels import (cache_write, decode_attention,
                                           flash_attention, paged_attention,
                                           qmm)
 
+torch.set_num_threads(2)
+
+
 def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernels have no CPU mode")
@@ -129,6 +132,49 @@ def test_cuda_attention_kernels_match_plain(D, Hq, Hkv):
     got = decode_attention.decode_attention(q[:, 0], kc, vc, lens, 1).float()
     want = decode_attention.decode_plain(q[:, 0], kc, vc, lens, 1).float()
     torch.testing.assert_close(got, want, atol=1e-2, rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,lens", [
+    (None, [1, 255, 256, 257]), (128, [1, 255, 384, 1128]),
+    (1, [1, 256, 257, 2048]), (3000, [1, 255, 256, 2048])])
+@pytest.mark.parametrize("sinks", [True, False], ids=["sinks", "nosinks"])
+def test_cuda_decode_window_sinks_match_plain(window, lens, sinks):
+    """GPT-OSS's decode shape (Hq=64, Hkv=8, D=64, T=2048) with a window
+    and per-head sinks: the 256-row slices around kv_len 256, a window
+    start on a slice boundary (384 - 128), window 1 and a window past
+    kv_len; the sink enters the merge once, however many slices run."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(len(lens) + sinks)
+    L, B, Hq, Hkv, T, D = 2, 4, 64, 8, 2048, 64
+    kc = torch.randn((L, B, Hkv, T, D), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    vc = torch.randn((L, B, Hkv, T, D), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+    snk = (2 * torch.randn((Hq,), generator=gen, device="cuda")
+           ).to(torch.bfloat16).float() if sinks else None
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    got = decode_attention.decode_attention(q, kc, vc, kv_len, 1, window,
+                                            snk).float()
+    want = decode_attention.decode_plain(q, kc, vc, kv_len, 1, window,
+                                         snk).float()
+    torch.testing.assert_close(got, want, atol=1e-2, rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_refuses_sinks_not_f32():
+    """The kernel reads f32 sink logits as given: bf16 or strided sinks
+    raise (dispatch.prepare_params casts a model's sinks once)."""
+    _need_cuda()
+    from turboinfer_tpu_torch.utils.errors import KernelError
+    kc = torch.zeros((1, 1, 8, 64, 64), dtype=torch.bfloat16, device="cuda")
+    q = torch.zeros((1, 64, 64), dtype=torch.bfloat16, device="cuda")
+    kv_len = torch.tensor([5], dtype=torch.int32, device="cuda")
+    for bad in (torch.zeros(64, dtype=torch.bfloat16, device="cuda"),
+                torch.zeros((64, 2), device="cuda")[:, 0]):
+        with pytest.raises(KernelError):
+            decode_attention.decode_attention(q, kc, kc, kv_len, 0, 8, bad)
 
 
 @pytest.mark.cuda

@@ -212,6 +212,61 @@ def test_decode_plain_matches_pallas(D):
         v[1, 0, :, 0], Hq // Hkv, axis=0), rtol=1e-5, atol=1e-6)
 
 
+# (window, kv_len per row): kv_len 1, 255, 256 and 257 around the
+# kernel's 256-row slices; a window start lo = kv_len - window exactly on
+# a slice boundary (384 - 128); window 1; a window >= kv_len.
+_SINK_CASES = {"full": (None, [1, 255, 256, 257]),
+               "w128": (128, [1, 255, 384, 257]),
+               "w1": (1, [1, 256, 257, 512]),
+               "wide": (600, [1, 255, 256, 512])}
+
+
+@pytest.mark.parametrize("sinks", [True, False], ids=["sinks", "nosinks"])
+@pytest.mark.parametrize("case", list(_SINK_CASES))
+def test_decode_plain_window_sinks_match_fused_pallas(case, sinks):
+    """decode_plain with a window and per-head sinks (what
+    decode_attention runs on the CPU) against decode_fused_pallas in
+    interpret mode, whose fused-head cache [L, B, T, Hkv*D] is the
+    head-major one transposed: GPT-OSS's Gh=8, D=64, at T=512."""
+    window, lens = _SINK_CASES[case]
+    rng = _rng(60 + len(case) + sinks)
+    L, B, Hq, Hkv, D, T = 2, 4, 16, 2, 64, 512
+    q = rng.normal(size=(B, Hq, D)).astype(np.float32)
+    k = rng.normal(size=(L, B, Hkv, T, D)).astype(np.float32)
+    v = rng.normal(size=(L, B, Hkv, T, D)).astype(np.float32)
+    snk = rng.normal(scale=2.0, size=(Hq,)).astype(np.float32) \
+        if sinks else None
+    kv_len = np.asarray(lens, np.int32)
+
+    def fused(c):
+        return jnp.asarray(c.transpose(0, 1, 3, 2, 4).reshape(L, B, T, Hkv * D))
+    for li in (0, 1):
+        want = jda.decode_fused_pallas(
+            jnp.asarray(q), fused(k), fused(v), jnp.asarray(kv_len),
+            layer_index=jnp.int32(li), window=window,
+            sinks=None if snk is None else jnp.asarray(snk), interpret=True)
+        got = decode_attention.decode_attention(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            torch.from_numpy(kv_len), li, window=window,
+            sinks=None if snk is None else torch.from_numpy(snk))
+        assert _rel(got.numpy(), want) < KERNEL_RTOL
+        # and exactly the JAX jnp golden form on the fused layout
+        np.testing.assert_allclose(got.numpy(), np.asarray(
+            jops.attention_decode_fused_ref(
+                jnp.asarray(q), fused(k)[li], fused(v)[li],
+                jnp.asarray(kv_len), window=window,
+                sinks=None if snk is None else jnp.asarray(snk))),
+            rtol=1e-5, atol=1e-5)
+    if window == 1 and snk is None:     # each row reads its last key only
+        last = v[1, np.arange(B), :, kv_len - 1]            # [B, Hkv, D]
+        np.testing.assert_allclose(got.numpy(), np.repeat(
+            last, Hq // Hkv, axis=1), rtol=1e-5, atol=1e-6)
+        with pytest.raises(ValueError):                     # no empty window
+            decode_attention.decode_attention(
+                torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                torch.from_numpy(kv_len), 0, window=0)
+
+
 def test_cpu_wrappers_never_launch():
     kernels.reset_launch_counts()
     x = torch.randn(3, 128)
@@ -256,7 +311,13 @@ def test_rms_norm_glu_softcap_match_jax():
 @pytest.mark.parametrize("scaling", [(), (("rope_type", "linear"),
                                           ("factor", 2.0)),
                                      (("rope_type", "llama3"), ("factor", 8.0),
-                                      ("original_max_position_embeddings", 64))])
+                                      ("original_max_position_embeddings", 64)),
+                                     (("factor", 4.0),
+                                      ("original_max_position_embeddings", 16),
+                                      ("rope_type", "yarn"), ("truncate", False)),
+                                     (("beta_fast", 16.0), ("factor", 32.0),
+                                      ("original_max_position_embeddings", 64),
+                                      ("rope_type", "yarn"))])
 def test_apply_rope_matches_jax(mode, jmode, scaling):
     rng = _rng(51)
     x = rng.normal(size=(2, 6, 3, 32)).astype(np.float32)

@@ -187,3 +187,21 @@ def mixtral_config(**kw) -> ModelConfig:
                 name="mixtral-8x7b")
     base.update(kw)
     return ModelConfig(**base)
+
+
+def gptoss20b_config(**kw) -> ModelConfig:
+    """openai/gpt-oss-20b's published config.json as the JAX package's
+    loader maps it (loader/mapping.py): 24 layers, 32 experts top-4,
+    attention sinks, 128-token windows on even layers, YaRN factor 32."""
+    base = dict(vocab_size=201088, hidden_size=2880, num_layers=24,
+                num_heads=64, num_kv_heads=8, head_dim=64,
+                intermediate_size=2880, num_experts=32, experts_per_token=4,
+                sliding_window=128, sliding_window_pattern=2,
+                rope_theta=150000.0, attn_bias=True, max_seq_len=131072,
+                rope_scaling=(("beta_fast", 32.0), ("beta_slow", 1.0),
+                              ("factor", 32.0),
+                              ("original_max_position_embeddings", 4096),
+                              ("rope_type", "yarn"), ("truncate", False)),
+                architecture="gpt_oss", name="gpt-oss-20b")
+    base.update(kw)
+    return ModelConfig(**base)

@@ -40,16 +40,22 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& u, float* f) {
   }
 }
 
-// Merges the ns split-T partial results of one output row with
+// Merges the split-T partial results s0..ns-1 of one output row with
 // log-sum-exp rescaling: split s wrote its unnormalised output
 // po[s * D + d] and its running max and sum pml[2 s], pml[2 s + 1].
+// (m0, l0) is one more partial with a zero output: an attention sink
+// enters as (sink, 1), exactly once; the default (kNegInf, 0) adds
+// nothing (0 * expf(m0 - mx) is exactly 0), so callers without a sink
+// get the plain merge bit for bit.
 __device__ __forceinline__ float merge_splits(const float* po,
                                               const float* pml, int ns,
-                                              int D, int d) {
-  float mx = kNegInf;
-  for (int s = 0; s < ns; ++s) mx = fmaxf(mx, pml[2 * s]);
-  float l = 0.f, o = 0.f;
-  for (int s = 0; s < ns; ++s) {
+                                              int D, int d, int s0 = 0,
+                                              float m0 = kNegInf,
+                                              float l0 = 0.f) {
+  float mx = m0;
+  for (int s = s0; s < ns; ++s) mx = fmaxf(mx, pml[2 * s]);
+  float l = l0 * __expf(m0 - mx), o = 0.f;
+  for (int s = s0; s < ns; ++s) {
     const float w = __expf(pml[2 * s] - mx);
     l += w * pml[2 * s + 1];
     o += w * po[(long long)s * D + d];

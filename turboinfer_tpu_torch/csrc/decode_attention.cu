@@ -1,11 +1,16 @@
 // decode_attention: one query per sequence against the first kv_len[b]
 // rows of one layer of the head-major cache.
 //
-// Replaces the TPU kernel turboinfer_tpu/kernels/pallas/decode_attention.py
-// decode_pallas (_decode, body _kernel) for a model-dtype (bf16) cache.
+// Replaces the TPU kernels turboinfer_tpu/kernels/pallas/decode_attention.py
+// decode_pallas (_decode, body _kernel) and decode_fused_pallas
+// (_decode_fused, body _fused_kernel) for a model-dtype (bf16) cache.
 // The cache operand is layer li of the stacked [L, B, Hkv, T, D] cache,
 // selected by the caller's pointer offset. kv_len is clamped to
-// [1, T] as the JAX kernel clamps it to >= 1.
+// [1, T] as the JAX kernel clamps it to >= 1. The fused-head cache of
+// decode_fused_pallas exists for TPU lane alignment; the port keeps this
+// head-major layout and takes its semantics here: an optional window
+// (keys [max(kv_len - window, 0), kv_len) only) and optional per-head
+// sink logits (softmax over [scores, sink], the sink adding no value).
 //
 // What bounds it on the H100: bytes, the 2 * kv_len * D * 2 bytes of K
 // and V each (b, kv head) must read, over 3.35 TB/s; the cost follows
@@ -15,8 +20,11 @@
 // Lanes read 16-byte vectors (a warp covers 32/(D/8) rows per load),
 // scores and probabilities of the slice stay in shared memory, and the
 // block writes its unnormalised output with its running max and sum.
-// Slices past kv_len exit at once. Pass 2 merges the slices of each
-// (b, head) with the usual log-sum-exp rescaling.
+// Slices past kv_len, and slices wholly below the window's first row
+// lo, exit at once; the slice holding lo starts there. Pass 2 merges
+// only the slices [lo / 256, ceil(kv_len / 256)) of each (b, head), so
+// an exited slice's stale workspace is never read, and the sink enters
+// that merge once, as one more partial (max = sink, sum = 1, no value).
 #include "common.cuh"
 
 namespace {
@@ -32,8 +40,9 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ vc,
                     float* __restrict__ part_o, float* __restrict__ part_ml,
                     const int* __restrict__ kv_len, int Hq, int Hkv, int T,
-                    int gh, int nsplit, long long qsb, long long qsh,
-                    long long csb, long long csh, float scale) {
+                    int gh, int nsplit, int window, long long qsb,
+                    long long qsh, long long csb, long long csh,
+                    float scale) {
   constexpr int kLpr = D / 8;          // lanes per cache row
   constexpr int kRpw = 32 / kLpr;      // rows per warp per pass
   constexpr int kRpb = kRpw * kWarps;  // rows per block per pass
@@ -43,9 +52,10 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int b = blockIdx.x, hk = blockIdx.y, sp = blockIdx.z;
   const int kvl = max(1, min(kv_len[b], T));
-  const int t0 = sp * kSplit;
-  if (t0 >= kvl) return;
-  const int t1 = min(t0 + kSplit, kvl);
+  const int lo = window > 0 ? max(kvl - window, 0) : 0;
+  if (sp * kSplit >= kvl || (sp + 1) * kSplit <= lo) return;
+  const int t0 = max(sp * kSplit, lo);
+  const int t1 = min((sp + 1) * kSplit, kvl);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int lrow = lane / kLpr, dl = (lane % kLpr) * 8;
 
@@ -159,42 +169,46 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 __global__ void decode_combine_kernel(const float* __restrict__ part_o,
                                       const float* __restrict__ part_ml,
                                       const int* __restrict__ kv_len,
+                                      const float* __restrict__ sinks,
                                       __nv_bfloat16* __restrict__ out, int Hq,
-                                      int T, int D, int nsplit) {
+                                      int T, int D, int nsplit, int window) {
   const int bh = blockIdx.x, b = bh / Hq, d = threadIdx.x;
   const int kvl = max(1, min(kv_len[b], T));
+  const int lo = window > 0 ? max(kvl - window, 0) : 0;
   const int ns = (kvl + kSplit - 1) / kSplit;
   const long long row0 = (long long)bh * nsplit;
-  out[(long long)bh * D + d] = __float2bfloat16(
-      ti::merge_splits(part_o + row0 * D, part_ml + row0 * 2, ns, D, d));
+  const float m0 = sinks ? sinks[bh % Hq] : ti::kNegInf;
+  out[(long long)bh * D + d] = __float2bfloat16(ti::merge_splits(
+      part_o + row0 * D, part_ml + row0 * 2, ns, D, d, lo / kSplit, m0,
+      sinks ? 1.f : 0.f));
 }
 
 template <int D, int GH>
 void launch_split(const void* q, const void* kc, const void* vc, float* po,
                   float* pml, const int* kl, int B, int Hq, int Hkv, int T,
-                  int gh, int nsplit, const long long* st, float scale,
-                  cudaStream_t stream) {
+                  int gh, int nsplit, int window, const long long* st,
+                  float scale, cudaStream_t stream) {
   dim3 grid(B, Hkv, nsplit);
   decode_split_kernel<D, GH><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(kc),
       static_cast<const __nv_bfloat16*>(vc), po, pml, kl, Hq, Hkv, T, gh,
-      nsplit, st[0], st[1], st[2], st[3], scale);
+      nsplit, window, st[0], st[1], st[2], st[3], scale);
 }
 
 template <int D>
 void launch_d(const void* q, const void* kc, const void* vc, float* po,
               float* pml, const int* kl, int B, int Hq, int Hkv, int T,
-              int gh, int nsplit, const long long* st, float scale,
-              cudaStream_t stream) {
+              int gh, int nsplit, int window, const long long* st,
+              float scale, cudaStream_t stream) {
   if (gh <= 1)
-    launch_split<D, 1>(q, kc, vc, po, pml, kl, B, Hq, Hkv, T, gh, nsplit, st, scale, stream);
+    launch_split<D, 1>(q, kc, vc, po, pml, kl, B, Hq, Hkv, T, gh, nsplit, window, st, scale, stream);
   else if (gh <= 2)
-    launch_split<D, 2>(q, kc, vc, po, pml, kl, B, Hq, Hkv, T, gh, nsplit, st, scale, stream);
+    launch_split<D, 2>(q, kc, vc, po, pml, kl, B, Hq, Hkv, T, gh, nsplit, window, st, scale, stream);
   else if (gh <= 4)
-    launch_split<D, 4>(q, kc, vc, po, pml, kl, B, Hq, Hkv, T, gh, nsplit, st, scale, stream);
+    launch_split<D, 4>(q, kc, vc, po, pml, kl, B, Hq, Hkv, T, gh, nsplit, window, st, scale, stream);
   else
-    launch_split<D, 8>(q, kc, vc, po, pml, kl, B, Hq, Hkv, T, gh, nsplit, st, scale, stream);
+    launch_split<D, 8>(q, kc, vc, po, pml, kl, B, Hq, Hkv, T, gh, nsplit, window, st, scale, stream);
 }
 
 }  // namespace
@@ -213,15 +227,18 @@ long long ti_decode_workspace(int B, int Hq, int T, int D) {
 // q: bf16 [B, Hq, D] with strides {qsb, qsh}; k_cache, v_cache: the
 // [B, Hkv, T, D] plane of layer li with strides {csb, csh} and contiguous
 // [T, D] rows; out: bf16 [B, Hq, D] contiguous; kv_len: int32 [B] on the
-// device; work: ti_decode_workspace(...) f32 elements.
-// strides = {qsb, qsh, csb, csh}. D in {32, 64, 128}; Hq / Hkv <= 8.
+// device; work: ti_decode_workspace(...) f32 elements; sinks: f32 [Hq]
+// on the device, or null; window: rows before kv_len - window are
+// masked, 0 for none. strides = {qsb, qsh, csb, csh}. D in {32, 64,
+// 128}; Hq / Hkv <= 8.
 int ti_decode_attention(const void* q, const void* k_cache,
                         const void* v_cache, void* out, void* work,
-                        const void* kv_len, int B, int Hq, int Hkv, int T,
-                        int D, const long long* strides, float scale,
-                        void* stream) {
+                        const void* kv_len, const void* sinks, int B, int Hq,
+                        int Hkv, int T, int D, int window,
+                        const long long* strides, float scale, void* stream) {
   const int gh = Hq / Hkv;
-  if (gh > 8 || Hq % Hkv) return static_cast<int>(cudaErrorInvalidValue);
+  if (gh > 8 || Hq % Hkv || window < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int nsplit = (T + kSplit - 1) / kSplit;
   float* po = static_cast<float*>(work);
   float* pml = po + (long long)B * Hq * nsplit * D;
@@ -229,19 +246,20 @@ int ti_decode_attention(const void* q, const void* k_cache,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      launch_d<32>(q, k_cache, v_cache, po, pml, kl, B, Hq, Hkv, T, gh, nsplit, strides, scale, st);
+      launch_d<32>(q, k_cache, v_cache, po, pml, kl, B, Hq, Hkv, T, gh, nsplit, window, strides, scale, st);
       break;
     case 64:
-      launch_d<64>(q, k_cache, v_cache, po, pml, kl, B, Hq, Hkv, T, gh, nsplit, strides, scale, st);
+      launch_d<64>(q, k_cache, v_cache, po, pml, kl, B, Hq, Hkv, T, gh, nsplit, window, strides, scale, st);
       break;
     case 128:
-      launch_d<128>(q, k_cache, v_cache, po, pml, kl, B, Hq, Hkv, T, gh, nsplit, strides, scale, st);
+      launch_d<128>(q, k_cache, v_cache, po, pml, kl, B, Hq, Hkv, T, gh, nsplit, window, strides, scale, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   decode_combine_kernel<<<B * Hq, D, 0, st>>>(
-      po, pml, kl, static_cast<__nv_bfloat16*>(out), Hq, T, D, nsplit);
+      po, pml, kl, static_cast<const float*>(sinks),
+      static_cast<__nv_bfloat16*>(out), Hq, T, D, nsplit, window);
   return ti::launch_status();
 }
 

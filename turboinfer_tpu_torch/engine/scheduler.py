@@ -752,6 +752,12 @@ class PagedContinuousScheduler(ContinuousBatchingScheduler):
                  draft_params: Optional[Dict[str, Any]] = None,
                  draft_config: Optional[ModelConfig] = None,
                  spec_k: int = 4, device="cuda"):
+        if draft_params is not None and not hasattr(
+                registry.get_model(model_config.architecture),
+                "forward_paged_verify"):
+            raise NotImplementedError(
+                f"{model_config.architecture} has no forward_paged_verify "
+                "(speculative paged serving)")
         super().__init__(params, model_config, config, batch_slots,
                          decode_burst=decode_burst, max_queue=max_queue,
                          mesh=mesh, parallel=parallel,

@@ -41,7 +41,7 @@ SIGNATURES = {
     "ti_cache_write_fresh": ([_VP] * 4 + [_I] * 5 + [_LLP, _VP], _I),
     "ti_decode_split_rows": ([], _I),
     "ti_decode_workspace": ([_I] * 4, _LL),
-    "ti_decode_attention": ([_VP] * 6 + [_I] * 5 + [_LLP, _F, _VP], _I),
+    "ti_decode_attention": ([_VP] * 7 + [_I] * 6 + [_LLP, _F, _VP], _I),
     "ti_paged_workspace": ([_I] * 5, _LL),
     "ti_paged_attention": ([_VP] * 7 + [_I] * 9 + [_LLP, _F, _VP], _I),
 }

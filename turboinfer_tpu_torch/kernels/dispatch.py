@@ -40,14 +40,16 @@ def attention_prefill(q, k, v, *, kv_len, q_start, layer_index=None):
     return flash_attention.flash_prefill(q, k, v, kv_len, q_start)
 
 
-def attention_decode(q, k_cache, v_cache, kv_len, layer_index=None):
+def attention_decode(q, k_cache, v_cache, kv_len, layer_index=None,
+                     window=None, sinks=None):
     """q: [B, Hq, D]; caches stacked [L, B, Hkv, T, D] with
-    `layer_index`, or one layer [B, Hkv, T, D]."""
+    `layer_index`, or one layer [B, Hkv, T, D]. window: the last
+    `window` keys only; sinks: [Hq] per-head sink logits."""
     from turboinfer_tpu_torch.kernels import decode_attention
     if layer_index is None:
         k_cache, v_cache, layer_index = k_cache[None], v_cache[None], 0
     return decode_attention.decode_attention(q, k_cache, v_cache, kv_len,
-                                             layer_index)
+                                             layer_index, window, sinks)
 
 
 def attention_paged_decode(q, k_pages, v_pages, block_table, kv_len,
@@ -72,12 +74,14 @@ def attention_paged_verify(q, k_pages, v_pages, block_table, kv_len,
 def prepare_params(params: Any) -> Any:
     """One-time engine setup: view 4-D expert QTensors [L, E, ...] as the
     flat [L*E] stack the kernels index (what qmm.prepare_scales does in
-    the JAX package, without its TPU scale tiling), then fuse
-    same-input projections (wq/wk/wv -> wqkv, w_gate/w_up -> w_gateup,
-    we_gate/we_up -> we_gateup). Idempotent."""
+    the JAX package, without its TPU scale tiling), cast the sink logits
+    to the f32 the decode kernel reads, then fuse same-input projections
+    (wq/wk/wv -> wqkv, w_gate/w_up -> w_gateup, we_gate/we_up ->
+    we_gateup). Idempotent."""
     from turboinfer_tpu_torch.models.common import fuse_projections
     if isinstance(params, dict) and isinstance(params.get("layers"), dict):
         params = {**params, "layers": {
-            k: v.flat() if isinstance(v, QTensor) else v
+            k: v.flat() if isinstance(v, QTensor)
+            else v.to(torch.float32).contiguous() if k == "sinks" else v
             for k, v in params["layers"].items()}}
     return fuse_projections(params)

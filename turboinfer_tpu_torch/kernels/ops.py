@@ -57,8 +57,10 @@ def apply_softcap(s: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 def rope_freqs(head_dim: int, theta: float = 10000.0, device=None,
                scaling: Tuple[Tuple[str, float], ...] = ()) -> torch.Tensor:
     """Per-pair inverse frequencies theta^(-2i/d), f32. `scaling`:
-    HF-style rope_scaling as (key, value) pairs; "linear" and "llama3"
-    are ported, other types come in a later slice."""
+    HF-style rope_scaling as (key, value) pairs: "linear", "llama3" and
+    "yarn" (NTK-by-parts over the beta_fast/beta_slow correction range;
+    `truncate` defaults to True, GPT-OSS sets it False); pair yarn with
+    rope_attention_factor for the cos/sin amplitude."""
     i = torch.arange(0, head_dim // 2, dtype=torch.float32, device=device)
     freqs = theta ** (-2.0 * i / head_dim)
     if scaling:
@@ -77,11 +79,47 @@ def rope_freqs(head_dim: int, theta: float = 10000.0, device=None,
             freqs = torch.where(wavelen > orig / low, freqs / factor,
                                 torch.where(wavelen < orig / high, freqs,
                                             scaled))
+        elif kind == "yarn":
+            beta_fast = float(d.get("beta_fast") or 32.0)
+            beta_slow = float(d.get("beta_slow") or 1.0)
+            orig = float(d.get("original_max_position_embeddings", 4096))
+
+            def corr_dim(rot):
+                return (head_dim * math.log(orig / (rot * 2 * math.pi))
+                        / (2 * math.log(theta)))
+            low, high = corr_dim(beta_fast), corr_dim(beta_slow)
+            if bool(d.get("truncate", True)):
+                low, high = math.floor(low), math.ceil(high)
+            low, high = max(low, 0.0), min(high, head_dim - 1.0)
+            if low == high:
+                high += 0.001
+            ramp = ((i - low) / (high - low)).clamp(0.0, 1.0)
+            extrap_w = 1.0 - ramp
+            freqs = (freqs / factor) * (1 - extrap_w) + freqs * extrap_w
         else:
             raise NotImplementedError(
                 f"rope_scaling type '{kind}' is not ported yet "
-                "(ported: linear, llama3)")
+                "(ported: linear, llama3, yarn)")
     return freqs
+
+
+def rope_attention_factor(scaling: Tuple[Tuple[str, float], ...]) -> float:
+    """YaRN cos/sin amplitude ("attention_factor", else 0.1 * mscale *
+    ln(factor) + 1); 1.0 for every other scaling."""
+    d = dict(scaling)
+    if str(d.get("rope_type", d.get("type", ""))) != "yarn":
+        return 1.0
+    if d.get("attention_factor") is not None:
+        return float(d["attention_factor"])
+    factor = float(d.get("factor", 1.0))
+
+    def get_mscale(scale, m=1.0):
+        return 1.0 if scale <= 1 else 0.1 * m * math.log(scale) + 1.0
+    mscale, mscale_all = d.get("mscale"), d.get("mscale_all_dim")
+    if mscale and mscale_all:
+        return float(get_mscale(factor, float(mscale))
+                     / get_mscale(factor, float(mscale_all)))
+    return float(get_mscale(factor))
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int,
@@ -89,10 +127,14 @@ def rope_tables(positions: torch.Tensor, head_dim: int,
                 scaling: Tuple[Tuple[str, float], ...] = ()):
     """Full-width f32 tables (a, b) [B, S, 1, D] for `positions` [B, S]
     such that rope(x) = x * a + rotate(x) * b (see apply_rope); a
-    forward builds them once and shares them across layers and heads."""
+    forward builds them once and shares them across layers and heads.
+    cos and sin carry rope_attention_factor (yarn only)."""
     freqs = rope_freqs(head_dim, theta, positions.device, scaling)
     angles = positions.to(torch.float32)[..., None, None] * freqs
     cos, sin = torch.cos(angles), torch.sin(angles)
+    mscale = rope_attention_factor(scaling)
+    if mscale != 1.0:
+        cos, sin = cos * mscale, sin * mscale
     if mode == RopeMode.INTERLEAVED:
         return (torch.stack([cos, cos], -1).flatten(-2),
                 torch.stack([-sin, sin], -1).flatten(-2))
@@ -201,19 +243,33 @@ def attention_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor, kv_len: torch.Tensor
+                         v_cache: torch.Tensor, kv_len: torch.Tensor,
+                         window: Optional[int] = None,
+                         sinks: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """Single-token attention. q: [B, Hq, D]; k/v: [B, Hkv, T, D];
-    kv_len: [B] valid slots (the current token included)."""
+    kv_len: [B] valid slots (the current token included). window: keys
+    [kv_len - window, kv_len) only. sinks: [Hq] per-head sink logits
+    (GPT-OSS): the softmax runs over [scores, sink] and the sink adds no
+    value (attention_decode_fused_ref of the JAX package, head-major)."""
     B, Hq, D = q.shape
     T = k_cache.shape[2]
     k = _repeat_kv(k_cache, Hq).to(torch.float32)
     v = _repeat_kv(v_cache, Hq).to(torch.float32)
     qf = q.to(torch.float32) * (1.0 / math.sqrt(D))
     scores = torch.einsum("bhd,bhtd->bht", qf, k)
-    valid = torch.arange(T, device=q.device)[None, None, :] < kv_len[:, None, None]
+    t = torch.arange(T, device=q.device)[None, None, :]
+    valid = t < kv_len[:, None, None]
+    if window is not None:
+        valid = valid & (t >= kv_len[:, None, None] - window)
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1)
+    if sinks is None:
+        probs = torch.softmax(scores, dim=-1)
+    else:
+        s0 = sinks.to(device=q.device, dtype=torch.float32)[None, :, None]
+        m = torch.maximum(scores.amax(-1, keepdim=True), s0)
+        p = torch.exp(scores - m)
+        probs = p / (torch.exp(s0 - m) + p.sum(-1, keepdim=True))
     return torch.einsum("bht,bhtd->bhd", probs, v).to(q.dtype)
 
 
@@ -231,14 +287,18 @@ def _gather_pages(pages: torch.Tensor, block_table: torch.Tensor
 def attention_paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
                                v_pages: torch.Tensor,
                                block_table: torch.Tensor,
-                               kv_len: torch.Tensor) -> torch.Tensor:
+                               kv_len: torch.Tensor,
+                               window: Optional[int] = None,
+                               sinks: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
     """Single-token attention over ONE layer's paged cache: gather the
-    sequence's pages, then attention_decode_ref. q: [B, Hq, D];
-    k/v_pages: [P, Hkv, page, D]; block_table: [B, max_pages] (-1 =
-    unassigned); kv_len: [B] (the current token included)."""
+    sequence's pages, then attention_decode_ref (window and sinks as
+    there). q: [B, Hq, D]; k/v_pages: [P, Hkv, page, D]; block_table:
+    [B, max_pages] (-1 = unassigned); kv_len: [B] (the current token
+    included)."""
     k = _gather_pages(k_pages, block_table).to(q.dtype)
     v = _gather_pages(v_pages, block_table).to(q.dtype)
-    return attention_decode_ref(q, k, v, kv_len)
+    return attention_decode_ref(q, k, v, kv_len, window=window, sinks=sinks)
 
 
 def attention_paged_verify_ref(q: torch.Tensor, k_pages: torch.Tensor,

@@ -67,17 +67,23 @@ def decode_kv(x: torch.Tensor, out_dtype) -> torch.Tensor:
 
 def fuse_projections(params: Any) -> Any:
     """Fuse same-input projections along the output axis: wq/wk/wv ->
-    "wqkv", w_gate/w_up -> "w_gateup" and the MoE experts' we_gate/we_up
-    -> "we_gateup" (expert by expert). Numerically identical (every
-    output column's K-reduction is unchanged); fewer kernel launches."""
+    "wqkv" (and the q/k/v biases -> "b_qkv" whenever the weights fused,
+    as the JAX package does), w_gate/w_up -> "w_gateup" and quantized
+    MoE experts' we_gate/we_up -> "we_gateup" (expert by expert).
+    Numerically identical (every output column's K-reduction is
+    unchanged); fewer kernel launches. fp expert stacks stay split, as
+    the JAX package keeps every expert stack: fusing GPT-OSS-20B's bf16
+    experts would concatenate 2 x 12.7 GB while the originals live."""
     if not isinstance(params, dict) or not isinstance(
             params.get("layers"), dict):
         return params
     layers = dict(params["layers"])
 
-    def fuse(names, out):
+    def fuse(names, out, quantized_only=False):
         ws = [layers.get(n) for n in names]
         if any(w is None for w in ws):
+            return
+        if quantized_only and not all(isinstance(w, QTensor) for w in ws):
             return
         if all(isinstance(w, QTensor) for w in ws):
             try:
@@ -95,8 +101,11 @@ def fuse_projections(params: Any) -> Any:
         layers[out] = fused
 
     fuse(("wq", "wk", "wv"), "wqkv")
+    if "wqkv" in layers and "b_q" in layers:
+        layers["b_qkv"] = torch.cat([layers.pop("b_q"), layers.pop("b_k"),
+                                     layers.pop("b_v")], dim=-1)
     fuse(("w_gate", "w_up"), "w_gateup")
-    fuse(("we_gate", "we_up"), "we_gateup")
+    fuse(("we_gate", "we_up"), "we_gateup", quantized_only=True)
     return {**params, "layers": layers}
 
 

@@ -92,17 +92,25 @@ def init_params(config: ModelConfig, seed: int = 0, device="cuda",
 
 
 def qkv_proj(h, lw, li, B, S, Hq, Hkv, D):
-    """q/k/v projections: one fused product when "wqkv" is present.
-    Returns qk [B, S, Hq + Hkv, D] (q heads, then k heads; RoPE treats
-    them in one pass) and v [B, S, Hkv, D], views of the product."""
+    """q/k/v projections: one fused product when "wqkv" is present,
+    plus the q/k/v biases when their slots ("b_qkv", or "b_q"/"b_k"/
+    "b_v") are present. Returns qk [B, S, Hq + Hkv, D] (q heads, then k
+    heads; RoPE treats them in one pass) and v [B, S, Hkv, D]."""
     if "wqkv" in lw:
         qkv = ops.qmatmul(h, lw["wqkv"], li)
+        if "b_qkv" in lw:
+            qkv = qkv + lw["b_qkv"][li].to(qkv.dtype)
         qk = qkv[..., : (Hq + Hkv) * D]
         v = qkv[..., (Hq + Hkv) * D:]
     else:
-        qk = torch.cat([ops.qmatmul(h, lw["wq"], li),
-                        ops.qmatmul(h, lw["wk"], li)], dim=-1)
+        q = ops.qmatmul(h, lw["wq"], li)
+        k = ops.qmatmul(h, lw["wk"], li)
         v = ops.qmatmul(h, lw["wv"], li)
+        if "b_q" in lw:
+            q = q + lw["b_q"][li].to(q.dtype)
+            k = k + lw["b_k"][li].to(k.dtype)
+            v = v + lw["b_v"][li].to(v.dtype)
+        qk = torch.cat([q, k], dim=-1)
     return qk.reshape(B, S, Hq + Hkv, D), v.reshape(B, S, Hkv, D)
 
 
@@ -198,7 +206,7 @@ def forward(params: Dict[str, Any], config: ModelConfig, tokens: torch.Tensor,
             cache: KVCache, *, seq_lens: Optional[torch.Tensor] = None,
             logit_idx: Optional[torch.Tensor] = None,
             fresh_prefill: bool = False,
-            ffn_fn=None) -> Tuple[torch.Tensor, KVCache]:
+            ffn_fn=None, layer_fn=None) -> Tuple[torch.Tensor, KVCache]:
     """Forward over `tokens` [B, S] appending to `cache` (prefill S > 1 or
     decode S == 1). Queries sit at cache.length[b] + s.
 
@@ -207,8 +215,15 @@ def forward(params: Dict[str, Any], config: ModelConfig, tokens: torch.Tensor,
     fresh_prefill: the caller guarantees cache.length == 0; attention
     then reads the just-computed K/V directly.
     ffn_fn: the FFN block of every layer (None: dense_ffn).
+    layer_fn: a family's own decoder block, called as layer_fn(config, x,
+    layers, li, rope, cache, start, kv_len, fresh_prefill, slots) (None:
+    this family's block around ffn_fn).
     Returns (logits [B, S or 1, V] f32, cache with the new length)."""
-    ffn_fn = _resolve_ffn(config, ffn_fn)
+    if layer_fn is None:
+        ffn_fn = _resolve_ffn(config, ffn_fn)
+
+        def layer_fn(*args):
+            return _layer_forward(*args, ffn_fn)
     B, S = tokens.shape
     start = cache.length
     positions = start[:, None] + torch.arange(
@@ -230,8 +245,8 @@ def forward(params: Dict[str, Any], config: ModelConfig, tokens: torch.Tensor,
         slots = None if fresh_prefill else start.tolist()
     layers = params["layers"]
     for li in range(config.num_layers):
-        x = _layer_forward(config, x, layers, li, rope, cache, start, kv_len,
-                           fresh_prefill, slots, ffn_fn)
+        x = layer_fn(config, x, layers, li, rope, cache, start, kv_len,
+                     fresh_prefill, slots)
     if logit_idx is not None:
         x = x[torch.arange(B, device=x.device), logit_idx.long()][:, None]
     x = ops.rms_norm(x, params["final_norm"], config.rms_norm_eps)
@@ -253,6 +268,21 @@ def forward_paged_decode(params: Dict[str, Any], config: ModelConfig,
     return logits[:, 0], kp, vp
 
 
+def page_slots(block_table: torch.Tensor, positions: torch.Tensor, P: int,
+               page: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Page id and in-page offset of every position [B, G] through the
+    table [B, max_pages], flat over (b, g). Table ids clamp into [0, P-1]
+    as in JAX, so an inactive slot's -1 row writes trash page 0: an
+    unclamped -1 would wrap to page P-1 and corrupt a live sequence. A
+    position past the table (JAX's gather fills it) lands in page 0 too."""
+    max_pages = block_table.shape[1]
+    pidx = (positions // page).long()
+    table = block_table.to(device=positions.device).long()
+    pid = table.gather(1, pidx.clamp(max=max_pages - 1))
+    pid = torch.where(pidx < max_pages, pid, -1).clamp(0, P - 1).reshape(-1)
+    return pid, (positions % page).long().reshape(-1)
+
+
 def forward_paged_verify(params: Dict[str, Any], config: ModelConfig,
                          tokens: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, block_table: torch.Tensor,
@@ -269,22 +299,13 @@ def forward_paged_verify(params: Dict[str, Any], config: ModelConfig,
     Returns (logits [B, G, V] f32, k_pages, v_pages)."""
     ffn_fn = _resolve_ffn(config, ffn_fn)
     B, G = tokens.shape
-    _, P, _, page, _ = k_pages.shape
-    max_pages = block_table.shape[1]
     dev = tokens.device
     lengths = lengths.to(device=dev, dtype=torch.int32)
     positions = lengths[:, None] + torch.arange(G, dtype=torch.int32,
                                                 device=dev)[None, :]
     kv_len = lengths + G
-    # Page id and offset per (b, g). Table ids clamp into [0, P-1] as in
-    # JAX, so an inactive slot's -1 row writes trash page 0: an unclamped
-    # -1 would wrap to page P-1 and corrupt a live sequence. A position
-    # past the table (JAX's gather fills it) lands in page 0 too.
-    pidx = (positions // page).long()
-    table = block_table.to(device=dev).long()
-    pid = table.gather(1, pidx.clamp(max=max_pages - 1))
-    pid = torch.where(pidx < max_pages, pid, -1).clamp(0, P - 1).reshape(-1)
-    poff = (positions % page).long().reshape(-1)
+    pid, poff = page_slots(block_table, positions, k_pages.shape[1],
+                           k_pages.shape[3])
 
     x = ops.embed_lookup(params["embed"], tokens, config.dtype)
     rope = ops.rope_tables(positions, config.head_dim_, config.rope_theta,

@@ -133,7 +133,7 @@ def _gate_up(lw: Dict[str, Any], product):
     return product(lw["we_gate"]), product(lw["we_up"])
 
 
-def _dense_mix(gates: torch.Tensor, top_i: torch.Tensor, E: int
+def dense_mix(gates: torch.Tensor, top_i: torch.Tensor, E: int
                ) -> torch.Tensor:
     """The top-k gates scattered into a dense [B, S, E] f32 mix."""
     mix = torch.zeros(gates.shape[:-1] + (E,), dtype=torch.float32,
@@ -165,7 +165,7 @@ def expert_mix(config: ModelConfig, h: torch.Tensor, lw: Dict[str, Any],
         out_e = product("bskf,bskfh->bskh", act, take(lw["we_down"]))
         return torch.einsum("bskh,bsk->bsh", out_e.to(torch.float32),
                             gates.to(torch.float32))
-    mix = _dense_mix(gates, top_i, E)
+    mix = dense_mix(gates, top_i, E)
     g, u = _gate_up(lw, lambda w: product("bsh,ehf->bsef", h, w[li]))
     act = ops.glu(g, u).to(h.dtype)
     out_e = product("bsef,efh->bseh", act, lw["we_down"][li])
@@ -192,7 +192,7 @@ def _expert_ffn_quant(config: ModelConfig, h: torch.Tensor,
         down = ops.qmatmul_grouped(act, w["we_down"], slots)
         return torch.einsum("kbsh,bsk->bsh", down.to(torch.float32),
                             gates.to(torch.float32))
-    mix = _dense_mix(gates, top_i, E)
+    mix = dense_mix(gates, top_i, E)
     out = torch.zeros((B, S, H), dtype=torch.float32, device=h.device)
     for e in range(E):
         g, u = _gate_up(w, lambda wt: ops.qmatmul(h, wt, base + e))

@@ -1,5 +1,5 @@
-"""Model registry: architecture name -> model module. The llama family
-and the Mixtral-style MoE family are ported so far."""
+"""Model registry: architecture name -> model module. The llama family,
+the Mixtral-style MoE family and GPT-OSS are ported so far."""
 
 from __future__ import annotations
 
@@ -13,5 +13,9 @@ def get_model(architecture: str):
     if architecture in ("mixtral", "moe"):
         from turboinfer_tpu_torch.models import moe
         return moe
+    if architecture == "gpt_oss":
+        from turboinfer_tpu_torch.models import gptoss
+        return gptoss
     raise ConfigError(f"architecture {architecture!r} is not ported to the "
-                      "PyTorch package yet (ported: llama, mixtral, moe)")
+                      "PyTorch package yet (ported: llama, mixtral, moe, "
+                      "gpt_oss)")

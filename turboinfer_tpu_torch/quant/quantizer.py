@@ -2,8 +2,9 @@
 quantize_params): symmetric absmax int4/int8 of every llama or MoE
 matmul weight, group-wise along K, byte-identical to the JAX package's.
 MoE expert weights [L, E, K, N] become 4-D QTensors; the router stays
-fp. Unless skip_embeddings, lm_head quantizes like any matmul and the
-embedding table to per-row int8 (QEmbed)."""
+fp, and so do GPT-OSS's biased experts (marked by a "be_gate" slot),
+as in the JAX package. Unless skip_embeddings, lm_head quantizes like
+any matmul and the embedding table to per-row int8 (QEmbed)."""
 
 from __future__ import annotations
 
@@ -55,7 +56,7 @@ def quantize_params(params: Dict[str, Any], cfg: QuantizationConfig
         w = layers.get(name)
         if isinstance(w, torch.Tensor) and w.dim() == 3:
             layers[name] = _quantize_stacked(w, cfg)
-    for name in _MOE_EXPERT_SLOTS:
+    for name in _MOE_EXPERT_SLOTS if "be_gate" not in layers else ():
         w = layers.get(name)
         if isinstance(w, torch.Tensor) and w.dim() == 4:
             layers[name] = _quantize_experts(w, cfg)
