@@ -252,3 +252,207 @@ def test_cuda_paged_attention_refuses_unsupported_shapes():
     with pytest.raises(KernelError):          # f32 is not taken
         paged_attention.paged_attention(q.float(), kp.float(), kp.float(),
                                         table, kv, 0)
+
+
+# -- int8 and fp8 caches --------------------------------------------------
+
+KINDS = {"int8": torch.int8, "fp8": torch.uint8}
+
+
+def _compressed(gen, shape, kind):
+    """Random bf16 K/V encoded to `kind` by the plain codec -> (storage,
+    scale planes or None)."""
+    from turboinfer_tpu_torch.models.common import encode_kv_scaled
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    return encode_kv_scaled(x, KINDS[kind])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(KINDS))
+@pytest.mark.parametrize("D,Hkv,layout", [(128, 32, "decode"),
+                                          (128, 8, "prefill"),
+                                          (64, 8, "paged"),
+                                          (32, 4, "prefill")])
+def test_cuda_kv_encode_write_is_byte_exact(kind, D, Hkv, layout):
+    """The encode-and-write kernel against encode_kv_scaled plus an
+    indexed assignment, byte for byte, at the three addressings: a
+    decode step (row ((li B + b) Hkv) T + pos), a prefill slab with
+    skipped rows (-1) and strided K/V views, and pages. fp8 inputs cross
+    +-464 and hold inf/NaN."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(D + Hkv)
+    L, B, T, P, page = 3, 4, 64, 9, 16
+    if layout == "paged":
+        shape, W = (L, P, Hkv, page, D), page
+        S = 5
+        # distinct (page, offset) slots: two tokens never share a row
+        slot = torch.randperm(P * page, generator=gen, device="cuda")[:B * S]
+        rows = (slot // page) * (Hkv * page) + slot % page
+    else:
+        shape, W = (L, B, Hkv, T, D), T
+        S = 1 if layout == "decode" else 24
+        start = torch.tensor([0, 7, 50, 63], device="cuda")[:, None]
+        pos = start + torch.arange(S, device="cuda")[None, :]
+        rows = torch.arange(B, device="cuda")[:, None] * (Hkv * T) + pos
+        rows = torch.where(pos < T, rows, -1).reshape(-1)
+    qkv = 300 * torch.randn((B * S, 3 * Hkv * D), generator=gen,
+                            device="cuda")
+    if kind == "fp8":
+        qkv[0, :4] = torch.tensor([464.0, -465.0, float("inf"), float("nan")])
+    qkv = qkv.to(torch.bfloat16)
+    k = qkv[:, Hkv * D: 2 * Hkv * D].reshape(B * S, Hkv, D)
+    v = qkv[:, 2 * Hkv * D:].reshape(B * S, Hkv, D)
+    dt = KINDS[kind]
+    kc = torch.randint(-100, 100, shape, generator=gen, device="cuda").to(dt)
+    vc = kc.clone()
+    ks = vs = None
+    if kind == "int8":
+        ks = torch.rand(shape[:-1], generator=gen, device="cuda")
+        vs = ks.clone()
+    ref = [t.clone() if t is not None else None for t in (kc, vc, ks, vs)]
+    before = cache_write.kv_encode_write.launches
+    cache_write.kv_encode_write(k, v, kc, vc, ks, vs, rows, 1 * shape[1] * Hkv * W, W)
+    cache_write.kv_encode_write_plain(k, v, *ref, rows, 1 * shape[1] * Hkv * W, W)
+    torch.cuda.synchronize()
+    assert cache_write.kv_encode_write.launches == before + 1
+    assert torch.equal(kc, ref[0]) and torch.equal(vc, ref[1])
+    if kind == "int8":
+        assert torch.equal(ks.view(torch.int32), ref[2].view(torch.int32))
+        assert torch.equal(vs.view(torch.int32), ref[3].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(KINDS))
+@pytest.mark.parametrize("D,Hq,Hkv,window", [(128, 32, 32, None),
+                                             (128, 32, 8, None),
+                                             (64, 16, 2, 100), (32, 4, 4, None)])
+def test_cuda_decode_compressed_matches_plain(kind, D, Hq, Hkv, window):
+    """The decode kernel's int8 (scaled) and fp8 reads of layer 1 against
+    decode_plain on the dequantized layer, kv_len across slices."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(D + Hq)
+    L, B, T = 2, 4, 640
+    kc, ks = _compressed(gen, (L, B, Hkv, T, D), kind)
+    vc, vs = _compressed(gen, (L, B, Hkv, T, D), kind)
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+    kv_len = torch.tensor([1, 255, 257, 640], dtype=torch.int32, device="cuda")
+    got = decode_attention.decode_attention(q, kc, vc, kv_len, 1, window,
+                                            None, ks, vs).float()
+    want = decode_attention.decode_plain(q, kc, vc, kv_len, 1, window, None,
+                                         ks, vs).float()
+    torch.testing.assert_close(got, want, atol=1e-2, rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(KINDS))
+@pytest.mark.parametrize("D,Hq,Hkv", [(32, 4, 4), (64, 8, 2), (128, 32, 8)])
+def test_cuda_flash_prefill_stacked_compressed_matches_plain(kind, D, Hq, Hkv):
+    """The stacked read of an int8 (scale planes of layer li) or fp8
+    cache at q_start > 0 against prefill_plain on the dequantized layer."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(D + 3)
+    L, B, S, T = 3, 3, 24, 160
+    kc, ks = _compressed(gen, (L, B, Hkv, T, D), kind)
+    vc, vs = _compressed(gen, (L, B, Hkv, T, D), kind)
+    q = torch.randn((B, S, Hq, D), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    q_start = torch.tensor([40, 0, 97], dtype=torch.int32, device="cuda")
+    kv_len = torch.tensor([64, 11, 121], dtype=torch.int32, device="cuda")
+    sc = (None, None) if ks is None else (ks[1], vs[1])
+    got = flash_attention.flash_prefill(q, kc[1], vc[1], kv_len, q_start,
+                                        *sc).float()
+    want = flash_attention.prefill_plain(q, kc[1], vc[1], kv_len, q_start,
+                                         *sc).float()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(KINDS))
+@pytest.mark.parametrize("D,Hq,Hkv,page,G", [(128, 32, 32, 256, 1),
+                                             (128, 32, 8, 256, 5),
+                                             (64, 8, 2, 16, 3),
+                                             (32, 4, 4, 8, 2)])
+def test_cuda_paged_compressed_matches_plain(kind, D, Hq, Hkv, page, G):
+    """Paged decode (G=1) and verify over int8 pages with scale pages
+    (looked up through the same clamped table entry) and fp8 pages."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(D + G + page)
+    L, P, B, max_pages = 2, 40, 3, 8
+    lens = [0, 3 * page + 5, max_pages * page]
+    kp, ks = _compressed(gen, (L, P, Hkv, page, D), kind)
+    vp, vs = _compressed(gen, (L, P, Hkv, page, D), kind)
+    q = torch.randn((B, G, Hq, D), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    table = torch.randint(0, P, (B, max_pages), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    for b, n in enumerate(lens):
+        table[b, -(-max(n, 1) // page):] = -1
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    got = paged_attention.paged_attention(q, kp, vp, table, kv_len, 1, ks, vs)
+    want = paged_attention.paged_plain(q, kp, vp, table, kv_len, 1, G, ks, vs)
+    qpos = kv_len.clamp(min=1)[:, None] - G + torch.arange(G, device="cuda")
+    valid = qpos >= 0
+    torch.testing.assert_close(got[valid].float(), want[valid].float(),
+                               atol=1e-2, rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["decode", "prefill", "paged"])
+def test_cuda_fp8_reads_decode_every_code(path):
+    """All 256 e4m3 codes, 0x7F/0xFF included (+-480, as the JAX package's
+    e4m3_to_bf16 reads them), come out of the fp8 reads exactly: each
+    query sees one key, so its output is that key's value row, and every
+    e4m3 value is a bf16 value."""
+    _need_cuda()
+    from turboinfer_tpu_torch.kernels import ops
+    B, H, D = 8, 1, 32
+    codes = torch.arange(256, device="cuda").to(torch.uint8).reshape(B, H, D)
+    want = ops.e4m3_to_float(codes).to(torch.bfloat16)
+    one = torch.ones((B,), dtype=torch.int32, device="cuda")
+    q = torch.zeros((B, 1, H, D), dtype=torch.bfloat16, device="cuda")
+    if path == "paged":
+        pool = torch.zeros((1, B + 1, H, 8, D), dtype=torch.uint8,
+                           device="cuda")
+        pool[0, 1:, :, 0] = codes                # row 0 of pages 1..B
+        table = torch.arange(1, B + 1, dtype=torch.int32,
+                             device="cuda")[:, None]
+        got = paged_attention.paged_attention(q, pool, pool, table, one,
+                                              0)[:, 0]
+    else:
+        cache = torch.zeros((1, B, H, 16, D), dtype=torch.uint8,
+                            device="cuda")
+        cache[0, :, :, 0] = codes
+        if path == "decode":
+            got = decode_attention.decode_attention(q[:, 0], cache, cache,
+                                                    one, 0)
+        else:
+            got = flash_attention.flash_prefill(q, cache[0], cache[0], one,
+                                                torch.zeros_like(one))[:, 0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_compressed_reads_refuse_mismatched_scales():
+    """An int8 cache without its scales, an fp8 cache with scales, and a
+    non-bf16 write all raise (no fallback to a dequantized copy)."""
+    _need_cuda()
+    from turboinfer_tpu_torch.utils.errors import KernelError
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kc, ks = _compressed(gen, (1, 2, 2, 64, 64), "int8")
+    fc, _ = _compressed(gen, (1, 2, 2, 64, 64), "fp8")
+    q = torch.zeros((2, 4, 64), dtype=torch.bfloat16, device="cuda")
+    kv = torch.tensor([3, 9], dtype=torch.int32, device="cuda")
+    with pytest.raises(KernelError):
+        decode_attention.decode_attention(q, kc, kc, kv, 0)
+    with pytest.raises(KernelError):
+        decode_attention.decode_attention(q, fc, fc, kv, 0, None, None, ks, ks)
+    with pytest.raises(KernelError):
+        flash_attention.flash_prefill(q[:, None], kc[0], kc[0], kv, kv)
+    with pytest.raises(KernelError):
+        paged_attention.paged_attention(q[:, None], kc, kc, kv[:, None].int(),
+                                        kv, 0)
+    rows = torch.zeros((2,), dtype=torch.int64, device="cuda")
+    with pytest.raises(KernelError):
+        cache_write.kv_encode_write(q[:, :2].float(), q[:, :2].float(), fc, fc,
+                                    None, None, rows, 0, 64)

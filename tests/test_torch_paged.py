@@ -94,6 +94,10 @@ def test_dispatch_paged_decode_is_verify_at_one_token():
     assert torch.equal(a, b[:, 0])
 
 
+PAGED_FIELDS = ("k_pages", "v_pages", "block_table", "lengths",
+                "k_scale_pages", "v_scale_pages")
+
+
 # -- allocator and prefix pool ---------------------------------------------
 
 def _drive(mod):
@@ -248,6 +252,20 @@ def test_append_token_and_gather_sequence_match_jax():
 
 
 def test_int8_pool_is_not_ported_yet():
-    _, _, tcfg, _ = _models("tiny")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpc.init_paged_cache(tcfg, 1, 4, 8, dtype=torch.int8, device="cpu")
+    """(Name kept from before the int8 pool was ported.) The int8 pool's
+    layout equals JAX's init_paged_cache: int8 pages, two distinct f32
+    scale-page buffers [L, P, Hkv, page], the -1 table and zero lengths;
+    an fp8 pool is uint8 bits without scales."""
+    jcfg, _, tcfg, _ = _models("tiny")
+    j = jpc.init_paged_cache(jcfg, 2, 4, 8, max_seq=40, dtype=jnp.int8)
+    t = tpc.init_paged_cache(tcfg, 2, 4, 8, max_seq=40, dtype=torch.int8,
+                             device="cpu")
+    got = bridge.to_numpy(t)
+    for name in PAGED_FIELDS:
+        w = np.asarray(getattr(j, name))
+        assert got[name].dtype == w.dtype and got[name].shape == w.shape, name
+        np.testing.assert_array_equal(got[name], w)
+    assert t.k_scale_pages.data_ptr() != t.v_scale_pages.data_ptr()
+    f = tpc.init_paged_cache(tcfg, 2, 4, 8, max_seq=40, dtype=torch.uint8,
+                             device="cpu")
+    assert f.k_pages.dtype == torch.uint8 and f.k_scale_pages is None

@@ -26,7 +26,7 @@ torch.set_num_threads(2)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "turboinfer_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _imports(path):

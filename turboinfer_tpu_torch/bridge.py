@@ -5,7 +5,10 @@ parameter structure (see models/llama.py). A quantized weight is a dict
 {"data", "scales", "zero_points", "bits", "group_size", "shape"}
 (zero_points may be None); a per-row int8 embedding table is a dict
 {"data", "row_scales"}. bfloat16 arrays (numpy dtype name "bfloat16")
-are read bit for bit. The port imports no JAX, so turning a JAX tree
+are read bit for bit. A cache's K/V may be int8 codes with their f32
+scale planes, or fp8: the JAX package's float8_e4m3fn arrays (numpy
+dtype name "float8_e4m3fn") or their uint8 bit views both become the
+port's uint8 bit storage. The port imports no JAX, so turning a JAX tree
 into numpy is the caller's half.
 """
 
@@ -51,23 +54,44 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
     return tensor_from_numpy(tree, device)
 
 
-def cache_from_numpy(k, v, length, device="cuda") -> KVCache:
-    """A head-major [L, B, Hkv, T, D] cache from numpy arrays."""
-    return KVCache(k=tensor_from_numpy(k, device),
-                   v=tensor_from_numpy(v, device),
+def kv_from_numpy(a, device="cuda") -> torch.Tensor:
+    """Cache K/V storage from numpy: fp8 (float8_e4m3fn) arrays become
+    their uint8 bits, everything else as tensor_from_numpy."""
+    a = np.asarray(a)
+    if a.dtype.name == "float8_e4m3fn":
+        a = a.view(np.uint8)
+    return tensor_from_numpy(a, device)
+
+
+def _scales(s, device):
+    return None if s is None else tensor_from_numpy(
+        np.asarray(s, np.float32), device)
+
+
+def cache_from_numpy(k, v, length, k_scale=None, v_scale=None,
+                     device="cuda") -> KVCache:
+    """A head-major [L, B, Hkv, T, D] cache from numpy arrays (int8 with
+    its f32 scale planes [L, B, Hkv, T]; fp8 as float8_e4m3fn or uint8)."""
+    return KVCache(k=kv_from_numpy(k, device), v=kv_from_numpy(v, device),
                    length=tensor_from_numpy(np.asarray(length, np.int32),
-                                            device))
+                                            device),
+                   k_scale=_scales(k_scale, device),
+                   v_scale=_scales(v_scale, device))
 
 
 def paged_cache_from_numpy(k_pages, v_pages, table, lengths,
+                           k_scale_pages=None, v_scale_pages=None,
                            device="cuda") -> PagedKVCache:
     """A paged pool [L, P, Hkv, page, D] with its block table [B,
-    max_pages] and lengths [B] from numpy arrays."""
+    max_pages] and lengths [B] from numpy arrays (an int8 pool with its
+    f32 scale pages [L, P, Hkv, page]; fp8 as float8_e4m3fn or uint8)."""
     return PagedKVCache(
-        k_pages=tensor_from_numpy(k_pages, device),
-        v_pages=tensor_from_numpy(v_pages, device),
+        k_pages=kv_from_numpy(k_pages, device),
+        v_pages=kv_from_numpy(v_pages, device),
         block_table=tensor_from_numpy(np.asarray(table, np.int32), device),
-        lengths=tensor_from_numpy(np.asarray(lengths, np.int32), device))
+        lengths=tensor_from_numpy(np.asarray(lengths, np.int32), device),
+        k_scale_pages=_scales(k_scale_pages, device),
+        v_scale_pages=_scales(v_scale_pages, device))
 
 
 def to_numpy(tree: Any) -> Any:
@@ -83,10 +107,7 @@ def to_numpy(tree: Any) -> Any:
     if isinstance(tree, QEmbed):
         return {"data": to_numpy(tree.data),
                 "row_scales": to_numpy(tree.scales)}
-    if isinstance(tree, KVCache):
-        return {"k": to_numpy(tree.k), "v": to_numpy(tree.v),
-                "length": to_numpy(tree.length)}
-    if isinstance(tree, PagedKVCache):
+    if isinstance(tree, (KVCache, PagedKVCache)):
         return {name: to_numpy(t) for name, t in tree._asdict().items()}
     if isinstance(tree, torch.Tensor):
         t = tree.detach().cpu()

@@ -119,9 +119,13 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class InferenceConfig:
-    """Generation-time settings. decode_loop, prefill_chunk and
-    kv_cache_dtype other than "model" are accepted for compatibility;
-    the engine raises on values this port does not run yet."""
+    """Generation-time settings. kv_cache_dtype: "model" (the model's
+    dtype), "bf16", "int8" (symmetric per-(token, head) codes with f32
+    scale planes) or "fp8" (float8_e4m3 stored as uint8 bits), honoured
+    by the engine, both schedulers and the draft cache of speculative
+    serving, for the llama and MoE families; GPT-OSS takes "model" and
+    "bf16" only so far. The engine and schedulers raise on other values
+    this port does not run yet (e.g. prefill_chunk > 0 in a scheduler)."""
 
     max_seq_len: int = 2048
     max_batch_size: int = 32

@@ -8,6 +8,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -38,6 +39,68 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& u, float* f) {
     f[2 * i] = p.x;
     f[2 * i + 1] = p.y;
   }
+}
+
+// Four float8_e4m3fn bit patterns (one 32-bit word, element 0 in the
+// low byte) -> float, as the JAX package's e4m3_to_bf16 decodes them.
+// Each byte moves to the high byte of a 16-bit lane with its magnitude
+// shifted right by one, so sign, 4 exponent and 3 mantissa bits sit
+// where fp16 keeps them: the fp16 value is the e4m3 value times 2^-8
+// (fp16's exponent bias is 8 above e4m3's), subnormals included, and
+// the NaN codes 0x7F/0xFF are the finite fp16 1.875 and read as +-480
+// (K/V caches hold no NaN). Exact: every e4m3 value is an fp16 value.
+__device__ __forceinline__ void e4m3x4_to_float(uint32_t w, float* f) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const uint32_t v = __byte_perm(w, 0u, j ? 0x3424u : 0x1404u);
+    const uint32_t h = (v & 0x80008000u) | ((v & 0x7F007F00u) >> 1);
+    const float2 p = __half22float2(*reinterpret_cast<const __half2*>(&h));
+    f[2 * j] = p.x * 256.f;
+    f[2 * j + 1] = p.y * 256.f;
+  }
+}
+
+// KV element types of the attention kernels: bf16, int8 codes (exact in
+// float; the caller applies the per-row scale), uint8 e4m3 bits. A
+// 16-byte vector holds KvVec<KV>::kE of them; kv16_to_float unpacks one.
+template <typename KV>
+struct KvVec {
+  static constexpr int kE = 16 / static_cast<int>(sizeof(KV));
+};
+
+template <typename KV>
+__device__ __forceinline__ void kv16_to_float(const uint4& u, float* f);
+
+template <>
+__device__ __forceinline__ void kv16_to_float<__nv_bfloat16>(const uint4& u,
+                                                             float* f) {
+  bf16x8_to_float(u, f);
+}
+
+template <>
+__device__ __forceinline__ void kv16_to_float<int8_t>(const uint4& u,
+                                                      float* f) {
+  const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) f[i] = static_cast<float>(c[i]);
+}
+
+template <>
+__device__ __forceinline__ void kv16_to_float<uint8_t>(const uint4& u,
+                                                       float* f) {
+  e4m3x4_to_float(u.x, f);
+  e4m3x4_to_float(u.y, f + 4);
+  e4m3x4_to_float(u.z, f + 8);
+  e4m3x4_to_float(u.w, f + 12);
+}
+
+// kE consecutive bf16 values (8 or 16) of a query row, as float.
+template <int kE>
+__device__ __forceinline__ void load_bf16_row(const __nv_bfloat16* p,
+                                              float* f) {
+#pragma unroll
+  for (int i = 0; i < kE; i += 8)
+    bf16x8_to_float(*reinterpret_cast<const uint4*>(p + i), f + i);
 }
 
 // Merges the split-T partial results s0..ns-1 of one output row with

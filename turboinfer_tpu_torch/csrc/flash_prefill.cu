@@ -19,6 +19,16 @@
 // with f32 accumulation; the score tile and the output accumulator live
 // in shared memory, where the per-row online softmax rescales them. A
 // register-resident mma.sync/wgmma version is future work.
+//
+// int8 and fp8 stacked caches (the compressed reads of _prefill_stacked:
+// `scaled` and _load_kv): K/V rows are decoded while the 64-row tile is
+// loaded into shared memory, so the WMMA bf16 path is unchanged. Both
+// decodes are exact in bf16: fp8 bits become their e4m3 values (0x7F/0xFF
+// as +-480, as e4m3_to_bf16 reads them), int8 codes stay codes, and, as
+// in the Pallas body, the int8 scales ride the score and probability
+// tiles: score columns times the key rows' scales, probability columns
+// times the value rows' scales before P V, the denominator summing the
+// unscaled probabilities. A fresh prefill's K/V is always bf16.
 #include <mma.h>
 
 #include "common.cuh"
@@ -47,30 +57,53 @@ struct Smem {
   static constexpr size_t o = align128(p + sizeof(__nv_bfloat16) * kBQ * kPsLd);
   static constexpr size_t m = align128(o + sizeof(float) * kBQ * kOsLd);
   static constexpr size_t l = align128(m + sizeof(float) * kBQ);
-  static constexpr size_t total = align128(l + sizeof(float) * kBQ);
+  static constexpr size_t ksc = align128(l + sizeof(float) * kBQ);
+  static constexpr size_t vsc = align128(ksc + sizeof(float) * kBKV);
+  static constexpr size_t total = align128(vsc + sizeof(float) * kBKV);
 };
 
 // Load rows [row0, row0 + 64) of a [rows, D] operand (row stride
-// `rs`, elements) into smem; rows at or beyond `nvalid` are zero.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
+// `rs`, elements) into smem as bf16; rows at or beyond `nvalid` are
+// zero. 8-bit rows decode to exact bf16 values (int8: the codes).
+template <int D, typename KV>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const KV* src,
                                           long long rs, int row0, int nvalid) {
-  constexpr int kVec = D / 8;
+  constexpr int kE = ti::KvVec<KV>::kE;
+  constexpr int kVec = D / kE;
   for (int i = threadIdx.x; i < kBQ * kVec; i += kThreads) {
-    const int r = i / kVec, c = (i - r * kVec) * 8;
+    const int r = i / kVec, c = (i - r * kVec) * kE;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < nvalid)
       val = *reinterpret_cast<const uint4*>(src + (row0 + r) * rs + c);
-    *reinterpret_cast<uint4*>(dst + r * Smem<D>::kLd + c) = val;
+    if constexpr (kE == 8) {
+      *reinterpret_cast<uint4*>(dst + r * Smem<D>::kLd + c) = val;
+    } else {
+      float f[16];
+      ti::kv16_to_float<KV>(val, f);
+      __nv_bfloat162 h[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) h[j] = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
+      uint4* d4 = reinterpret_cast<uint4*>(dst + r * Smem<D>::kLd + c);
+      d4[0] = *reinterpret_cast<const uint4*>(h);
+      d4[1] = *reinterpret_cast<const uint4*>(h + 4);
+    }
   }
 }
 
-template <int D>
+// Scales of rows [row0, row0 + 64) of one (b, kv head) into smem (int8
+// caches only); 0 beyond `nvalid`, where the keys are masked anyway.
+__device__ __forceinline__ void load_scales(float* dst, const float* src,
+                                            int row0, int nvalid) {
+  for (int r = threadIdx.x; r < kBKV; r += kThreads)
+    dst[r] = row0 + r < nvalid ? src[row0 + r] : 0.f;
+}
+
+template <int D, typename KV>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
+                     const KV* __restrict__ k, const KV* __restrict__ v,
+                     const float* __restrict__ k_scale,
+                     const float* __restrict__ v_scale,
                      __nv_bfloat16* __restrict__ o,
                      const int* __restrict__ kv_len,
                      const int* __restrict__ q_start, int S, int Hq, int Hkv,
@@ -78,7 +111,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                      long long ksb, long long ksh, long long kst,
                      long long vsb, long long vsh, long long vst,
                      long long osb, long long oss, long long osh,
-                     float scale) {
+                     long long ssb, long long ssh, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   using L = Smem<D>;
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q);
@@ -89,6 +122,8 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   float* os = reinterpret_cast<float*>(smem + L::o);
   float* mrow = reinterpret_cast<float*>(smem + L::m);
   float* lrow = reinterpret_cast<float*>(smem + L::l);
+  float* ksc = reinterpret_cast<float*>(smem + L::ksc);
+  float* vsc = reinterpret_cast<float*>(smem + L::vsc);
 
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -99,14 +134,17 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   const int kv_end = min(kv_lim, start + q0 + kBQ);
 
   load_tile<D>(qs, q + b * qsb + h * qsh, qss, q0, S);
+  const bool scaled = k_scale != nullptr;
   for (int i = threadIdx.x; i < kBQ * L::kOsLd; i += kThreads) os[i] = 0.f;
   for (int i = threadIdx.x; i < kBQ; i += kThreads) {
     mrow[i] = ti::kNegInf;
     lrow[i] = 0.f;
   }
 
-  const __nv_bfloat16* kb = k + b * ksb + hk * ksh;
-  const __nv_bfloat16* vb = v + b * vsb + hk * vsh;
+  const KV* kb = k + b * ksb + hk * ksh;
+  const KV* vb = v + b * vsb + hk * vsh;
+  const float* kscl = scaled ? k_scale + b * ssb + hk * ssh : nullptr;
+  const float* vscl = scaled ? v_scale + b * ssb + hk * ssh : nullptr;
   const int row = warp * 16 + (lane >> 1);   // softmax row of this lane
   const int c0 = (lane & 1) * (kBKV / 2);    // its half of the key tile
   const int qpos = start + q0 + row;
@@ -115,6 +153,10 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();   // previous tile fully consumed
     load_tile<D>(ks, kb, kst, kt, kv_lim);
     load_tile<D>(vs, vb, vst, kt, kv_lim);
+    if (scaled) {
+      load_scales(ksc, kscl, kt, kv_lim);
+      load_scales(vsc, vscl, kt, kv_lim);
+    }
     __syncthreads();
 
     // S[16 rows of this warp][64 keys] = Q K^T
@@ -143,7 +185,8 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll 8
     for (int c = c0; c < c0 + kBKV / 2; ++c) {
       const int t = kt + c;
-      const float sv = (t < kv_lim && t <= qpos) ? srow[c] * scale : ti::kNegInf;
+      const float sk = scaled ? scale * ksc[c] : scale;
+      const float sv = (t < kv_lim && t <= qpos) ? srow[c] * sk : ti::kNegInf;
       srow[c] = sv;
       mx = fmaxf(mx, sv);
     }
@@ -156,7 +199,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     for (int c = c0; c < c0 + kBKV / 2; ++c) {
       const float p = __expf(srow[c] - m_new);
       psum += p;
-      ps[row * kPsLd + c] = __float2bfloat16(p);
+      ps[row * kPsLd + c] = __float2bfloat16(scaled ? p * vsc[c] : p);
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     float* orow = os + row * L::kOsLd;
@@ -199,52 +242,74 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o,
-           const int* kv_len, const int* q_start, int B, int S, int Hq,
-           int Hkv, int T, const long long* st, float scale,
-           cudaStream_t stream) {
+template <int D, typename KV>
+int launch(const void* q, const void* k, const void* v, const float* ks,
+           const float* vs, void* o, const int* kv_len, const int* q_start,
+           int B, int S, int Hq, int Hkv, int T, const long long* st,
+           float scale, cudaStream_t stream) {
   static bool configured = false;
   const int smem = static_cast<int>(Smem<D>::total);
   if (!configured) {
-    cudaFuncSetAttribute(flash_prefill_kernel<D>,
+    cudaFuncSetAttribute(flash_prefill_kernel<D, KV>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     configured = true;
   }
   dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
-  flash_prefill_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      kv_len, q_start, S, Hq, Hkv, T, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], st[9], st[10], st[11], scale);
+  flash_prefill_kernel<D, KV><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), ks, vs, static_cast<__nv_bfloat16*>(o),
+      kv_len, q_start, S, Hq, Hkv, T, st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12], st[13],
+      scale);
   return ti::launch_status();
+}
+
+template <typename KV>
+int launch_kv(const void* q, const void* k, const void* v, const float* ks,
+              const float* vs, void* o, const int* kl, const int* qs, int B,
+              int S, int Hq, int Hkv, int T, int D, const long long* st,
+              float scale, cudaStream_t stream) {
+  switch (D) {
+    case 32:
+      return launch<32, KV>(q, k, v, ks, vs, o, kl, qs, B, S, Hq, Hkv, T, st, scale, stream);
+    case 64:
+      return launch<64, KV>(q, k, v, ks, vs, o, kl, qs, B, S, Hq, Hkv, T, st, scale, stream);
+    case 128:
+      return launch<128, KV>(q, k, v, ks, vs, o, kl, qs, B, S, Hq, Hkv, T, st, scale, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// q: bf16 [B, S, Hq, D]; k, v: bf16 [B, Hkv, T, D]; o: bf16 [B, S, Hq, D],
-// each given by strides in elements (the last dimension contiguous):
-// strides = {qsb, qss, qsh, ksb, ksh, kst, vsb, vsh, vst, osb, oss, osh}.
-// kv_len, q_start: int32 [B] on the device. D in {32, 64, 128}.
-int ti_flash_prefill(const void* q, const void* k, const void* v, void* o,
+// q: bf16 [B, S, Hq, D]; k, v: [B, Hkv, T, D] of bf16 (kv_dtype 0), int8
+// codes (1) or float8_e4m3fn bits (2); o: bf16 [B, S, Hq, D], each given
+// by strides in elements (the last dimension contiguous): strides =
+// {qsb, qss, qsh, ksb, ksh, kst, vsb, vsh, vst, osb, oss, osh, ssb, ssh}.
+// k_scale, v_scale: for int8, f32 [B, Hkv, T] with strides {ssb, ssh}
+// and contiguous T, else null. kv_len, q_start: int32 [B] on the device.
+// D in {32, 64, 128}.
+int ti_flash_prefill(const void* q, const void* k, const void* v,
+                     const void* k_scale, const void* v_scale, void* o,
                      const void* kv_len, const void* q_start, int B, int S,
-                     int Hq, int Hkv, int T, int D, const long long* strides,
-                     float scale, void* stream) {
+                     int Hq, int Hkv, int T, int D, int kv_dtype,
+                     const long long* strides, float scale, void* stream) {
+  if (kv_dtype < 0 || kv_dtype > 2 ||
+      (kv_dtype == 1) != (k_scale != nullptr && v_scale != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int* kl = static_cast<const int*>(kv_len);
   const int* qs = static_cast<const int*>(q_start);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32:
-      return launch<32>(q, k, v, o, kl, qs, B, S, Hq, Hkv, T, strides, scale, st);
-    case 64:
-      return launch<64>(q, k, v, o, kl, qs, B, S, Hq, Hkv, T, strides, scale, st);
-    case 128:
-      return launch<128>(q, k, v, o, kl, qs, B, S, Hq, Hkv, T, strides, scale, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (kv_dtype == 0)
+    return launch_kv<__nv_bfloat16>(q, k, v, ks, vs, o, kl, qs, B, S, Hq, Hkv, T, D, strides, scale, st);
+  if (kv_dtype == 1)
+    return launch_kv<int8_t>(q, k, v, ks, vs, o, kl, qs, B, S, Hq, Hkv, T, D, strides, scale, st);
+  return launch_kv<uint8_t>(q, k, v, ks, vs, o, kl, qs, B, S, Hq, Hkv, T, D, strides, scale, st);
 }
 
 }  // extern "C"

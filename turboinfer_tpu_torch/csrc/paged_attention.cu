@@ -4,18 +4,19 @@
 // Replaces the TPU kernels turboinfer_tpu/kernels/pallas/paged_attention.py
 // paged_decode_pallas (G = 1) and paged_verify_pallas (G = spec_k + 1),
 // which are one Pallas body (_paged_decode, _kernel) at g_tokens = 1 and
-// g_tokens = G, for a model-dtype (bf16) pool. The pool operand is layer
-// li of the stacked [L, P, Hkv, page, D] pool, selected by the caller's
-// pointer offset. Page ids are clamped to [0, P-1] (unassigned -1 rows
+// g_tokens = G, for a bf16, int8 (with scale pages) or fp8 (uint8 e4m3
+// bits) pool. The pool operand is layer li of the stacked
+// [L, P, Hkv, page, D] pool, selected by the caller's pointer offset. Page ids are clamped to [0, P-1] (unassigned -1 rows
 // read page 0, never page P-1) and kv_len to [1, max_pages * page], as
 // the JAX kernel clamps them. Query row r of a kv head belongs to token
 // g = r / Gh, sits at position kv_len - G + g, and sees keys col <= qpos;
 // a row that sees no key averages the keys of its sequence uniformly, as
 // the Pallas kernel's -1e30 masks make it do (the caller discards it).
 //
-// What bounds it on the H100: bytes, the 2 * kv_len * D * 2 bytes of K
-// and V each (b, kv head) must read through its table, over 3.35 TB/s;
-// pages at or past ceil(kv_len / page) are never read, so the cost
+// What bounds it on the H100: bytes, the 2 * kv_len * D * itemsize bytes
+// of K and V (plus 8 bytes of scales per int8 row) each (b, kv head)
+// must read through its table, over 3.35 TB/s; pages at or past
+// ceil(kv_len / page) are never read, so the cost
 // follows the fill, not the pool or max_seq. The design is
 // decode_attention.cu's split-T scheme with a table lookup per key row:
 // pass 1 splits [0, kv_len) into 256-key slices, one block of 4 warps per
@@ -26,6 +27,16 @@
 // load); scores and probabilities of the slice stay in shared memory; the
 // block writes its unnormalised output with its running max and sum.
 // Pass 2 merges the slices of each (b, kv head, row).
+//
+// int8 and fp8 pools (the Pallas body's `scaled` and _load_kv reads):
+// the key row read is templated on the element type as in
+// decode_attention.cu (D / 16 lanes per 8-bit row; fp8 decoded in
+// registers, 0x7F/0xFF as +-480). An int8 pool's scale pages [P, Hkv,
+// page] f32 of the layer are indexed with the row's own clamped table
+// entry: scores times the key row's scale, probabilities times the
+// value row's scale before P V, the denominator summing the unscaled
+// probabilities. Pages stay multiples of 8 up to 256 (the TPU's page %
+// 128 limit for scales does not apply).
 #include "common.cuh"
 
 namespace {
@@ -36,8 +47,10 @@ constexpr int kWarps = kThreads / 32;
 
 struct PagedArgs {
   const __nv_bfloat16* q;   // [B, Hkv, R, D], strides {qsb, qsh, qsr}
-  const __nv_bfloat16* kp;  // one layer's pool [P, Hkv, page, D]
-  const __nv_bfloat16* vp;
+  const void* kp;           // one layer's pool [P, Hkv, page, D]
+  const void* vp;
+  const float* ks;          // int8: the layer's scale pages [P, Hkv, page]
+  const float* vs;
   const int* table;         // [B, max_pages]
   const int* kv_len;        // [B]
   float* part_o;            // [B, Hkv, R, nsplit, D]
@@ -58,10 +71,11 @@ __device__ __forceinline__ long long page_row(const PagedArgs& a, int b,
   return ((long long)pid * a.Hkv + hk) * a.page + off;
 }
 
-template <int D, int RB>
+template <typename KV, int D, int RB>
 __global__ void __launch_bounds__(kThreads)
 paged_split_kernel(const PagedArgs a) {
-  constexpr int kLpr = D / 8;          // lanes per key row
+  constexpr int kE = ti::KvVec<KV>::kE;   // elements per 16-byte load
+  constexpr int kLpr = D / kE;         // lanes per key row
   constexpr int kRpw = 32 / kLpr;      // key rows per warp per pass
   constexpr int kRpb = kRpw * kWarps;  // key rows per block per pass
   __shared__ float sc[RB][kSplit];
@@ -78,42 +92,47 @@ paged_split_kernel(const PagedArgs a) {
   if (t0 >= kvl) return;
   const int t1 = min(t0 + kSplit, kvl);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int lrow = lane / kLpr, dl = (lane % kLpr) * 8;
+  const int lrow = lane / kLpr, dl = (lane % kLpr) * kE;
+  const KV* kp = static_cast<const KV*>(a.kp);
+  const KV* vp = static_cast<const KV*>(a.vp);
 
-  float qf[RB][8];
+  float qf[RB][kE];
   int qpos[RB];
 #pragma unroll
   for (int r = 0; r < RB; ++r) {
     qpos[r] = kvl - a.g_tokens + (r0 + r) / a.gh;
     if (r < rb) {
-      const uint4 u = *reinterpret_cast<const uint4*>(
-          a.q + b * a.qsb + hk * a.qsh + (r0 + r) * a.qsr + dl);
-      ti::bf16x8_to_float(u, qf[r]);
+      ti::load_bf16_row<kE>(a.q + b * a.qsb + hk * a.qsh + (r0 + r) * a.qsr + dl,
+                            qf[r]);
     } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) qf[r][e] = 0.f;
+      for (int e = 0; e < kE; ++e) qf[r][e] = 0.f;
     }
   }
 
-  // Pass 1a: masked scores of the slice.
+  // Pass 1a: masked scores of the slice (int8: times the key row's scale).
   for (int base = t0 + warp * kRpw; base < t1; base += kRpb) {
     const int t = base + lrow;
     const bool ok = t < t1;
-    float kf[8];
+    float kf[kE];
     uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (ok)
-      u = *reinterpret_cast<const uint4*>(a.kp + page_row(a, b, hk, t) * D + dl);
-    ti::bf16x8_to_float(u, kf);
+    float sk = a.scale;
+    if (ok) {
+      const long long pr = page_row(a, b, hk, t);
+      u = *reinterpret_cast<const uint4*>(kp + pr * D + dl);
+      if (a.ks) sk *= a.ks[pr];
+    }
+    ti::kv16_to_float<KV>(u, kf);
 #pragma unroll
     for (int r = 0; r < RB; ++r) {
       float d = 0.f;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) d = fmaf(qf[r][e], kf[e], d);
+      for (int e = 0; e < kE; ++e) d = fmaf(qf[r][e], kf[e], d);
 #pragma unroll
       for (int off = kLpr / 2; off > 0; off >>= 1)
         d += __shfl_xor_sync(0xffffffffu, d, off);
       if (ok && (lane % kLpr) == 0 && r < rb)
-        sc[r][t - t0] = (t <= qpos[r]) ? d * a.scale : ti::kNegInf;
+        sc[r][t - t0] = (t <= qpos[r]) ? d * sk : ti::kNegInf;
     }
   }
   __syncthreads();
@@ -138,31 +157,33 @@ paged_split_kernel(const PagedArgs a) {
   }
   __syncthreads();
 
-  // Pass 1c: unnormalised P V of the slice.
-  float acc[RB][8];
+  // Pass 1c: unnormalised P V of the slice (int8: probabilities times
+  // the value row's scale; the sums above took them unscaled).
+  float acc[RB][kE];
 #pragma unroll
   for (int r = 0; r < RB; ++r)
 #pragma unroll
-    for (int e = 0; e < 8; ++e) acc[r][e] = 0.f;
+    for (int e = 0; e < kE; ++e) acc[r][e] = 0.f;
   for (int base = t0 + warp * kRpw; base < t1; base += kRpb) {
     const int t = base + lrow;
     if (t < t1) {
-      float vf[8];
-      const uint4 u = *reinterpret_cast<const uint4*>(
-          a.vp + page_row(a, b, hk, t) * D + dl);
-      ti::bf16x8_to_float(u, vf);
+      float vf[kE];
+      const long long pr = page_row(a, b, hk, t);
+      const uint4 u = *reinterpret_cast<const uint4*>(vp + pr * D + dl);
+      const float sv = a.vs ? a.vs[pr] : 1.f;
+      ti::kv16_to_float<KV>(u, vf);
 #pragma unroll
       for (int r = 0; r < RB; ++r) {
-        const float p = (r < rb) ? sc[r][t - t0] : 0.f;
+        const float p = (r < rb) ? sc[r][t - t0] * sv : 0.f;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[r][e] = fmaf(p, vf[e], acc[r][e]);
+        for (int e = 0; e < kE; ++e) acc[r][e] = fmaf(p, vf[e], acc[r][e]);
       }
     }
   }
 #pragma unroll
   for (int r = 0; r < RB; ++r)
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
+    for (int e = 0; e < kE; ++e) {
       float v = acc[r][e];
 #pragma unroll
       for (int off = kLpr; off < 32; off <<= 1)
@@ -173,7 +194,7 @@ paged_split_kernel(const PagedArgs a) {
 #pragma unroll
     for (int r = 0; r < RB; ++r)
 #pragma unroll
-      for (int e = 0; e < 8; ++e) red[warp][r][dl + e] = acc[r][e];
+      for (int e = 0; e < kE; ++e) red[warp][r][dl + e] = acc[r][e];
   }
   __syncthreads();
   for (int i = threadIdx.x; i < rb * D; i += kThreads) {
@@ -202,22 +223,39 @@ __global__ void paged_combine_kernel(const PagedArgs a,
       a.part_o + row0 * D, a.part_ml + row0 * 2, ns, D, d));
 }
 
-template <int D, int RB>
+template <typename KV, int D, int RB>
 void launch_split(const PagedArgs& a, int B, cudaStream_t stream) {
   dim3 grid(B, a.Hkv * ((a.R + RB - 1) / RB), a.nsplit);
-  paged_split_kernel<D, RB><<<grid, kThreads, 0, stream>>>(a);
+  paged_split_kernel<KV, D, RB><<<grid, kThreads, 0, stream>>>(a);
 }
 
-template <int D>
+template <typename KV, int D>
 void launch_d(const PagedArgs& a, int B, cudaStream_t stream) {
   if (a.R <= 1)
-    launch_split<D, 1>(a, B, stream);
+    launch_split<KV, D, 1>(a, B, stream);
   else if (a.R <= 2)
-    launch_split<D, 2>(a, B, stream);
+    launch_split<KV, D, 2>(a, B, stream);
   else if (a.R <= 4)
-    launch_split<D, 4>(a, B, stream);
+    launch_split<KV, D, 4>(a, B, stream);
   else
-    launch_split<D, 8>(a, B, stream);
+    launch_split<KV, D, 8>(a, B, stream);
+}
+
+template <typename KV>
+int launch_kv(const PagedArgs& a, int B, int D, cudaStream_t stream) {
+  switch (D) {
+    case 32:
+      launch_d<KV, 32>(a, B, stream);
+      return 0;
+    case 64:
+      launch_d<KV, 64>(a, B, stream);
+      return 0;
+    case 128:
+      launch_d<KV, 128>(a, B, stream);
+      return 0;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -233,22 +271,30 @@ long long ti_paged_workspace(int B, int Hkv, int R, int cap, int D) {
 
 // q: bf16 [B, Hkv, R, D], R = G * Gh rows (row r is token r / Gh, head
 // r % Gh of the group), strides q_strides = {qsb, qsh, qsr} and
-// contiguous D; k_pages, v_pages: one layer's bf16 pool [P, Hkv, page, D]
-// contiguous; out: bf16 [B, Hkv, R, D] contiguous; table: int32
-// [B, max_pages]; kv_len: int32 [B] (the G chunk tokens included);
-// work: ti_paged_workspace(...) f32 elements. D in {32, 64, 128}.
+// contiguous D; k_pages, v_pages: one layer's pool [P, Hkv, page, D]
+// contiguous, of bf16 (kv_dtype 0), int8 codes (1) or float8_e4m3fn bits
+// (2); k_scale, v_scale: for int8 the layer's f32 scale pages
+// [P, Hkv, page] contiguous, else null; out: bf16 [B, Hkv, R, D]
+// contiguous; table: int32 [B, max_pages]; kv_len: int32 [B] (the G
+// chunk tokens included); work: ti_paged_workspace(...) f32 elements.
+// D in {32, 64, 128}.
 int ti_paged_attention(const void* q, const void* k_pages,
-                       const void* v_pages, void* out, void* work,
+                       const void* v_pages, const void* k_scale,
+                       const void* v_scale, void* out, void* work,
                        const void* table, const void* kv_len, int B, int Hkv,
                        int R, int gh, int g_tokens, int P, int page,
-                       int max_pages, int D, const long long* q_strides,
-                       float scale, void* stream) {
-  if (R <= 0 || gh <= 0 || R % gh || page <= 0 || P <= 0 || max_pages <= 0)
+                       int max_pages, int D, int kv_dtype,
+                       const long long* q_strides, float scale, void* stream) {
+  if (R <= 0 || gh <= 0 || R % gh || page <= 0 || P <= 0 || max_pages <= 0 ||
+      kv_dtype < 0 || kv_dtype > 2 ||
+      (kv_dtype == 1) != (k_scale != nullptr && v_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   PagedArgs a;
   a.q = static_cast<const __nv_bfloat16*>(q);
-  a.kp = static_cast<const __nv_bfloat16*>(k_pages);
-  a.vp = static_cast<const __nv_bfloat16*>(v_pages);
+  a.kp = k_pages;
+  a.vp = v_pages;
+  a.ks = static_cast<const float*>(k_scale);
+  a.vs = static_cast<const float*>(v_scale);
   a.table = static_cast<const int*>(table);
   a.kv_len = static_cast<const int*>(kv_len);
   a.nsplit = (max_pages * page + kSplit - 1) / kSplit;
@@ -266,19 +312,10 @@ int ti_paged_attention(const void* q, const void* k_pages,
   a.max_pages = max_pages;
   a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32:
-      launch_d<32>(a, B, st);
-      break;
-    case 64:
-      launch_d<64>(a, B, st);
-      break;
-    case 128:
-      launch_d<128>(a, B, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int bad = kv_dtype == 0   ? launch_kv<__nv_bfloat16>(a, B, D, st)
+                  : kv_dtype == 1 ? launch_kv<int8_t>(a, B, D, st)
+                                  : launch_kv<uint8_t>(a, B, D, st);
+  if (bad) return bad;
   paged_combine_kernel<<<B * Hkv * R, D, 0, st>>>(
       a, static_cast<__nv_bfloat16*>(out), D);
   return ti::launch_status();

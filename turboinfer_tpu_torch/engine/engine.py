@@ -25,7 +25,9 @@ from turboinfer_tpu_torch.engine import sampling
 from turboinfer_tpu_torch.engine.sampling import SamplingParams
 from turboinfer_tpu_torch.kernels.dispatch import prepare_params
 from turboinfer_tpu_torch.models import registry
-from turboinfer_tpu_torch.models.common import KVCache, param_bytes, params_to
+from turboinfer_tpu_torch.models.common import (KVCache, check_kv_dtype,
+                                                param_bytes, params_to,
+                                                resolve_kv_dtype)
 from turboinfer_tpu_torch.utils.device import resolve_device
 from turboinfer_tpu_torch.utils.errors import TokenError
 from turboinfer_tpu_torch.utils.metrics import EngineStats
@@ -62,7 +64,9 @@ class InferenceEngine:
 
     device: "cuda" (default) runs the Hopper kernels; "cpu" runs the
     plain PyTorch versions and must be asked for. Params are moved to
-    the device and fused once (kernels.dispatch.prepare_params)."""
+    the device and fused once (kernels.dispatch.prepare_params). The
+    cache stores config.kv_cache_dtype (models/common.resolve_kv_dtype:
+    "model", "bf16", "int8" with scale planes, "fp8")."""
 
     def __init__(self, params: Dict[str, Any], model_config: ModelConfig,
                  config: Optional[InferenceConfig] = None,
@@ -73,10 +77,10 @@ class InferenceEngine:
         self.model_config = model_config
         self.config = config or InferenceConfig(
             max_seq_len=model_config.max_seq_len)
-        if self.config.kv_cache_dtype not in ("model", "", None):
-            raise NotImplementedError(
-                f"kv_cache_dtype={self.config.kv_cache_dtype!r} is not ported"
-                " yet (model-dtype caches only)")
+        self._kv_dtype = resolve_kv_dtype(self.config.kv_cache_dtype,
+                                          model_config.dtype)
+        check_kv_dtype(self._model, model_config.architecture,
+                       self._kv_dtype)
         if self.config.decode_loop not in ("scan", "host"):
             raise ValueError(f"decode_loop must be 'scan' or 'host', got "
                              f"{self.config.decode_loop!r}")
@@ -99,6 +103,7 @@ class InferenceEngine:
         if cache is None:
             return self._model.init_cache(self.model_config, batch_size,
                                           max_seq=self.config.max_seq_len,
+                                          dtype=self._kv_dtype,
                                           device=self.device)
         return cache._replace(length=torch.zeros_like(cache.length))
 
@@ -318,12 +323,15 @@ class InferenceEngine:
         self._cache_pool.clear()
 
     def memory_usage(self) -> int:
-        """Bytes for weights + one max-shape KV cache."""
+        """Bytes for weights + one max-shape KV cache (with an int8
+        cache's f32 scale planes)."""
         c = self.model_config
-        cache_elems = (c.num_layers * self.config.max_batch_size
-                       * self.config.max_seq_len * c.kv_heads * c.head_dim_)
-        itemsize = torch.empty((), dtype=c.dtype).element_size()
-        return int(param_bytes(self.params) + 2 * cache_elems * itemsize)
+        rows = (c.num_layers * self.config.max_batch_size
+                * self.config.max_seq_len * c.kv_heads)
+        itemsize = torch.empty((), dtype=self._kv_dtype).element_size()
+        row_bytes = c.head_dim_ * itemsize + (
+            4 if self._kv_dtype == torch.int8 else 0)
+        return int(param_bytes(self.params) + 2 * rows * row_bytes)
 
     def performance_stats(self) -> str:
         dev = (torch.cuda.get_device_name(self.device)

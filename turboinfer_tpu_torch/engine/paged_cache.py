@@ -11,8 +11,10 @@ reference ops; the serving path writes pages in the model's paged
 forward and reads them with the paged attention kernel.
 
 Layout: pages [L, P, Hkv, page, D]; block_table [B, max_pages] int32
-(-1 = unassigned); lengths [B] int32. Only model-dtype pools are
-ported; int8 and fp8 pools come in a later slice (ROADMAP §2 (a)).
+(-1 = unassigned); lengths [B] int32. Pools hold the model dtype, bf16,
+int8 with per-(token, head) f32 scale pages [L, P, Hkv, page] (pages
+carry their scales, so prefix-shared pages share them too), or fp8 as
+uint8 e4m3 bits.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import numpy as np
 import torch
 
 from turboinfer_tpu_torch.config import ModelConfig
+from turboinfer_tpu_torch.models.common import (COMPRESSED_KV, decode_kv,
+                                                encode_kv_scaled)
 from turboinfer_tpu_torch.utils.device import resolve_device
 
 
@@ -31,6 +35,9 @@ class PagedKVCache(NamedTuple):
     v_pages: torch.Tensor
     block_table: torch.Tensor    # [B, max_pages] int32
     lengths: torch.Tensor        # [B] int32
+    # int8 pools only: f32 [L, P, Hkv, page] (value = code * scale)
+    k_scale_pages: Optional[torch.Tensor] = None
+    v_scale_pages: Optional[torch.Tensor] = None
 
     @property
     def page_size(self) -> int:
@@ -42,20 +49,25 @@ def init_paged_cache(config: ModelConfig, batch_size: int, num_pages: int,
                      dtype=None, device="cuda") -> PagedKVCache:
     dev = resolve_device(device)
     dtype = dtype or config.dtype
-    if dtype not in (torch.float32, torch.bfloat16, torch.float16):
-        raise NotImplementedError(
-            f"paged KV pool dtype {dtype} is not ported yet: int8/fp8 pools "
-            "are ROADMAP §2 (a)")
+    if dtype not in (torch.float32, torch.bfloat16, torch.float16,
+                     *COMPRESSED_KV):
+        raise ValueError(f"paged KV pool dtype {dtype} is not a cache "
+                         "storage dtype (see models/common.resolve_kv_dtype)")
     T = max_seq or config.max_seq_len
     max_pages = -(-T // page_size)
     shape = (config.num_layers, num_pages, config.kv_heads, page_size,
              config.head_dim_)
+    ks = vs = None
+    if dtype == torch.int8:
+        ks = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
+        vs = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
     return PagedKVCache(
         k_pages=torch.zeros(shape, dtype=dtype, device=dev),
         v_pages=torch.zeros(shape, dtype=dtype, device=dev),
         block_table=torch.full((batch_size, max_pages), -1,
                                dtype=torch.int32, device=dev),
-        lengths=torch.zeros((batch_size,), dtype=torch.int32, device=dev))
+        lengths=torch.zeros((batch_size,), dtype=torch.int32, device=dev),
+        k_scale_pages=ks, v_scale_pages=vs)
 
 
 class PageAllocator:
@@ -174,10 +186,11 @@ def prefix_page_keys(tokens, page_size: int) -> List[bytes]:
 def append_token(cache: PagedKVCache, layer_k: torch.Tensor,
                  layer_v: torch.Tensor) -> PagedKVCache:
     """Append ONE token's k/v [L, B, Hkv, D] for every layer and sequence
-    at position lengths[b], IN PLACE (JAX returns new pools). A sequence
-    whose destination page is unassigned (-1, or past the table) writes
-    nothing: a negative torch index would wrap onto page P-1 and corrupt
-    another sequence."""
+    at position lengths[b], IN PLACE (JAX returns new pools), encoded to
+    the pool's storage (int8 codes with their scales, fp8 bits). A
+    sequence whose destination page is unassigned (-1, or past the
+    table) writes nothing: a negative torch index would wrap onto page
+    P-1 and corrupt another sequence."""
     page = cache.page_size
     pos = cache.lengths.long()
     rows = torch.arange(pos.shape[0], device=pos.device)
@@ -187,24 +200,31 @@ def append_token(cache: PagedKVCache, layer_k: torch.Tensor,
     live = (pid >= 0) & (pidx < n)
     pid, off = pid[live], (pos % page)[live]
     # indices split by a slice put their dim first: values [N, L, Hkv, D]
-    cache.k_pages[:, pid, :, off] = layer_k[:, rows[live]].transpose(0, 1).to(
-        cache.k_pages.dtype)
-    cache.v_pages[:, pid, :, off] = layer_v[:, rows[live]].transpose(0, 1).to(
-        cache.v_pages.dtype)
+    for new, pages, scales in ((layer_k, cache.k_pages, cache.k_scale_pages),
+                               (layer_v, cache.v_pages, cache.v_scale_pages)):
+        code, s = encode_kv_scaled(new[:, rows[live]].transpose(0, 1),
+                                   pages.dtype)
+        pages[:, pid, :, off] = code
+        if s is not None:
+            scales[:, pid, :, off] = s
     return cache._replace(lengths=cache.lengths + 1)
 
 
 def gather_sequence(cache: PagedKVCache, max_seq: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Contiguous [L, B, Hkv, max_seq, D] k/v from the pages (reference
-    path; the kernel reads pages in place)."""
+    path; the kernel reads pages in place). An int8 pool comes back
+    dequantized to f32, its scales consumed, as in the JAX package; fp8
+    pools stay bits."""
     L, P, Hkv, page, D = cache.k_pages.shape
     n = max_seq // page
     t = cache.block_table[:, :n].long().clamp(0, P - 1)       # [B, n]
     B = t.shape[0]
 
-    def gather(pages):
-        # [L, B, n, Hkv, page, D] -> [L, B, Hkv, n * page, D]
-        return pages[:, t].permute(0, 1, 3, 2, 4, 5).reshape(
-            L, B, Hkv, n * page, D)
-    return gather(cache.k_pages), gather(cache.v_pages)
+    def gather(pages, scales):
+        g = pages[:, t]                                # [L, B, n, Hkv, page, D]
+        if scales is not None:
+            g = decode_kv(g, torch.float32, scales[:, t])
+        return g.permute(0, 1, 3, 2, 4, 5).reshape(L, B, Hkv, n * page, D)
+    return (gather(cache.k_pages, cache.k_scale_pages),
+            gather(cache.v_pages, cache.v_scale_pages))

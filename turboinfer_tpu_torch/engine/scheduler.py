@@ -41,7 +41,8 @@ from turboinfer_tpu_torch.engine.speculative import (emit_layout,
                                                      rejection_accept)
 from turboinfer_tpu_torch.kernels.dispatch import prepare_params
 from turboinfer_tpu_torch.models import registry
-from turboinfer_tpu_torch.models.common import KVCache, params_to
+from turboinfer_tpu_torch.models.common import (KVCache, check_kv_dtype,
+                                                params_to, resolve_kv_dtype)
 from turboinfer_tpu_torch.utils.device import resolve_device
 from turboinfer_tpu_torch.utils.errors import SchedulerFullError
 
@@ -120,10 +121,12 @@ class ContinuousBatchingScheduler:
         self.model_config = model_config
         self.config = config or InferenceConfig(
             max_seq_len=model_config.max_seq_len)
-        if self.config.kv_cache_dtype not in ("model", "", None):
-            raise NotImplementedError(
-                f"kv_cache_dtype={self.config.kv_cache_dtype!r} is not ported"
-                " yet: ROADMAP §2 (a)")
+        # cache storage dtype (models/common.resolve_kv_dtype); the draft
+        # cache takes the same setting at the draft's dtype
+        self._kv_dtype = resolve_kv_dtype(self.config.kv_cache_dtype,
+                                          model_config.dtype)
+        check_kv_dtype(self._model, model_config.architecture,
+                       self._kv_dtype)
         if self.config.prefill_chunk > 0:
             raise NotImplementedError(
                 "chunked admission (prefill_chunk > 0) is not ported yet: "
@@ -177,15 +180,22 @@ class ContinuousBatchingScheduler:
                 raise ValueError("draft_params requires draft_config")
             self._dmodel = registry.get_model(draft_config.architecture)
             self._dmodel.check_supported(draft_config)
+            self._dkv_dtype = resolve_kv_dtype(self.config.kv_cache_dtype,
+                                               draft_config.dtype)
+            check_kv_dtype(self._dmodel, draft_config.architecture,
+                           self._dkv_dtype)
             self.draft_config = draft_config
             self.draft_params = prepare_params(params_to(draft_params, dev))
             self.dcache = self._dmodel.init_cache(draft_config, B,
-                                                  max_seq=self.T, device=dev)
+                                                  max_seq=self.T,
+                                                  dtype=self._dkv_dtype,
+                                                  device=dev)
 
     def _make_cache(self):
         """The shared slot-pool cache (the paged scheduler overrides)."""
         return self._model.init_cache(self.model_config, self.B,
-                                      max_seq=self.T, device=self.device)
+                                      max_seq=self.T, dtype=self._kv_dtype,
+                                      device=self.device)
 
     def _hit_max_seq(self, req) -> bool:
         return len(req.prompt) + len(req.out_tokens) >= self.T
@@ -250,11 +260,11 @@ class ContinuousBatchingScheduler:
                            & (new_len < T))
         return [torch.stack(a) for a in (toks, was, eoss, lps)]
 
-    def _prefill_small(self, model, cfg, params, tokens, seq_lens):
-        """Cold prefill of m prompts [m, S] into a fresh S-wide cache ->
-        (last-position logits [m, V], small cache)."""
+    def _prefill_small(self, model, cfg, params, tokens, seq_lens, dtype):
+        """Cold prefill of m prompts [m, S] into a fresh S-wide cache of
+        `dtype` -> (last-position logits [m, V], small cache)."""
         small = model.init_cache(cfg, tokens.shape[0], max_seq=tokens.shape[1],
-                                 device=self.device)
+                                 dtype=dtype, device=self.device)
         idx = (seq_lens - 1).clamp(min=0)
         logits, small = model.forward(params, cfg, tokens, small,
                                       seq_lens=seq_lens, logit_idx=idx,
@@ -264,12 +274,15 @@ class ContinuousBatchingScheduler:
     @staticmethod
     def _scatter_into_slots(cache: KVCache, small: KVCache, slots,
                             seq_lens) -> KVCache:
-        """Copy a freshly prefilled small cache's rows into their slots.
-        Only the first S positions are written; a slot's positions past
-        its length are never read."""
+        """Copy a freshly prefilled small cache's rows (and an int8
+        cache's scales) into their slots. Only the first S positions are
+        written; a slot's positions past its length are never read."""
         S = small.k.shape[3]
         cache.k[:, slots, :, :S] = small.k
         cache.v[:, slots, :, :S] = small.v
+        if cache.k_scale is not None:
+            cache.k_scale[:, slots, :, :S] = small.k_scale
+            cache.v_scale[:, slots, :, :S] = small.v_scale
         length = cache.length.clone()
         length[slots] = seq_lens
         return cache._replace(length=length)
@@ -280,7 +293,8 @@ class ContinuousBatchingScheduler:
         model the draft cache is prefilled on the same prompts."""
         (t, k, p), (minp, rep, pres, freq), pc_rows, bias_rows = knobs
         last, small = self._prefill_small(self._model, self.model_config,
-                                          self.params, tokens, seq_lens)
+                                          self.params, tokens, seq_lens,
+                                          self._kv_dtype)
         last = last + bias_rows
         first = sampling.sample_per_slot(
             self._gen, last, t, k, p, min_p=minp, repetition_penalty=rep,
@@ -292,7 +306,7 @@ class ContinuousBatchingScheduler:
         if self._dmodel is not None:
             _, dsmall = self._prefill_small(self._dmodel, self.draft_config,
                                             self.draft_params, tokens,
-                                            seq_lens)
+                                            seq_lens, self._dkv_dtype)
             self.dcache = self._scatter_into_slots(self.dcache, dsmall, slots,
                                                    seq_lens)
         return first, first_lp
@@ -770,6 +784,7 @@ class PagedContinuousScheduler(ContinuousBatchingScheduler):
         self.cache = pc.init_paged_cache(model_config, self.B,
                                          num_pages=num_pages,
                                          page_size=page_size, max_seq=self.T,
+                                         dtype=self._kv_dtype,
                                          device=self.device)
         self.pool = pc.PrefixPagePool(num_pages)
         self.prefix_caching = prefix_caching
@@ -816,12 +831,20 @@ class PagedContinuousScheduler(ContinuousBatchingScheduler):
     def _paged_step(self, lengths):
         """One paged decode step for every slot at `lengths` [B] ->
         (nxt, lp, hit_eos)."""
-        logits, _, _ = self._model.forward_paged_decode(
+        logits = self._model.forward_paged_decode(
             self.params, self.model_config, self.tokens, self.cache.k_pages,
-            self.cache.v_pages, self._device_table(), lengths)
+            self.cache.v_pages, self._device_table(), lengths,
+            **self._scale_pools())[0]
         nxt, lp = self._sample(logits + self.slot_bias, self.counts_out)
         self._count(nxt, self.active)
         return nxt, lp, self.active & (nxt == self.config.eos_token_id)
+
+    def _scale_pools(self):
+        """The int8 pool's scale pages as the paged forwards take them."""
+        if self.cache.k_scale_pages is None:
+            return {}
+        return dict(k_scale_pages=self.cache.k_scale_pages,
+                    v_scale_pages=self.cache.v_scale_pages)
 
     def _decode_fn(self):
         return self._paged_step(self._lengths_dev())
@@ -850,12 +873,13 @@ class PagedContinuousScheduler(ContinuousBatchingScheduler):
     def _paged_prefill(self, req: _Request, m: int, S_suf: int, slot: int,
                        knobs):
         """Admission prefill of one prompt whose first m pages are shared:
-        their K/V is copied into a small head-major cache as its prefix
-        and the forward runs over the suffix only, so time to first token
-        follows the uncached part. The small cache is as wide as a cold
+        their K/V (and an int8 pool's scales) is copied into a small
+        head-major cache of the pool's dtype as its prefix and the
+        forward runs over the suffix only, so time to first token follows
+        the uncached part. The small cache is as wide as a cold
         admission's (pre + S_suf = the bucketed prompt in whole pages),
         so cached and cold admissions attend the same widths. The suffix
-        K/V then goes to the slot's fresh pages.
+        K/V (and scales) then goes to the slot's fresh pages.
         Returns (first token, its logprob, the biased logits row)."""
         cfg, page, dev = self.model_config, self.page, self.device
         (t, k, p), (minp, rep, pres, freq), pc_row, bias_row = knobs
@@ -865,12 +889,19 @@ class PagedContinuousScheduler(ContinuousBatchingScheduler):
         shared = torch.from_numpy(self._table[slot, :m].astype(np.int64)).to(dev)
         fresh = torch.from_numpy(
             self._table[slot, m:m + n_new].astype(np.int64)).to(dev)
-        small = self._model.init_cache(cfg, 1, max_seq=pre + S_suf, device=dev)
+        small = self._model.init_cache(cfg, 1, max_seq=pre + S_suf,
+                                       dtype=self._kv_dtype, device=dev)
+        c = self.cache
+        # (pool, small-cache buffer) pairs: K, V and an int8 pool's scales
+        pairs = [(c.k_pages, small.k), (c.v_pages, small.v)]
+        if c.k_scale_pages is not None:
+            pairs += [(c.k_scale_pages, small.k_scale),
+                      (c.v_scale_pages, small.v_scale)]
         if m:
-            for pages, buf in ((self.cache.k_pages, small.k),
-                               (self.cache.v_pages, small.v)):
+            for pages, buf in pairs:
+                # [L, m, Hkv, page(, D)] -> [L, Hkv, pre(, D)]
                 buf[:, 0, :, :pre] = pages[:, shared].transpose(1, 2).reshape(
-                    L, Hkv, pre, D)
+                    L, Hkv, pre, *pages.shape[4:])
             small = small._replace(length=torch.full_like(small.length, pre))
         arr = np.full((1, S_suf), self.config.pad_token_id, np.int32)
         arr[0, : plen - pre] = req.prompt[pre:]
@@ -884,11 +915,10 @@ class PagedContinuousScheduler(ContinuousBatchingScheduler):
             presence_penalty=pres, frequency_penalty=freq, counts=pc_row,
             out_counts=torch.zeros_like(pc_row))
         first_lp = sampling.token_logprob(last, first)
-        # [L, 1, Hkv, n_new * page, D] suffix -> [L, n_new, Hkv, page, D]
-        for pages, buf in ((self.cache.k_pages, small.k),
-                           (self.cache.v_pages, small.v)):
+        # [L, 1, Hkv, n_new * page(, D)] suffix -> [L, n_new, Hkv, page(, D)]
+        for pages, buf in pairs:
             pages[:, fresh] = buf[:, 0, :, pre:].reshape(
-                L, Hkv, n_new, page, D).transpose(1, 2)
+                L, Hkv, n_new, page, *pages.shape[4:]).transpose(1, 2)
         return first, first_lp, last
 
     # -- host-side page bookkeeping ---------------------------------------
@@ -998,9 +1028,10 @@ class PagedContinuousScheduler(ContinuousBatchingScheduler):
         is free: host lengths advance only by the accepted count."""
         drafts, dlogits, len_d0 = self._spec_draft()
         chunk = torch.cat([self.tokens[:, None], drafts], dim=1)
-        tlg, _, _ = self._model.forward_paged_verify(
+        tlg = self._model.forward_paged_verify(
             self.params, self.model_config, chunk, self.cache.k_pages,
-            self.cache.v_pages, self._device_table(), self._lengths_dev())
+            self.cache.v_pages, self._device_table(), self._lengths_dev(),
+            **self._scale_pools())[0]
         out, lps, n_emit, a = self._spec_accept(tlg, dlogits, drafts)
         self.dcache = self.dcache._replace(
             length=torch.where(self.active, len_d0 + 1 + a, len_d0))

@@ -20,6 +20,7 @@ def wrappers() -> Dict[str, Callable]:
             "qmm_int4_grouped": qmm.qmm_int4_grouped,
             "flash_prefill": flash_attention.flash_prefill,
             "cache_write_fresh": cache_write.cache_write_fresh,
+            "kv_encode_write": cache_write.kv_encode_write,
             "decode_attention": decode_attention.decode_attention,
             "paged_attention": paged_attention.paged_attention}
 

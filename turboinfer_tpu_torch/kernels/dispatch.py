@@ -31,44 +31,56 @@ def qmatmul_grouped(x: torch.Tensor, qt: QTensor,
     return qmm.qmm_int4_grouped(x, qt, slots)
 
 
-def attention_prefill(q, k, v, *, kv_len, q_start, layer_index=None):
+def attention_prefill(q, k, v, *, kv_len, q_start, layer_index=None,
+                      k_scale=None, v_scale=None):
     """q: [B, S, Hq, D]; k/v: [B, Hkv, T, D] views, or the stacked
-    [L, B, Hkv, T, D] cache with `layer_index` (read in place)."""
+    [L, B, Hkv, T, D] cache with `layer_index` (read in place), int8
+    with its scale planes k_scale/v_scale ([..., Hkv, T] f32) or fp8
+    (uint8 e4m3 bits) too."""
     from turboinfer_tpu_torch.kernels import flash_attention
     if layer_index is not None:
         k, v = k[layer_index], v[layer_index]
-    return flash_attention.flash_prefill(q, k, v, kv_len, q_start)
+        if k_scale is not None:
+            k_scale, v_scale = k_scale[layer_index], v_scale[layer_index]
+    return flash_attention.flash_prefill(q, k, v, kv_len, q_start, k_scale,
+                                         v_scale)
 
 
 def attention_decode(q, k_cache, v_cache, kv_len, layer_index=None,
-                     window=None, sinks=None):
+                     window=None, sinks=None, k_scale=None, v_scale=None):
     """q: [B, Hq, D]; caches stacked [L, B, Hkv, T, D] with
     `layer_index`, or one layer [B, Hkv, T, D]. window: the last
-    `window` keys only; sinks: [Hq] per-head sink logits."""
+    `window` keys only; sinks: [Hq] per-head sink logits; k_scale/
+    v_scale: an int8 cache's scale planes ([..., Hkv, T] f32)."""
     from turboinfer_tpu_torch.kernels import decode_attention
     if layer_index is None:
         k_cache, v_cache, layer_index = k_cache[None], v_cache[None], 0
+        if k_scale is not None:
+            k_scale, v_scale = k_scale[None], v_scale[None]
     return decode_attention.decode_attention(q, k_cache, v_cache, kv_len,
-                                             layer_index, window, sinks)
+                                             layer_index, window, sinks,
+                                             k_scale, v_scale)
 
 
 def attention_paged_decode(q, k_pages, v_pages, block_table, kv_len,
-                           layer_index):
+                           layer_index, k_scale=None, v_scale=None):
     """q: [B, Hq, D]; pools stacked [L, P, Hkv, page, D] read at
-    `layer_index` through block_table [B, max_pages] -> [B, Hq, D]."""
+    `layer_index` through block_table [B, max_pages] -> [B, Hq, D];
+    k_scale/v_scale: an int8 pool's scale pages [L, P, Hkv, page]."""
     from turboinfer_tpu_torch.kernels import paged_attention
     return paged_attention.paged_attention(q[:, None], k_pages, v_pages,
-                                           block_table, kv_len,
-                                           layer_index)[:, 0]
+                                           block_table, kv_len, layer_index,
+                                           k_scale, v_scale)[:, 0]
 
 
 def attention_paged_verify(q, k_pages, v_pages, block_table, kv_len,
-                           layer_index):
+                           layer_index, k_scale=None, v_scale=None):
     """q: [B, G, Hq, D], the G chunk tokens already in their pages and
     counted in kv_len (query g at kv_len - G + g) -> [B, G, Hq, D]."""
     from turboinfer_tpu_torch.kernels import paged_attention
     return paged_attention.paged_attention(q, k_pages, v_pages, block_table,
-                                           kv_len, layer_index)
+                                           kv_len, layer_index, k_scale,
+                                           v_scale)
 
 
 def prepare_params(params: Any) -> Any:

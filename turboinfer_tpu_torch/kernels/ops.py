@@ -207,6 +207,20 @@ def qmatmul_grouped(x: torch.Tensor, w, slots: torch.Tensor) -> torch.Tensor:
 
 # -- attention ---------------------------------------------------------------
 
+def e4m3_to_float(u8: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
+    """float8_e4m3fn bit patterns (uint8) -> values with integer math, the
+    port of the JAX package's e4m3_to_bf16: (8 + m) * 2^(e - 10) for e >
+    0, m * 2^-9 for subnormals, exact for every finite code; the two NaN
+    codes 0x7F/0xFF decode as +-480, as the Pallas kernels (and the CUDA
+    kernels here) read them."""
+    qi = u8.to(torch.int32)
+    e = (qi >> 3) & 0xF
+    m = qi & 0x7
+    mf = torch.where(e == 0, m, m + 8).to(torch.float32)
+    val = torch.ldexp(mf, torch.where(e == 0, 1, e) - 10)
+    return torch.where((qi >> 7) == 1, -val, val).to(out_dtype)
+
+
 def _repeat_kv(k: torch.Tensor, num_q_heads: int) -> torch.Tensor:
     hkv = k.shape[1]
     if hkv == num_q_heads:

@@ -2,12 +2,14 @@
 
 Counterpart of turboinfer_tpu/kernels/pallas/paged_attention.py
 paged_decode_pallas and paged_verify_pallas (one Pallas body,
-_paged_decode, at g_tokens = 1 and G) for a model-dtype pool: the G
-query tokens q [B, G, Hq, D] of each sequence attend layer `layer_index`
-of the stacked pool [L, P, Hkv, page, D] through the block table
-[B, max_pages], read in place through a pointer offset. Query g sits at
-kv_len - G + g and sees keys at or before it. Table ids are clamped to
-[0, P-1] and kv_len to at least 1, as the JAX kernel clamps them.
+_paged_decode, at g_tokens = 1 and G): the G query tokens q
+[B, G, Hq, D] of each sequence attend layer `layer_index` of the stacked
+pool [L, P, Hkv, page, D] through the block table [B, max_pages], read
+in place through a pointer offset. The pool is bf16, int8 with its f32
+scale pages k_scale/v_scale [L, P, Hkv, page], or fp8 (uint8 e4m3
+bits). Query g sits at kv_len - G + g and sees keys at or before it.
+Table ids are clamped to [0, P-1] and kv_len to at least 1, as the JAX
+kernel clamps them.
 
 On CUDA tensors paged_attention launches the kernel or raises; on CPU
 tensors it runs paged_plain.
@@ -16,10 +18,13 @@ tensors it runs paged_plain.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from turboinfer_tpu_torch.kernels import _build, ops
+from turboinfer_tpu_torch.kernels.decode_attention import (KV_DTYPES,
+                                                           check_scales)
 from turboinfer_tpu_torch.utils.errors import KernelError
 
 HEAD_DIMS = (32, 64, 128)
@@ -30,11 +35,18 @@ MAX_PAGE = 256
 
 def paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
                 v_pages: torch.Tensor, table: torch.Tensor,
-                kv_len: torch.Tensor, layer_index: int,
-                g_tokens: int) -> torch.Tensor:
-    """Plain PyTorch version on the gathered pages. q: [B, G, Hq, D] with
-    G = g_tokens -> [B, G, Hq, D]."""
-    kp, vp = k_pages[layer_index], v_pages[layer_index]
+                kv_len: torch.Tensor, layer_index: int, g_tokens: int,
+                k_scale: Optional[torch.Tensor] = None,
+                v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version on the gathered pages, the layer's pool
+    decoded to q.dtype first (models/common.decode_kv). q: [B, G, Hq, D]
+    with G = g_tokens -> [B, G, Hq, D]."""
+    from turboinfer_tpu_torch.models.common import decode_kv
+    li = layer_index
+    kp = decode_kv(k_pages[li], q.dtype, None if k_scale is None
+                   else k_scale[li])
+    vp = decode_kv(v_pages[li], q.dtype, None if v_scale is None
+                   else v_scale[li])
     kv = kv_len.clamp(min=1)
     if g_tokens == 1:
         return ops.attention_paged_decode_ref(q[:, 0], kp, vp, table,
@@ -42,13 +54,16 @@ def paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
     return ops.attention_paged_verify_ref(q, kp, vp, table, kv)
 
 
-def _check(q, k_pages, v_pages, table, layer_index) -> None:
+def _check(q, k_pages, v_pages, table, layer_index, k_scale,
+           v_scale) -> None:
     B, G, Hq, D = q.shape
     L, P, Hkv, page, Dc = k_pages.shape
-    if q.dtype != torch.bfloat16 or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
-        raise KernelError(f"paged_attention takes a bf16 query and pool, "
-                          f"got {q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
+    if q.dtype != torch.bfloat16 or k_pages.dtype not in KV_DTYPES \
+            or v_pages.dtype != k_pages.dtype:
+        raise KernelError(f"paged_attention takes a bf16 query and a bf16, "
+                          f"int8 or fp8 (uint8) pool, got {q.dtype}, "
+                          f"{k_pages.dtype}, {v_pages.dtype}")
+    check_scales(k_pages, v_pages, k_scale, v_scale, "paged_attention")
     if (D not in HEAD_DIMS or Dc != D or Hq % Hkv or Hq // Hkv > MAX_GROUP
             or not 1 <= G <= MAX_TOKENS or page % 8 or not 8 <= page <= MAX_PAGE
             or v_pages.shape != k_pages.shape or table.dim() != 2
@@ -64,12 +79,14 @@ def _check(q, k_pages, v_pages, table, layer_index) -> None:
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, table: torch.Tensor,
-                    kv_len: torch.Tensor, layer_index: int) -> torch.Tensor:
+                    kv_len: torch.Tensor, layer_index: int,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q [B, G, Hq, D] -> [B, G, Hq, D] in q.dtype (see paged_plain)."""
     if q.device.type == "cpu":
         return paged_plain(q, k_pages, v_pages, table, kv_len, layer_index,
-                           q.shape[1])
-    _check(q, k_pages, v_pages, table, layer_index)
+                           q.shape[1], k_scale, v_scale)
+    _check(q, k_pages, v_pages, table, layer_index, k_scale, v_scale)
     B, G, Hq, D = q.shape
     _, P, Hkv, page, _ = k_pages.shape
     gh, max_pages = Hq // Hkv, table.shape[1]
@@ -80,7 +97,10 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if q4.stride(-1) != 1 or any(s % 8 for s in q4.stride()[:-1]) \
             or q4.data_ptr() % 16:
         q4 = q4.contiguous()
-    kp, vp = k_pages[int(layer_index)], v_pages[int(layer_index)]
+    li = int(layer_index)
+    kp, vp = k_pages[li], v_pages[li]
+    ks = None if k_scale is None else k_scale[li].data_ptr()
+    vs = None if v_scale is None else v_scale[li].data_ptr()
     table = table.to(device=q.device, dtype=torch.int32).contiguous()
     kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((B, Hkv, R, D), dtype=q.dtype, device=q.device)
@@ -90,9 +110,10 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                        dtype=torch.float32, device=q.device)
     strides = _build.longlongs(q4.stride(0), q4.stride(1), q4.stride(2))
     status = lib.ti_paged_attention(
-        q4.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
+        q4.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks, vs, out.data_ptr(),
         work.data_ptr(), table.data_ptr(), kv_len.data_ptr(), B, Hkv, R, gh,
-        G, P, page, max_pages, D, strides, 1.0 / math.sqrt(D),
+        G, P, page, max_pages, D, KV_DTYPES[k_pages.dtype], strides,
+        1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "paged_attention")
     paged_attention.launches += 1

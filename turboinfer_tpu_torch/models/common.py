@@ -1,10 +1,12 @@
-"""Shared model machinery: the KV cache container, projection fusion and
-parameter accounting (counterpart of turboinfer_tpu/models/common.py).
+"""Shared model machinery: the KV cache container and its storage codecs,
+projection fusion and parameter accounting (counterpart of
+turboinfer_tpu/models/common.py).
 
 The port keeps the head-major stacked cache [L, B, Hkv, T, D] for every
 head size; the JAX package's fused-head layout exists for TPU lane
-alignment and has no counterpart. Only model-dtype caches are ported so
-far (int8 and fp8 caches come in a later slice).
+alignment and has no counterpart. A cache stores the model dtype, bf16,
+scaled int8 (per-(token, head) f32 scale planes [L, B, Hkv, T]) or fp8
+e4m3 as raw uint8 bits, with the JAX package's bytes.
 """
 
 from __future__ import annotations
@@ -18,20 +20,60 @@ from turboinfer_tpu_torch.core.qtensor import QEmbed, QTensor, concat_n
 from turboinfer_tpu_torch.utils.device import resolve_device
 from turboinfer_tpu_torch.utils.errors import QuantizationError
 
+# e4m3 codes 0x7F/0xFF: the JAX package writes them for |x| > 464 (where
+# the round-to-nearest-even result would pass 448) and for inf/NaN;
+# torch's saturating cast writes +-448 there instead.
+E4M3_NAN_ABOVE = 464.0
+COMPRESSED_KV = (torch.int8, torch.uint8)
+# f32(1 / 127): int8 scales are absmax times it (see encode_kv_scaled)
+INV_127 = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))
+
 
 class KVCache(NamedTuple):
     """Device-resident KV cache, head-major [L, B, Hkv, T, D].
 
-    The forward writes k and v IN PLACE (JAX returns new arrays); the
-    returned KVCache shares them and carries the new `length` [B] int32,
-    the number of valid slots of each sequence."""
+    The forward writes k and v (and the scales) IN PLACE (JAX returns new
+    arrays); the returned KVCache shares them and carries the new
+    `length` [B] int32, the number of valid slots of each sequence.
+    k_scale/v_scale: f32 [L, B, Hkv, T] for an int8 cache (value = code
+    * scale), else None."""
     k: torch.Tensor
     v: torch.Tensor
     length: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def max_seq(self) -> int:
         return self.k.shape[3]
+
+
+def resolve_kv_dtype(kv_cache_dtype: Optional[str], model_dtype):
+    """InferenceConfig.kv_cache_dtype -> cache storage dtype: "fp8" ->
+    torch.uint8 (raw e4m3 bits for the cache's whole life), "int8" ->
+    torch.int8 (with scale planes), "bf16", or "model" (also "" and
+    None) -> the model dtype."""
+    if kv_cache_dtype == "fp8":
+        return torch.uint8
+    if kv_cache_dtype == "int8":
+        return torch.int8
+    if kv_cache_dtype == "bf16":
+        return torch.bfloat16
+    if kv_cache_dtype in ("model", "", None):
+        return model_dtype
+    raise ValueError(f"unknown kv_cache_dtype {kv_cache_dtype!r} "
+                     "(expected 'model', 'fp8', 'int8', or 'bf16')")
+
+
+def check_kv_dtype(model, architecture: str, kv_dtype) -> None:
+    """Raise for a compressed cache a family's forward does not thread:
+    int8 and fp8 caches run where the module sets SUPPORTS_INT8_KV (the
+    llama body, which MoE reuses)."""
+    if kv_dtype in COMPRESSED_KV and not getattr(model, "SUPPORTS_INT8_KV",
+                                                 False):
+        raise NotImplementedError(
+            f"{architecture}: int8 and fp8 KV caches are not ported for this "
+            "family yet (ROADMAP §2 (a))")
 
 
 def init_cache(config: ModelConfig, batch_size: int,
@@ -40,28 +82,66 @@ def init_cache(config: ModelConfig, batch_size: int,
     dev = resolve_device(device)
     T = max_seq or config.max_seq_len
     dtype = dtype or config.dtype
-    if dtype not in (torch.float32, torch.bfloat16, torch.float16):
-        raise NotImplementedError(
-            f"KV cache dtype {dtype} is not ported yet (model dtype only)")
+    if dtype not in (torch.float32, torch.bfloat16, torch.float16,
+                     *COMPRESSED_KV):
+        raise ValueError(f"KV cache dtype {dtype} is not a cache storage "
+                         "dtype (see resolve_kv_dtype)")
     shape = (config.num_layers, batch_size, config.kv_heads, T,
              config.head_dim_)
+    ks = vs = None
+    if dtype == torch.int8:
+        # two distinct scale planes, as the JAX package keeps them
+        ks = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
+        vs = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
                    v=torch.zeros(shape, dtype=dtype, device=dev),
                    length=torch.zeros((batch_size,), dtype=torch.int32,
-                                      device=dev))
+                                      device=dev),
+                   k_scale=ks, v_scale=vs)
 
 
-def encode_kv(x: torch.Tensor, cache_dtype) -> torch.Tensor:
-    """K/V values -> cache storage (model dtype: a cast)."""
-    if cache_dtype in (torch.int8, torch.uint8):
-        raise NotImplementedError("int8/fp8 KV caches are not ported yet")
-    return x.to(cache_dtype)
+def _e4m3_bits(x: torch.Tensor) -> torch.Tensor:
+    """float -> e4m3 bit patterns equal to the JAX package's
+    x.astype(float8_e4m3fn): round to nearest even below the NaN bound,
+    0x7F | sign beyond it and for inf/NaN (torch's cast saturates)."""
+    bits = x.to(torch.float8_e4m3fn).view(torch.uint8)
+    nan = (x.abs() > E4M3_NAN_ABOVE) | ~torch.isfinite(x)
+    code = torch.where(torch.signbit(x), 0xFF, 0x7F).to(torch.uint8)
+    return torch.where(nan, code, bits)
 
 
-def decode_kv(x: torch.Tensor, out_dtype) -> torch.Tensor:
-    """Cache storage -> values (model dtype: a cast)."""
-    if x.dtype in (torch.int8, torch.uint8):
-        raise NotImplementedError("int8/fp8 KV caches are not ported yet")
+def encode_kv_scaled(x: torch.Tensor, cache_dtype):
+    """K/V values [..., D] -> (stored, scale or None). int8: symmetric
+    absmax per row over D in f32, scale = max(absmax, 1e-12) times the
+    f32 reciprocal of 127, codes round-half-even(x / scale) (a true
+    division) clipped to +-127: the bytes and scales the JAX package
+    writes, whose compiled `/ 127.0` XLA turns into that multiply (an
+    un-jitted call of its encode_kv_scaled divides, one ulp apart in
+    some scales); uint8: e4m3 bits (see _e4m3_bits); else a cast."""
+    if cache_dtype == torch.int8:
+        xf = x.to(torch.float32)
+        s = xf.abs().amax(dim=-1).clamp_min(1e-12) * INV_127
+        q = torch.round(xf / s[..., None]).clamp(-127, 127).to(torch.int8)
+        return q, s
+    if cache_dtype == torch.uint8:
+        return _e4m3_bits(x), None
+    return x.to(cache_dtype), None
+
+
+def decode_kv(x: torch.Tensor, out_dtype,
+              scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cache storage -> values: e4m3 bits as the kernels decode them
+    (ops.e4m3_to_float: 0x7F/0xFF are +-480, not NaN, so attention stays
+    finite; the JAX package's own plain decode_kv gives NaN there), int8
+    codes times the scale [..., T] in f32, else a cast."""
+    if x.dtype == torch.uint8:
+        from turboinfer_tpu_torch.kernels.ops import e4m3_to_float
+        return e4m3_to_float(x, out_dtype)
+    if x.dtype == torch.int8:
+        if scale is None:
+            raise ValueError("int8 KV decode requires its scale array")
+        return (x.to(torch.float32)
+                * scale[..., None].to(torch.float32)).to(out_dtype)
     return x.to(out_dtype)
 
 

@@ -47,7 +47,7 @@ import torch
 from turboinfer_tpu_torch.config import ModelConfig
 from turboinfer_tpu_torch.kernels import cache_write, dispatch, ops
 from turboinfer_tpu_torch.models import llama
-from turboinfer_tpu_torch.models.common import KVCache
+from turboinfer_tpu_torch.models.common import COMPRESSED_KV, KVCache
 from turboinfer_tpu_torch.models.moe import dense_mix
 from turboinfer_tpu_torch.utils.device import resolve_device
 from turboinfer_tpu_torch.utils.errors import ConfigError
@@ -85,7 +85,13 @@ def check_supported(config: ModelConfig) -> None:
 
 def init_cache(config: ModelConfig, batch_size: int, max_seq=None,
                dtype=None, device="cuda") -> KVCache:
-    """Head-major [L, B, Hkv, T, D] cache of zeros on `device`."""
+    """Head-major [L, B, Hkv, T, D] cache of zeros on `device`, of the
+    model dtype or bf16: int8 and fp8 caches are not ported for this
+    family yet (SUPPORTS_INT8_KV is unset)."""
+    if dtype in COMPRESSED_KV:
+        raise NotImplementedError(
+            "gpt_oss: int8 and fp8 KV caches are not ported for this family "
+            "yet (ROADMAP §2 (a))")
     return llama.init_cache(config, batch_size, max_seq, dtype, device)
 
 
@@ -274,7 +280,8 @@ def _layer_forward(config: ModelConfig, x: torch.Tensor, lw: Dict[str, Any],
     place at layer li (llama.forward's layer_fn; slots as there)."""
     B, S, _ = x.shape
     T = cache.max_seq
-    q, k, v = llama._attn_inputs(config, x, lw, li, rope, cache.k.dtype)
+    q, k, v = llama._attn_inputs(config, x, lw, li, rope)
+    k, v = k.to(cache.k.dtype), v.to(cache.k.dtype)
     window, sinks = layer_window(config, li), lw["sinks"][li]
     if S == 1:
         rows, pos = slots
@@ -337,8 +344,7 @@ def forward_paged_decode(params: Dict[str, Any], config: ModelConfig,
                            config.rope_mode, config.rope_scaling)
     layers = params["layers"]
     for li in range(config.num_layers):
-        q, k, v = llama._attn_inputs(config, x, layers, li, rope,
-                                     k_pages.dtype)
+        q, k, v = llama._attn_inputs(config, x, layers, li, rope)
         k_pages[li, pid, :, poff] = k[:, 0]
         v_pages[li, pid, :, poff] = v[:, 0]
         attn = ops.attention_paged_decode_ref(

@@ -16,6 +16,13 @@ The forwards take an `ffn_fn(config, h, layers, li)` hook, as the JAX
 package's paged forwards do: the default is the dense SwiGLU block
 (dense_ffn), and models/moe.py passes its routed experts through the
 same attention body.
+
+Caches and page pools store the model dtype, bf16, int8 (with f32 scale
+planes) or fp8 (uint8 e4m3 bits). A compressed cache is written by the
+encode-and-write kernel (cache_write.kv_encode_write) and read in place
+by the attention kernels; a prefill into it, fresh or chunked, attends
+the stacked cache's layer li, so it sees the quantized K/V, as the JAX
+model's prefill does whenever the cache is compressed.
 """
 
 from __future__ import annotations
@@ -26,9 +33,13 @@ import torch
 
 from turboinfer_tpu_torch.config import ModelConfig
 from turboinfer_tpu_torch.kernels import cache_write, dispatch, ops
-from turboinfer_tpu_torch.models.common import KVCache, encode_kv
+from turboinfer_tpu_torch.models.common import COMPRESSED_KV, KVCache
 from turboinfer_tpu_torch.models.common import init_cache as _init_cache
 from turboinfer_tpu_torch.utils.device import resolve_device
+
+# The forwards thread int8 scale planes and read fp8 caches (the engine
+# and the schedulers check this flag, as the JAX package's do).
+SUPPORTS_INT8_KV = True
 
 # ModelConfig knobs whose layer features are not ported yet, with the
 # value that means "off".
@@ -124,16 +135,29 @@ def gate_up_proj(h, lw, li):
 
 
 def _attn_inputs(config: ModelConfig, x: torch.Tensor, lw: Dict[str, Any],
-                 li: int, rope, cache_dtype):
+                 li: int, rope):
     """RMSNorm, the q/k/v projections and RoPE of layer li -> q
-    [B, S, Hq, D] and k, v [B, S, Hkv, D] in the cache's dtype."""
+    [B, S, Hq, D] and k, v [B, S, Hkv, D] in the model dtype (the cache
+    write encodes them)."""
     B, S, _ = x.shape
     Hq, Hkv, D = config.num_heads, config.kv_heads, config.head_dim_
     h = ops.rms_norm(x, lw["attn_norm"][li], config.rms_norm_eps)
     qk, v = qkv_proj(h, lw, li, B, S, Hq, Hkv, D)
     qk = ops.apply_rope(qk, None, mode=config.rope_mode, tables=rope)
-    return (qk[:, :, :Hq], encode_kv(qk[:, :, Hq:], cache_dtype),
-            encode_kv(v, cache_dtype))
+    return qk[:, :, :Hq], qk[:, :, Hq:], v
+
+
+def encode_write(k_store: torch.Tensor, v_store: torch.Tensor, k_scale,
+                 v_scale, k: torch.Tensor, v: torch.Tensor,
+                 rows: torch.Tensor, li: int) -> None:
+    """Encode k/v [..., Hkv, D] into layer li of an int8 or fp8 cache
+    [L, B, Hkv, T, D] or page pool [L, P, Hkv, page, D], in place: token
+    n's head h lands in row rows[n] + h * T (or page) of the layer
+    (rows[n] < 0: not written)."""
+    L, n, Hkv, W, D = k_store.shape
+    cache_write.kv_encode_write(k.reshape(-1, Hkv, D), v.reshape(-1, Hkv, D),
+                                k_store, v_store, k_scale, v_scale, rows,
+                                li * n * Hkv * W, W)
 
 
 def dense_ffn(config: ModelConfig, h: torch.Tensor, lw: Dict[str, Any],
@@ -161,13 +185,27 @@ def _layer_forward(config: ModelConfig, x: torch.Tensor, lw: Dict[str, Any],
                    slots, ffn_fn) -> torch.Tensor:
     """One decoder block (RMSNorm -> GQA attention -> residual -> RMSNorm
     -> ffn_fn -> residual) over the stacked cache, which it updates in
-    place at layer li. rope: the forward's RoPE tables; slots: (rows,
-    positions) of a decode step's cache writes, or the host list of a
-    chunked prefill's row starts."""
+    place at layer li. rope: the forward's RoPE tables; slots: for a
+    compressed cache, the layer-0 row of every new token (forward's
+    cache_rows); else (rows, positions) of a decode step's cache writes,
+    or the host list of a chunked prefill's row starts."""
     S = x.shape[1]
     T = cache.max_seq
-    q, k, v = _attn_inputs(config, x, lw, li, rope, cache.k.dtype)
-
+    q, k, v = _attn_inputs(config, x, lw, li, rope)
+    if cache.k.dtype in COMPRESSED_KV:
+        encode_write(cache.k, cache.v, cache.k_scale, cache.v_scale, k, v,
+                     slots, li)
+        if S == 1:
+            attn = dispatch.attention_decode(
+                q[:, 0], cache.k, cache.v, kv_len, layer_index=li,
+                k_scale=cache.k_scale, v_scale=cache.v_scale)[:, None]
+        else:
+            # fresh or chunked: attend the quantized K/V in the cache
+            attn = dispatch.attention_prefill(
+                q, cache.k, cache.v, kv_len=kv_len, q_start=start,
+                layer_index=li, k_scale=cache.k_scale, v_scale=cache.v_scale)
+        return _attn_out_ffn(config, x, attn, lw, li, ffn_fn)
+    k, v = k.to(cache.k.dtype), v.to(cache.k.dtype)
     if S == 1:
         rows, pos = slots
         cache.k[li, rows, :, pos] = k[:, 0]
@@ -191,6 +229,21 @@ def _layer_forward(config: ModelConfig, x: torch.Tensor, lw: Dict[str, Any],
         attn = dispatch.attention_prefill(q, cache.k, cache.v, kv_len=kv_len,
                                           q_start=start, layer_index=li)
     return _attn_out_ffn(config, x, attn, lw, li, ffn_fn)
+
+
+def cache_rows(cache: KVCache, start: torch.Tensor, S: int) -> torch.Tensor:
+    """Layer-0 row (head 0) of every new token [B * S] of a forward over
+    a compressed cache: ((b * Hkv) * T + start[b] + s); a decode
+    position clamps into the cache as JAX's dynamic_update_slice does,
+    a prefill token past T gets -1 (not written, as the chunked write of
+    a model-dtype cache drops it)."""
+    _, B, Hkv, T, _ = cache.k.shape
+    dev = start.device
+    pos = start.long()[:, None] + torch.arange(S, device=dev)[None, :]
+    if S == 1:
+        pos = pos.clamp(max=T - 1)
+    rows = torch.arange(B, device=dev)[:, None] * (Hkv * T) + pos
+    return torch.where(pos < T, rows, -1).reshape(-1)
 
 
 def _resolve_ffn(config: ModelConfig, ffn_fn):
@@ -238,7 +291,9 @@ def forward(params: Dict[str, Any], config: ModelConfig, tokens: torch.Tensor,
     # Decode writes one token per row at start[b]; JAX's
     # dynamic_update_slice clamps the offset into the cache, and so does
     # this indexed write. A chunked prefill reads the row starts once.
-    if S == 1:
+    if cache.k.dtype in COMPRESSED_KV:
+        slots = cache_rows(cache, start, S)
+    elif S == 1:
         slots = (torch.arange(B, device=tokens.device),
                  start.clamp(max=cache.max_seq - 1).long())
     else:
@@ -257,15 +312,19 @@ def forward(params: Dict[str, Any], config: ModelConfig, tokens: torch.Tensor,
 def forward_paged_decode(params: Dict[str, Any], config: ModelConfig,
                          tokens: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, block_table: torch.Tensor,
-                         lengths: torch.Tensor, *, ffn_fn=None):
+                         lengths: torch.Tensor, *, ffn_fn=None,
+                         k_scale_pages: Optional[torch.Tensor] = None,
+                         v_scale_pages: Optional[torch.Tensor] = None):
     """One decode step over the paged pool: tokens [B], the new token of
     row b written at position lengths[b]. The G=1 case of
     forward_paged_verify (one decoder body, as in the JAX package).
-    Returns (logits [B, V] f32, k_pages, v_pages)."""
-    logits, kp, vp = forward_paged_verify(params, config, tokens[:, None],
-                                          k_pages, v_pages, block_table,
-                                          lengths, ffn_fn=ffn_fn)
-    return logits[:, 0], kp, vp
+    Returns (logits [B, V] f32, k_pages, v_pages[, k_scale_pages,
+    v_scale_pages])."""
+    out = forward_paged_verify(params, config, tokens[:, None], k_pages,
+                               v_pages, block_table, lengths, ffn_fn=ffn_fn,
+                               k_scale_pages=k_scale_pages,
+                               v_scale_pages=v_scale_pages)
+    return (out[0][:, 0],) + out[1:]
 
 
 def page_slots(block_table: torch.Tensor, positions: torch.Tensor, P: int,
@@ -286,42 +345,62 @@ def page_slots(block_table: torch.Tensor, positions: torch.Tensor, P: int,
 def forward_paged_verify(params: Dict[str, Any], config: ModelConfig,
                          tokens: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, block_table: torch.Tensor,
-                         lengths: torch.Tensor, *, ffn_fn=None):
+                         lengths: torch.Tensor, *, ffn_fn=None,
+                         k_scale_pages: Optional[torch.Tensor] = None,
+                         v_scale_pages: Optional[torch.Tensor] = None):
     """G tokens per row in one pass over the paged pool [L, P, Hkv, page,
     D] (tokens [B, G]: the current token and G-1 drafts). Token g of row
     b is written at position lengths[b] + g, into page
     block_table[b, pos // page]; attention runs the paged kernel (decode
     at G=1, verify above), so each row's prefix is read once for all G
-    queries. The pools are written IN PLACE (JAX returns new ones) and
-    returned. Rollback of rejected drafts is the caller's: their K/V lies
-    past the row's length and is overwritten later.
+    queries. The pools (and an int8 pool's scale pages k_scale_pages/
+    v_scale_pages [L, P, Hkv, page] f32) are written IN PLACE (JAX
+    returns new ones) and returned. Rollback of rejected drafts is the
+    caller's: their K/V lies past the row's length and is overwritten
+    later.
     ffn_fn: as in forward.
-    Returns (logits [B, G, V] f32, k_pages, v_pages)."""
+    Returns (logits [B, G, V] f32, k_pages, v_pages[, k_scale_pages,
+    v_scale_pages when given])."""
     ffn_fn = _resolve_ffn(config, ffn_fn)
+    if (k_pages.dtype == torch.int8) != (k_scale_pages is not None):
+        raise ValueError("an int8 page pool takes k_scale_pages and "
+                         "v_scale_pages, another pool none")
     B, G = tokens.shape
     dev = tokens.device
+    L, P, Hkv, page, D = k_pages.shape
     lengths = lengths.to(device=dev, dtype=torch.int32)
     positions = lengths[:, None] + torch.arange(G, dtype=torch.int32,
                                                 device=dev)[None, :]
     kv_len = lengths + G
-    pid, poff = page_slots(block_table, positions, k_pages.shape[1],
-                           k_pages.shape[3])
+    pid, poff = page_slots(block_table, positions, P, page)
+    compressed = k_pages.dtype in COMPRESSED_KV
+    rows = pid * (Hkv * page) + poff if compressed else None
 
     x = ops.embed_lookup(params["embed"], tokens, config.dtype)
     rope = ops.rope_tables(positions, config.head_dim_, config.rope_theta,
                            config.rope_mode, config.rope_scaling)
     layers = params["layers"]
     for li in range(config.num_layers):
-        q, k, v = _attn_inputs(config, x, layers, li, rope, k_pages.dtype)
-        k_pages[li, pid, :, poff] = k.reshape(B * G, *k.shape[2:])
-        v_pages[li, pid, :, poff] = v.reshape(B * G, *v.shape[2:])
+        q, k, v = _attn_inputs(config, x, layers, li, rope)
+        if compressed:
+            encode_write(k_pages, v_pages, k_scale_pages, v_scale_pages, k,
+                         v, rows, li)
+        else:
+            k_pages[li, pid, :, poff] = k.reshape(B * G, Hkv, D).to(
+                k_pages.dtype)
+            v_pages[li, pid, :, poff] = v.reshape(B * G, Hkv, D).to(
+                v_pages.dtype)
         if G == 1:
             attn = dispatch.attention_paged_decode(
-                q[:, 0], k_pages, v_pages, block_table, kv_len, li)[:, None]
+                q[:, 0], k_pages, v_pages, block_table, kv_len, li,
+                k_scale_pages, v_scale_pages)[:, None]
         else:
             attn = dispatch.attention_paged_verify(
-                q, k_pages, v_pages, block_table, kv_len, li)
+                q, k_pages, v_pages, block_table, kv_len, li, k_scale_pages,
+                v_scale_pages)
         x = _attn_out_ffn(config, x, attn, layers, li, ffn_fn)
     x = ops.rms_norm(x, params["final_norm"], config.rms_norm_eps)
     logits = ops.qmatmul(x, params["lm_head"]).to(torch.float32)
+    if k_scale_pages is not None:
+        return logits, k_pages, v_pages, k_scale_pages, v_scale_pages
     return logits, k_pages, v_pages

@@ -39,6 +39,8 @@ from turboinfer_tpu_torch.utils.device import resolve_device
 from turboinfer_tpu_torch.utils.errors import ConfigError
 
 ARCHITECTURES = ("mixtral", "moe")
+# llama's attention body threads the int8 scales and reads fp8 caches
+SUPPORTS_INT8_KV = True
 
 
 def check_supported(config: ModelConfig) -> None:
@@ -216,20 +218,26 @@ def forward(params: Dict[str, Any], config: ModelConfig, tokens: torch.Tensor,
 def forward_paged_decode(params: Dict[str, Any], config: ModelConfig,
                          tokens: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, block_table: torch.Tensor,
-                         lengths: torch.Tensor):
+                         lengths: torch.Tensor, *, k_scale_pages=None,
+                         v_scale_pages=None):
     """Same contract as llama.forward_paged_decode, with the experts."""
     check_supported(config)
     return llama.forward_paged_decode(params, config, tokens, k_pages,
                                       v_pages, block_table, lengths,
-                                      ffn_fn=_moe_ffn)
+                                      ffn_fn=_moe_ffn,
+                                      k_scale_pages=k_scale_pages,
+                                      v_scale_pages=v_scale_pages)
 
 
 def forward_paged_verify(params: Dict[str, Any], config: ModelConfig,
                          tokens: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, block_table: torch.Tensor,
-                         lengths: torch.Tensor):
+                         lengths: torch.Tensor, *, k_scale_pages=None,
+                         v_scale_pages=None):
     """Same contract as llama.forward_paged_verify, with the experts."""
     check_supported(config)
     return llama.forward_paged_verify(params, config, tokens, k_pages,
                                       v_pages, block_table, lengths,
-                                      ffn_fn=_moe_ffn)
+                                      ffn_fn=_moe_ffn,
+                                      k_scale_pages=k_scale_pages,
+                                      v_scale_pages=v_scale_pages)
