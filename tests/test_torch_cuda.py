@@ -104,6 +104,89 @@ def test_cuda_qmm_grouped_refuses_unsupported_inputs():
                        qmm.qmm_int4_grouped(x, qt, s))
 
 
+def _qtensor(gen, lead, K, N, bits, asym, g=64):
+    """A random [*lead, K(/2), N] weight: int4 bytes or int8 codes (-128
+    included), scales in [0.005, 0.015), integer zero points when asym."""
+    if bits == 4:
+        data = torch.randint(0, 256, lead + (K // 2, N), generator=gen,
+                             dtype=torch.uint8, device="cuda")
+    else:
+        data = torch.randint(-128, 128, lead + (K, N), generator=gen,
+                             dtype=torch.int8, device="cuda")
+    sshape = lead + (K // g, N)
+    scales = (0.005 + 0.01 * torch.rand(sshape, generator=gen,
+                                        device="cuda")).to(torch.bfloat16)
+    zp = torch.randint(-12, 13, sshape, generator=gen, device="cuda").to(
+        torch.bfloat16) if asym else None
+    return QTensor(data=data, scales=scales, zero_points=zp, bits=bits,
+                   group_size=g, shape=(K, N))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,asym", [(8, False), (8, True), (4, True)],
+                         ids=["int8", "int8_zp", "int4_zp"])
+@pytest.mark.parametrize("M,K,N,g", [
+    (1, 2880, 136, 64), (8, 512, 2880, 64), (13, 256, 1000, 128),
+    (40, 2880, 2880, 64), (300, 512, 200, 256), (17, 4096, 64, 4096)])
+def test_cuda_qmm_int8_and_zero_points_match_plain(bits, asym, M, K, N, g):
+    """int8 and zero-point weights on both paths (GEMV at M <= 16, tensor
+    cores above): K=2880 (45 groups, no power of two), 64- and 8-column
+    tails, g up to per-channel (g = K), layer 1 of a stack."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(M + K + bits)
+    qt = _qtensor(gen, (2,), K, N, bits, asym, g)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    wrapper = qmm.qmm_int8 if bits == 8 else qmm.qmm_int4
+    before = wrapper.launches
+    got = wrapper(x, qt, 1).float()
+    want = qmm.qmatmul_plain(x, qt, 1).float()
+    assert wrapper.launches == before + 1
+    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,asym", [(8, False), (8, True), (4, True)],
+                         ids=["int8", "int8_zp", "int4_zp"])
+@pytest.mark.parametrize("G,M,K,N,slots", [
+    (2, 1, 512, 2880, [5, 0]), (3, 1, 2880, 136, [11, 11, 0]),
+    (4, 3, 256, 256, [2, 9, 2, 7]), (2, 16, 128, 64, [-3, 99])])
+def test_cuda_qmm_grouped_int8_and_zero_points_match_plain(bits, asym, G, M,
+                                                           K, N, slots):
+    """The grouped kernel over int8 and zero-point stacks: repeated slots,
+    clamped ids, K=2880, a 64-column tail."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(G * M + K + bits)
+    qt = _qtensor(gen, (12,), K, N, bits, asym)
+    x = torch.randn((G, M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    s = torch.tensor(slots, dtype=torch.int32, device="cuda")
+    wrapper = qmm.qmm_int8_grouped if bits == 8 else qmm.qmm_int4_grouped
+    got = wrapper(x, qt, s).float()
+    want = qmm.qmatmul_grouped_plain(x, qt, s).float()
+    assert got.shape == (G, M, N)
+    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_qmm_refuses_mismatched_weights():
+    _need_cuda()
+    from turboinfer_tpu_torch.utils.errors import KernelError
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q8 = _qtensor(gen, (2,), 128, 64, 8, True)
+    q4 = _qtensor(gen, (2,), 128, 64, 4, False)
+    x = torch.randn((3, 128), device="cuda").to(torch.bfloat16)
+    for fn, qt in ((qmm.qmm_int4, q8), (qmm.qmm_int8, q4)):
+        with pytest.raises(KernelError):      # the other width
+            fn(x, qt, 0)
+    bad = QTensor(data=q8.data, scales=q8.scales,
+                  zero_points=q8.zero_points.float(), bits=8, group_size=64,
+                  shape=(128, 64))
+    with pytest.raises(KernelError):          # f32 zero points
+        qmm.qmm_int8(x, bad, 0)
+    odd = _qtensor(gen, (1,), 128, 60, 8, False)
+    with pytest.raises(KernelError):          # N % 8 != 0
+        qmm.qmm_int8(x, odd, 0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("D,Hq,Hkv", [(32, 4, 4), (64, 8, 2), (128, 2, 1),
                                       (128, 32, 8)])

@@ -35,7 +35,8 @@ def jax_to_numpy(tree):
         return {k: jax_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, JQTensor):
         return {"data": np.asarray(tree.data), "scales": np.asarray(tree.scales),
-                "zero_points": None, "bits": tree.bits,
+                "zero_points": None if tree.zero_points is None
+                else np.asarray(tree.zero_points), "bits": tree.bits,
                 "group_size": tree.group_size, "shape": tree.shape}
     if isinstance(tree, JQEmbed):
         return {"data": np.asarray(tree.data),
@@ -43,12 +44,16 @@ def jax_to_numpy(tree):
     return np.asarray(tree)
 
 
+# (config overrides, quantization): None (f32) or (weight type,
+# symmetric) for the JAX quantizer at g=64
 CONFIGS = {
-    "tiny_f32": (dict(), False),
-    "tiny_int4": (dict(), True),
+    "tiny_f32": (dict(), None),
+    "tiny_int4": (dict(), (JQuantType.INT4, True)),
     "gqa_d128": (dict(hidden_size=256, num_heads=2, num_kv_heads=1,
                       intermediate_size=512, vocab_size=512,
-                      max_seq_len=128), False),
+                      max_seq_len=128), None),
+    "tiny_int8": (dict(), (JQuantType.INT8, True)),
+    "tiny_int8_asym": (dict(), (JQuantType.INT8, False)),
 }
 
 _CACHE = {}
@@ -63,8 +68,8 @@ def engines(name, **icfg):
         tcfg = tconfig.tiny_config(dtype=torch.float32, **kw)
         jp = jllama.init_params(jax.random.PRNGKey(1), jcfg)
         if quant:
-            jp = j_quantize_params(jp, JQuantCfg(type=JQuantType.INT4,
-                                                 group_size=64))
+            jp = j_quantize_params(jp, JQuantCfg(type=quant[0], group_size=64,
+                                                 symmetric=quant[1]))
         tp = bridge.params_from_numpy(jax_to_numpy(jp), device="cpu")
         icfg.setdefault("max_seq_len", jcfg.max_seq_len)
         je = ti.InferenceEngine(jp, jcfg, JInferenceConfig(**icfg))

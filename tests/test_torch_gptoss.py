@@ -77,14 +77,16 @@ def jax_to_numpy(tree):
 
 def models(quant=False):
     """(JAX config, JAX params, port config, port params) on the same
-    weights: f32, or the JAX quantizer's int4 g=64 output."""
+    weights: f32, or the JAX quantizer's g=64 output, int4 (quant True)
+    or int8 ("int8") attention and head."""
     if quant not in _P:
         jcfg = JModelConfig(dtype=jnp.float32, **CFG)
         tcfg = tconfig.ModelConfig(dtype=torch.float32, **CFG)
         jp = jgptoss.init_params(jax.random.PRNGKey(0), jcfg)
         if quant:
+            qtype = JQuantType.INT8 if quant == "int8" else JQuantType.INT4
             jp = jquantizer.quantize_params(
-                jp, JQuantCfg(type=JQuantType.INT4, group_size=64))
+                jp, JQuantCfg(type=qtype, group_size=64))
         tp = bridge.params_from_numpy(jax_to_numpy(jp), device="cpu")
         _P[quant] = (jcfg, jp, tcfg, tp)
     return _P[quant]
@@ -221,7 +223,8 @@ def test_prepare_params_casts_sinks_to_f32_once():
 
 # -- forwards --------------------------------------------------------------------
 
-@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int4"])
+@pytest.mark.parametrize("quant", [False, True, "int8"],
+                         ids=["f32", "int4", "int8"])
 @pytest.mark.parametrize("B,fresh", [(1, True), (3, False)])
 def test_forward_prefill_and_decode_logits(quant, B, fresh):
     """Every prefill position, then decode steps through the decode
@@ -357,8 +360,9 @@ def engines(quant):
     return _E[quant]
 
 
-@pytest.mark.parametrize("quant,B", [(False, 1), (False, 3), (True, 3)],
-                         ids=["f32-B1", "f32-B3", "int4-B3"])
+@pytest.mark.parametrize("quant,B", [(False, 1), (False, 3), (True, 3),
+                                     ("int8", 3)],
+                         ids=["f32-B1", "f32-B3", "int4-B3", "int8-B3"])
 def test_generate_batch_greedy_identical(quant, B):
     je, te = engines(quant)
     rng = np.random.default_rng(20 + B)

@@ -276,11 +276,19 @@ def test_cpu_wrappers_never_launch():
                     scales=qt.scales[None].expand(2, -1, -1),
                     zero_points=None, bits=4, group_size=64, shape=qt.shape)
     qmm.qmm_int4_grouped(x[:2, None], stack, torch.tensor([1, 0]))
+    q8 = quantize(torch.randn(128, 16), QuantType.INT8, symmetric=False)
+    qmm.qmm_int8(x, q8)
+    qmm.qmm_int8_grouped(x[:2, None], QTensor(
+        data=q8.data[None].expand(2, -1, -1),
+        scales=q8.scales[None].expand(2, -1, -1),
+        zero_points=q8.zero_points[None].expand(2, -1, -1), bits=8,
+        group_size=64, shape=q8.shape), torch.tensor([1, 0]))
     kc = torch.zeros((1, 2, 2, 4, 32), dtype=torch.uint8)
     new = torch.randn(3, 2, 32)
     cache_write.kv_encode_write(new, new, kc, kc.clone(), None, None,
                                 torch.tensor([0, 9, -1]), 0, 4)
     assert kernels.launch_counts() == {"qmm_int4": 0, "qmm_int4_grouped": 0,
+                                       "qmm_int8": 0, "qmm_int8_grouped": 0,
                                        "flash_prefill": 0,
                                        "cache_write_fresh": 0,
                                        "kv_encode_write": 0,

@@ -1,7 +1,8 @@
 """llama.forward of the port against turboinfer_tpu's on bridged params.
 
-Configs: tiny f32, tiny int4 (the JAX quantizer's output, bridged), and
-a narrow config with the 7B's head size D=128 and GQA (Hq=2, Hkv=1).
+Configs: tiny f32; tiny int4, int8, and int8 and int4 with zero points
+(the JAX quantizer's output, bridged); and a narrow config with the 7B's
+head size D=128 and GQA (Hq=2, Hkv=1).
 Logits are compared in f32 within 1e-4 (both packages run the same f32
 reference arithmetic on the CPU; only summation order differs).
 """
@@ -45,12 +46,17 @@ def jax_to_numpy(tree):
     return np.asarray(tree)
 
 
+# quant: None (f32) or (weight type, symmetric) for the JAX quantizer
+# (g=64); the default QuantizationConfig is int8 symmetric.
 CONFIGS = {
-    "tiny_f32": dict(cfg=dict(), quant=False),
-    "tiny_int4": dict(cfg=dict(), quant=True),
+    "tiny_f32": dict(cfg=dict(), quant=None),
+    "tiny_int4": dict(cfg=dict(), quant=(JQuantType.INT4, True)),
     "gqa_d128": dict(cfg=dict(hidden_size=256, num_heads=2, num_kv_heads=1,
                               intermediate_size=512, vocab_size=512,
-                              max_seq_len=128), quant=False),
+                              max_seq_len=128), quant=None),
+    "tiny_int8": dict(cfg=dict(), quant=(JQuantType.INT8, True)),
+    "tiny_int8_asym": dict(cfg=dict(), quant=(JQuantType.INT8, False)),
+    "tiny_int4_asym": dict(cfg=dict(), quant=(JQuantType.INT4, False)),
 }
 
 
@@ -60,8 +66,9 @@ def make_pair(name):
     tcfg = tconfig.tiny_config(dtype=torch.float32, **spec["cfg"])
     jp = jllama.init_params(jax.random.PRNGKey(0), jcfg)
     if spec["quant"]:
-        jp = j_quantize_params(jp, JQuantCfg(type=JQuantType.INT4,
-                                             group_size=64))
+        qtype, sym = spec["quant"]
+        jp = j_quantize_params(jp, JQuantCfg(type=qtype, group_size=64,
+                                             symmetric=sym))
     tp = bridge.params_from_numpy(jax_to_numpy(jp), device="cpu")
     return jcfg, tcfg, jp, tp
 

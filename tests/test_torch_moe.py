@@ -77,9 +77,18 @@ def jax_to_numpy(tree):
     return np.asarray(tree)
 
 
+# quant -> (weight type, symmetric) for the JAX quantizer at g=64
+QUANTS = {True: (JQuantType.INT4, True), "int8": (JQuantType.INT8, True),
+          "int8_asym": (JQuantType.INT8, False)}
+QUANT_PARAMS = dict(argvalues=[False, True, "int8", "int8_asym"],
+                    ids=["fp", "int4", "int8", "int8_asym"])
+
+
 def models(name="tiny", quant=False, norm_topk_prob=True, **extra):
     """(JAX config, JAX params, port config, port params) on the same
-    weights: fp, or the JAX quantizer's int4 g=64 output."""
+    weights: fp (quant False), or the JAX quantizer's g=64 output: int4
+    (quant True), int8 ("int8") or int8 with zero points
+    ("int8_asym")."""
     key = (name, quant, norm_topk_prob, tuple(sorted(extra.items())))
     if key not in _P:
         kw = dict(CFGS[name], norm_topk_prob=norm_topk_prob, **extra)
@@ -87,8 +96,9 @@ def models(name="tiny", quant=False, norm_topk_prob=True, **extra):
         tcfg = tconfig.ModelConfig(dtype=torch.float32, **kw)
         jp = jmoe.init_params(jax.random.PRNGKey(0), jcfg)
         if quant:
+            qtype, sym = QUANTS[quant]
             jp = jquantizer.quantize_params(
-                jp, JQuantCfg(type=JQuantType.INT4, group_size=64))
+                jp, JQuantCfg(type=qtype, group_size=64, symmetric=sym))
         tp = bridge.params_from_numpy(jax_to_numpy(jp), device="cpu")
         _P[key] = (jcfg, jp, tcfg, tp)
     return _P[key]
@@ -108,6 +118,18 @@ def _close(got, want):
                          ids=["renorm", "raw"])
 @pytest.mark.parametrize("B", [1, 3])
 def test_forward_prefill_and_decode_logits(name, quant, norm_topk_prob, B):
+    _check_forward(name, quant, norm_topk_prob, B)
+
+
+@pytest.mark.parametrize("quant", ["int8", "int8_asym"])
+@pytest.mark.parametrize("B", [1, 3])
+def test_forward_logits_int8_weights(quant, B):
+    """int8 experts and attention, symmetric and with zero points (the
+    B=1 decode through the grouped path, B=3 through the E-loop)."""
+    _check_forward("tiny", quant, True, B)
+
+
+def _check_forward(name, quant, norm_topk_prob, B):
     jcfg, jp, tcfg, tp = models(name, quant, norm_topk_prob)
     rng = np.random.default_rng(B)
     S, T = 12, 32
@@ -226,6 +248,39 @@ def test_quantize_experts_bytes_identical():
         bits=4, group_size=64, shape=(128, 64))))
 
 
+@pytest.mark.parametrize("qtype,jtype", [(QuantType.INT4, JQuantType.INT4),
+                                         (QuantType.INT8, JQuantType.INT8)])
+def test_quantize_params_asymmetric_experts_identical(qtype, jtype):
+    """Zero points of 4-D expert stacks: [L, E, K/g, N] like the scales,
+    byte-identical to JAX's, kept through the bridge, flat() and the
+    we_gate/we_up fusion of prepare_params."""
+    from turboinfer_tpu_torch.kernels.dispatch import prepare_params
+    _, jp, _, tp = models("tiny")
+    jq = jquantizer.quantize_params(jp, JQuantCfg(
+        type=jtype, group_size=64, symmetric=False))
+    tq = tquantizer.quantize_params(tp, QuantizationConfig(
+        type=qtype, group_size=64, symmetric=False))
+    bridged = bridge.params_from_numpy(jax_to_numpy(jq), device="cpu")
+    for name in ("wq", "wo", "we_gate", "we_up", "we_down"):
+        got, want = tq["layers"][name], jq["layers"][name]
+        assert got.zero_points.shape == got.scales.shape
+        for a, b in ((got.data, want.data), (bridged["layers"][name].data,
+                                             want.data)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        for a in (got.zero_points, bridged["layers"][name].zero_points):
+            np.testing.assert_array_equal(
+                a.view(torch.int16).numpy(),
+                np.asarray(want.zero_points).view(np.int16))
+    assert tq["layers"]["we_down"].zero_points.dim() == 4
+    fused = prepare_params(tq)["layers"]["we_gateup"]
+    L, E = 2, 4
+    zg = np.asarray(jq["layers"]["we_gate"].zero_points).view(np.int16)
+    zu = np.asarray(jq["layers"]["we_up"].zero_points).view(np.int16)
+    np.testing.assert_array_equal(
+        fused.zero_points.view(torch.int16).numpy(),
+        np.concatenate([zg, zu], -1).reshape(L * E, zg.shape[2], -1))
+
+
 def test_bridge_carries_a_moe_tree():
     _, jp, _, tp = models("tiny", True)
     lw = tp["layers"]
@@ -278,6 +333,26 @@ def test_synthetic_moe_fixture_serves_on_the_cpu():
     res = eng.generate([3, 1, 4, 1, 5], 6, temperature=0.0)
     assert len(res.tokens) == 11
     assert all(v == 0 for v in kernels.launch_counts().values())
+
+
+def test_synthetic_int8_fixture_with_fused_experts():
+    """bits=8 draws int8 codes; fused_experts draws the serving layout
+    we_gateup directly, which prepare_params then leaves as it is (no
+    second copy of the gate and up stacks)."""
+    from turboinfer_tpu_torch.kernels.dispatch import prepare_params
+    cfg = tconfig.mixtral_config(vocab_size=256, hidden_size=128,
+                                 num_layers=2, num_heads=4, num_kv_heads=2,
+                                 intermediate_size=128, max_seq_len=64)
+    lw = create_synthetic_quantized_model(cfg, bits=8, device="cpu",
+                                          fused_experts=True).params["layers"]
+    assert "we_gate" not in lw and "we_up" not in lw
+    qt = lw["we_gateup"]
+    assert (qt.bits, qt.data.dtype, qt.data.shape, qt.shape) == (
+        8, torch.int8, (2, 8, 128, 256), (128, 256))
+    assert lw["wq"].data.dtype == torch.int8
+    flat = prepare_params({"layers": lw})["layers"]["we_gateup"]
+    assert flat.data.shape == (16, 128, 256)
+    assert flat.data.data_ptr() == qt.data.data_ptr()       # a view
 
 
 def test_mixtral_config_shape():
@@ -368,7 +443,8 @@ def engines(name, quant):
 
 
 @pytest.mark.parametrize("name,quant", [("tiny", True), ("tiny", False),
-                                        ("d128", True)])
+                                        ("d128", True), ("tiny", "int8"),
+                                        ("tiny", "int8_asym")])
 @pytest.mark.parametrize("B", [1, 3])
 def test_generate_batch_greedy_identical(name, quant, B):
     je, te = engines(name, quant)
@@ -381,7 +457,7 @@ def test_generate_batch_greedy_identical(name, quant, B):
         assert b.stop_reason == a.stop_reason
 
 
-@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int4"])
+@pytest.mark.parametrize("quant", **QUANT_PARAMS)
 def test_paged_scheduler_greedy_identical(quant):
     jcfg, jp, tcfg, tp = models("tiny", quant)
     icfg = dict(max_seq_len=64, temperature=0.0, eos_token_id=-1, seed=0)

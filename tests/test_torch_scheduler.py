@@ -51,7 +51,8 @@ def _jax_to_numpy(tree):
         return {k: _jax_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, JQTensor):
         return {"data": np.asarray(tree.data), "scales": np.asarray(tree.scales),
-                "zero_points": None, "bits": tree.bits,
+                "zero_points": None if tree.zero_points is None
+                else np.asarray(tree.zero_points), "bits": tree.bits,
                 "group_size": tree.group_size, "shape": tree.shape}
     if isinstance(tree, JQEmbed):
         return {"data": np.asarray(tree.data),

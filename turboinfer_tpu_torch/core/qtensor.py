@@ -12,6 +12,8 @@ quantized weight crosses between the two packages unchanged:
 Symmetric absmax quantization:
   int8: scale = absmax/127, q = clip(round(x/scale), -127, 127)
   int4: scale = absmax/7,   q = clip(round(x/scale), -7, 7)
+(or the "mse" shrink search over the absmax scale); asymmetric
+quantization adds zero points (see quantize).
 """
 
 from __future__ import annotations
@@ -138,19 +140,59 @@ def concat_n(qts) -> QTensor:
                    shape=(first.shape[0], N))
 
 
+def _linspace_f32(start: float, stop: float, num: int) -> torch.Tensor:
+    """jnp.linspace(start, stop, num) bit for bit in f32: the JAX package
+    compiles it as start * (1 - t) + stop * t, t = i * f32(1 / (num - 1)),
+    each product and sum rounded to f32 (torch.linspace rounds
+    differently, a few ulp off)."""
+    f32 = torch.float32
+    div = num - 1
+    t = torch.arange(div, dtype=f32) * (torch.tensor(1.0, dtype=f32)
+                                        / torch.tensor(float(div), dtype=f32))
+    a = torch.tensor(start, dtype=f32)
+    b = torch.tensor(stop, dtype=f32)
+    return torch.cat([a * (1 - t) + b * t, b[None]])
+
+
+def _mse_scale(xg: torch.Tensor, base_scale: torch.Tensor, qmax: float,
+               num_grid: int = 16, shrink_min: float = 0.30) -> torch.Tensor:
+    """Per-group scale minimising the round-trip squared error, the port
+    of the JAX package's _mse_scale: shrink factors c from 1.0 down to
+    shrink_min applied to the absmax scale (c = 1 first, so never worse
+    than absmax). xg: [G, g, N] f32; base_scale: [G, N]."""
+    best, best_err = base_scale, None
+    for c in _linspace_f32(1.0, shrink_min, num_grid).to(xg.device):
+        s = torch.clamp(base_scale * c, min=1e-12)
+        q = torch.clamp(torch.round(xg / s[:, None, :]), -qmax, qmax)
+        err = torch.square(q * s[:, None, :] - xg).sum(dim=1)      # [G, N]
+        if best_err is None:
+            best_err = err
+        else:
+            best = torch.where(err < best_err, s, best)
+            best_err = torch.minimum(err, best_err)
+    return best
+
+
 def quantize(w: torch.Tensor, qtype: QuantType, *, group_size: int = 64,
              symmetric: bool = True, scale_dtype=torch.bfloat16,
              scale_method: str = "absmax") -> QTensor:
-    """Group-wise symmetric absmax quantization of a 2-D weight [K, N]
-    along K. Asymmetric and MSE-searched scales come in a later slice."""
+    """Group-wise quantization of a 2-D weight [K, N] along K, the JAX
+    package's arithmetic op for op. Symmetric: absmax (or the "mse"
+    shrink search) scales, codes in [-127, 127] / [-7, 7], no zero
+    points. Asymmetric: scale = (max - min) / 255 (/ 15 for int4),
+    zp_f = round(min / scale) - lo, codes round(x / scale) - zp_f
+    clipped to [-128, 127] / [-8, 7], zero points stored as -zp_f in
+    scale_dtype, so dequant is (q - zp) * scale."""
     if w.dim() != 2:
         raise QuantizationError(f"quantize expects 2-D [K, N], got "
                                 f"{tuple(w.shape)}")
     if qtype not in (QuantType.INT8, QuantType.INT4):
         raise QuantizationError(f"unsupported qtype {qtype}")
-    if not symmetric or scale_method != "absmax":
-        raise NotImplementedError(
-            "only symmetric absmax quantization is ported so far")
+    if scale_method not in ("absmax", "mse"):
+        raise QuantizationError(f"unknown scale_method '{scale_method}'")
+    if scale_method == "mse" and not symmetric:
+        raise QuantizationError("scale_method='mse' requires symmetric "
+                                "quantization")
     K, N = w.shape
     bits = 8 if qtype == QuantType.INT8 else 4
     g = group_size if group_size > 0 else K
@@ -161,14 +203,28 @@ def quantize(w: torch.Tensor, qtype: QuantType, *, group_size: int = 64,
             f"int4 needs even K and even group_size dividing K "
             f"(K={K}, group_size={g})")
     xg = w.to(torch.float32).reshape(K // g, g, N)
-    qmax = 127.0 if bits == 8 else 7.0
-    absmax = xg.abs().amax(dim=1)                                  # [G, N]
-    scale = torch.where(absmax > 0, absmax / qmax,
-                        torch.ones_like(absmax))
-    q = torch.clamp(torch.round(xg / scale[:, None, :]), -qmax, qmax)
+    zp = None
+    if symmetric:
+        qmax = 127.0 if bits == 8 else 7.0
+        absmax = xg.abs().amax(dim=1)                              # [G, N]
+        scale = torch.where(absmax > 0, absmax / qmax,
+                            torch.ones_like(absmax))
+        if scale_method == "mse":
+            scale = _mse_scale(xg, scale, qmax)
+        q = torch.clamp(torch.round(xg / scale[:, None, :]), -qmax, qmax)
+    else:
+        levels, lo, hi = (255.0, -128.0, 127.0) if bits == 8 else \
+            (15.0, -8.0, 7.0)
+        mn = xg.amin(dim=1)
+        rng = xg.amax(dim=1) - mn
+        scale = torch.where(rng > 0, rng / levels, torch.ones_like(rng))
+        zp_f = torch.round(mn / scale) - lo                        # [G, N]
+        q = torch.clamp(torch.round(xg / scale[:, None, :])
+                        - zp_f[:, None, :] + 0.0, lo, hi)
+        zp = (-zp_f).to(scale_dtype)
     q = q.reshape(K, N).to(torch.int8)
     data = pack_int4(q, g) if bits == 4 else q
-    return QTensor(data=data, scales=scale.to(scale_dtype), zero_points=None,
+    return QTensor(data=data, scales=scale.to(scale_dtype), zero_points=zp,
                    bits=bits, group_size=g, shape=(K, N))
 
 

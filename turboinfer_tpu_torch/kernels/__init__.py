@@ -18,6 +18,8 @@ def wrappers() -> Dict[str, Callable]:
                                               qmm)
     return {"qmm_int4": qmm.qmm_int4,
             "qmm_int4_grouped": qmm.qmm_int4_grouped,
+            "qmm_int8": qmm.qmm_int8,
+            "qmm_int8_grouped": qmm.qmm_int8_grouped,
             "flash_prefill": flash_attention.flash_prefill,
             "cache_write_fresh": cache_write.cache_write_fresh,
             "kv_encode_write": cache_write.kv_encode_write,

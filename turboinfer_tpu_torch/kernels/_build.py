@@ -34,9 +34,9 @@ _LLP = ctypes.POINTER(ctypes.c_longlong)
 # C signatures of every exported function: (argtypes, restype).
 SIGNATURES = {
     "ti_qmm_gemv_max_m": ([], _I),
-    "ti_qmm_workspace": ([_I, _I, _I], _LL),
-    "ti_qmm_int4": ([_VP] * 5 + [_I] * 4 + [_VP], _I),
-    "ti_qmm_int4_grouped": ([_VP] * 6 + [_I] * 6 + [_VP], _I),
+    "ti_qmm_workspace": ([_I] * 4, _LL),
+    "ti_qmm": ([_VP] * 6 + [_I] * 5 + [_VP], _I),
+    "ti_qmm_grouped": ([_VP] * 7 + [_I] * 7 + [_VP], _I),
     "ti_flash_prefill": ([_VP] * 8 + [_I] * 7 + [_LLP, _F, _VP], _I),
     "ti_cache_write_fresh": ([_VP] * 4 + [_I] * 5 + [_LLP, _VP], _I),
     "ti_kv_encode_write": ([_VP] * 7 + [_I] * 4 + [_LL, _LL, _LLP, _VP], _I),

@@ -5,7 +5,9 @@ Each function hands its tensors to a kernel wrapper. The wrapper runs
 the plain PyTorch version for tensors on the CPU, and for CUDA tensors
 launches its Hopper kernel or raises on a shape the kernel does not
 take; nothing falls back quietly. Every QTensor product on the card
-goes through the kernel, whatever its size.
+goes through the kernel (int4 or int8, symmetric or with zero
+points), whatever its size: the JAX package's size threshold
+(_QMM_MIN_BYTES) is a TPU workaround.
 """
 
 from __future__ import annotations
@@ -19,16 +21,21 @@ from turboinfer_tpu_torch.core.qtensor import QTensor
 
 def qmatmul(x: torch.Tensor, qt: QTensor,
             layer_index: Optional[int] = None) -> torch.Tensor:
+    """By qt.bits: int4 to qmm_int4, int8 to qmm_int8 (either with its
+    zero points, when qt has them); any other width raises there."""
     from turboinfer_tpu_torch.kernels import qmm
-    return qmm.qmm_int4(x, qt, layer_index if qt.stacked else None)
+    fn = qmm.qmm_int8 if qt.bits == 8 else qmm.qmm_int4
+    return fn(x, qt, layer_index if qt.stacked else None)
 
 
 def qmatmul_grouped(x: torch.Tensor, qt: QTensor,
                     slots: torch.Tensor) -> torch.Tensor:
     """x: [G, ..., K]; slots: [G] device ids into the flat [L*E] stack of
-    qt -> [G, ..., N], all G groups in one launch."""
+    qt -> [G, ..., N], all G groups in one launch (by qt.bits, as
+    qmatmul)."""
     from turboinfer_tpu_torch.kernels import qmm
-    return qmm.qmm_int4_grouped(x, qt, slots)
+    fn = qmm.qmm_int8_grouped if qt.bits == 8 else qmm.qmm_int4_grouped
+    return fn(x, qt, slots)
 
 
 def attention_prefill(q, k, v, *, kv_len, q_start, layer_index=None,

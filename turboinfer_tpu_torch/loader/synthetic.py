@@ -27,7 +27,15 @@ class ModelData:
 
 def create_synthetic_quantized_model(config: ModelConfig, bits: int = 4,
                                      group_size: int = 64, device="cuda",
-                                     seed: int = 0) -> ModelData:
+                                     seed: int = 0,
+                                     fused_experts: bool = False
+                                     ) -> ModelData:
+    """bits 4 (packed uint8) or 8 (int8 codes), symmetric. fused_experts:
+    a MoE model's gate and up experts are drawn as one "we_gateup" stack
+    [L, E, H, 2F], the layout prepare_params fuses them into, so the
+    split stacks and their fused copy never live side by side
+    (Mixtral-8x7B int8: 2 x 15 GB each); the values differ from the
+    split draw's."""
     dev = resolve_device(device)
     c = config
     if c.kv_lora_rank or c.shared_expert_size:
@@ -66,8 +74,11 @@ def create_synthetic_quantized_model(config: ModelConfig, bits: int = 4,
         Fe = c.moe_intermediate_size or F
         layers["router"] = (0.02 * torch.randn((L, H, E), generator=gen,
                                                device=dev)).to(torch.bfloat16)
-        layers["we_gate"] = rq(H, Fe, lead=(L, E))
-        layers["we_up"] = rq(H, Fe, lead=(L, E))
+        if fused_experts:
+            layers["we_gateup"] = rq(H, 2 * Fe, lead=(L, E))
+        else:
+            layers["we_gate"] = rq(H, Fe, lead=(L, E))
+            layers["we_up"] = rq(H, Fe, lead=(L, E))
         layers["we_down"] = rq(Fe, H, lead=(L, E))
     else:
         layers.update(w_gate=rq(H, F), w_up=rq(H, F), w_down=rq(F, H))

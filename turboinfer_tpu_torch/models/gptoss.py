@@ -160,13 +160,19 @@ def router_logits(h: torch.Tensor, lw: Dict[str, Any], li: int
             + lw["router_bias"][li].to(torch.float32))
 
 
+def gates_at(config: ModelConfig, logits: torch.Tensor, top_i: torch.Tensor
+             ) -> torch.Tensor:
+    """Gates [B, S, k] f32 of the experts top_i: a softmax over their
+    logits."""
+    return torch.softmax(logits.gather(-1, top_i), dim=-1)
+
+
 def route(config: ModelConfig, h: torch.Tensor, lw: Dict[str, Any], li: int
           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Router of layer li -> (gates [B, S, k] f32, a softmax over the
-    selected logits; top_i [B, S, k])."""
-    top_v, top_i = torch.topk(router_logits(h, lw, li),
-                              config.experts_per_token, dim=-1)
-    return torch.softmax(top_v, dim=-1), top_i
+    """Router of layer li -> (gates [B, S, k] f32, top_i [B, S, k])."""
+    logits = router_logits(h, lw, li)
+    top_i = torch.topk(logits, config.experts_per_token, dim=-1).indices
+    return gates_at(config, logits, top_i), top_i
 
 
 def _moe_ffn(config: ModelConfig, h: torch.Tensor, lw: Dict[str, Any],

@@ -104,17 +104,30 @@ def init_params(config: ModelConfig, seed: int = 0, device="cuda",
     return params
 
 
+def router_logits(h: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
+    """Router logits of one layer in f32: h [B, S, H] and router [H, E],
+    both taken to f32 -> [B, S, E]."""
+    return torch.matmul(h.to(torch.float32), router.to(torch.float32))
+
+
+def gates_at(config: ModelConfig, logits: torch.Tensor, top_i: torch.Tensor
+             ) -> torch.Tensor:
+    """Gates [B, S, k] f32 of the experts top_i: a softmax over their
+    logits (norm_topk_prob), else the full softmax at them."""
+    if config.norm_topk_prob:
+        return torch.softmax(logits.gather(-1, top_i), dim=-1)
+    return torch.softmax(logits, dim=-1).gather(-1, top_i)
+
+
 def route(config: ModelConfig, h: torch.Tensor, router: torch.Tensor
           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Router of one layer: h [B, S, H] and router [H, E], both taken to
-    f32 -> (gates [B, S, k] f32, top_i [B, S, k] expert ids)."""
-    logits = torch.matmul(h.to(torch.float32), router.to(torch.float32))
-    k = config.experts_per_token
-    if config.norm_topk_prob:
-        top_v, top_i = torch.topk(logits, k, dim=-1)
-        return torch.softmax(top_v, dim=-1), top_i
-    gates, top_i = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
-    return gates, top_i
+    """Router of one layer -> (gates [B, S, k] f32, top_i [B, S, k]
+    expert ids): the top-k of the logits, or of their softmax when the
+    gates are not renormalised, as the JAX package ranks them."""
+    logits = router_logits(h, router)
+    scores = logits if config.norm_topk_prob else torch.softmax(logits, -1)
+    top_i = torch.topk(scores, config.experts_per_token, dim=-1).indices
+    return gates_at(config, logits, top_i), top_i
 
 
 def _moe_ffn(config: ModelConfig, h: torch.Tensor, lw: Dict[str, Any],

@@ -1,6 +1,7 @@
 """Model-level quantizer (counterpart of turboinfer_tpu/quant/quantizer.py
-quantize_params): symmetric absmax int4/int8 of every llama or MoE
-matmul weight, group-wise along K, byte-identical to the JAX package's.
+quantize_params): int4/int8 of every llama or MoE matmul weight,
+group-wise along K, symmetric (absmax or "mse" scales) or asymmetric
+(with zero points), byte-identical to the JAX package's.
 MoE expert weights [L, E, K, N] become 4-D QTensors; the router stays
 fp, and so do GPT-OSS's biased experts (marked by a "be_gate" slot),
 as in the JAX package. Unless skip_embeddings, lm_head quantizes like
@@ -26,22 +27,25 @@ def _quantize_stacked(w: torch.Tensor, cfg: QuantizationConfig) -> QTensor:
     qts = [quantize(w[i], cfg.type, group_size=cfg.group_size,
                     symmetric=cfg.symmetric, scale_method=cfg.scale_method)
            for i in range(w.shape[0])]
+    zp = (None if qts[0].zero_points is None
+          else torch.stack([q.zero_points for q in qts]))
     return QTensor(data=torch.stack([q.data for q in qts]),
                    scales=torch.stack([q.scales for q in qts]),
-                   zero_points=None, bits=qts[0].bits,
+                   zero_points=zp, bits=qts[0].bits,
                    group_size=qts[0].group_size, shape=qts[0].shape)
 
 
 def _quantize_experts(w: torch.Tensor, cfg: QuantizationConfig) -> QTensor:
-    """[L, E, K, N] -> a 4-D QTensor (data [L, E, K(/2), N], scales
-    [L, E, K/g, N]), expert by expert."""
+    """[L, E, K, N] -> a 4-D QTensor (data [L, E, K(/2), N], scales and
+    zero points [L, E, K/g, N]), expert by expert."""
     L, E = w.shape[:2]
     qt = _quantize_stacked(w.reshape((L * E,) + tuple(w.shape[2:])), cfg)
-    return QTensor(data=qt.data.reshape((L, E) + tuple(qt.data.shape[1:])),
-                   scales=qt.scales.reshape((L, E)
-                                            + tuple(qt.scales.shape[1:])),
-                   zero_points=None, bits=qt.bits, group_size=qt.group_size,
-                   shape=qt.shape)
+
+    def unflat(a):
+        return None if a is None else a.reshape((L, E) + tuple(a.shape[1:]))
+    return QTensor(data=unflat(qt.data), scales=unflat(qt.scales),
+                   zero_points=unflat(qt.zero_points), bits=qt.bits,
+                   group_size=qt.group_size, shape=qt.shape)
 
 
 def quantize_params(params: Dict[str, Any], cfg: QuantizationConfig
