@@ -539,3 +539,107 @@ def test_cuda_compressed_reads_refuse_mismatched_scales():
     with pytest.raises(KernelError):
         cache_write.kv_encode_write(q[:, :2].float(), q[:, :2].float(), fc, fc,
                                     None, None, rows, 0, 64)
+
+
+# -- W4A8 (csrc/qmm_a8.cu) and GPT-OSS's 8-bit decode --------------------------
+
+def _a8_rows(gen, M, K):
+    """bf16 rows with a zero row and values that sit on .5 ties after the
+    division by the row scale."""
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    x[min(3, M - 1)] = 0
+    xf = x.float()
+    sx = xf.abs().amax(-1).clamp_min(1e-8) * (1.0 / 127.0)
+    ties = (torch.arange(M, device="cuda") % 50 + 0.5) * sx
+    x[:, 1] = ties.to(torch.bfloat16)
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K", [(1, 8), (9, 4096), (40, 11008), (300, 2880)])
+def test_cuda_a8_quantize_rows_is_byte_exact(M, K):
+    """The row quantizer's codes and f32 row scales, bit for bit."""
+    _need_cuda()
+    x = _a8_rows(torch.Generator(device="cuda").manual_seed(M + K), M, K)
+    before = qmm.a8_quantize_rows.launches
+    xq, sx = qmm.a8_quantize_rows(x)
+    want_q, want_s = qmm.a8_quantize_rows_plain(x)
+    assert qmm.a8_quantize_rows.launches == before + 1
+    assert torch.equal(xq, want_q)
+    assert torch.equal(sx.view(torch.int32), want_s.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,g", [
+    (9, 256, 128, 256), (16, 4096, 12288, 256), (40, 1024, 264, 256),
+    (130, 512, 136, 64), (300, 2048, 512, 512), (17, 11008, 256, 256)])
+def test_cuda_qmm_int4_a8_matches_plain(M, K, N, g):
+    """The W4A8 kernel against qmatmul_a8_plain on layer 1 of a stack,
+    bit for bit: the group partials are exact integers on both sides and
+    every later step is one IEEE rounding in the same order. M and N
+    tails, K=11008 (43 groups), g from 64 to 512."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(M * K + N)
+    qt = _qtensor(gen, (2,), K, N, 4, False, g)
+    x = _a8_rows(gen, M, K)
+    before = (qmm.qmm_int4_a8.launches, qmm.a8_quantize_rows.launches)
+    got = qmm.qmm_int4_a8(x, qt, 1)
+    want = qmm.qmatmul_a8_plain(x, qt, 1)
+    assert (qmm.qmm_int4_a8.launches, qmm.a8_quantize_rows.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got.shape == (M, N) and got.dtype == torch.bfloat16
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_routes_w4a8(monkeypatch):
+    """dispatch.qmatmul takes qmm_int4_a8 exactly where a8_applies holds
+    (TURBOINFER_QMM_A8=1, M > 8, g=256, a plane of >= 262144 bytes) and
+    qmm_int4 elsewhere; qmm_int4_a8 refuses zero points."""
+    _need_cuda()
+    from turboinfer_tpu_torch.kernels import dispatch
+    from turboinfer_tpu_torch.utils.errors import KernelError
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    qt = _qtensor(gen, (2,), 1024, 512, 4, False, 256)     # 256 KiB planes
+    x = torch.randn((2, 9, 1024), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+
+    def routed(xx):
+        b = (qmm.qmm_int4.launches, qmm.qmm_int4_a8.launches)
+        dispatch.qmatmul(xx, qt, 1)
+        return (qmm.qmm_int4.launches - b[0], qmm.qmm_int4_a8.launches - b[1])
+    monkeypatch.delenv("TURBOINFER_QMM_A8", raising=False)
+    assert routed(x) == (1, 0)
+    monkeypatch.setenv("TURBOINFER_QMM_A8", "1")
+    assert routed(x) == (0, 1)
+    assert routed(x[:1, :8]) == (1, 0)                      # M = 8
+    monkeypatch.setenv("TURBOINFER_QMM_MIN_BYTES", str(1 << 20))
+    assert routed(x) == (1, 0)
+    zp = _qtensor(gen, (2,), 1024, 512, 4, True, 256)
+    with pytest.raises(KernelError):
+        qmm.qmm_int4_a8(x, zp, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(KINDS))
+@pytest.mark.parametrize("window,lens", [
+    (128, [1, 255, 384, 1128]), (None, [1, 256, 257, 2048]),
+    (1, [1, 256, 257, 2048])])
+def test_cuda_decode_compressed_window_sinks_match_plain(kind, window, lens):
+    """GPT-OSS's 8-bit decode (decode_fused_pallas with int8 scale planes
+    or fp8, sinks and a window) at its shape Hq=64, Hkv=8, D=64, T=2048:
+    the kernel against decode_plain on layer 1."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(len(lens) + len(kind))
+    L, B, Hq, Hkv, T, D = 2, 4, 64, 8, 2048, 64
+    kc, ks = _compressed(gen, (L, B, Hkv, T, D), kind)
+    vc, vs = _compressed(gen, (L, B, Hkv, T, D), kind)
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+    snk = (2 * torch.randn((Hq,), generator=gen, device="cuda")
+           ).to(torch.bfloat16).float()
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    got = decode_attention.decode_attention(q, kc, vc, kv_len, 1, window,
+                                            snk, ks, vs).float()
+    want = decode_attention.decode_plain(q, kc, vc, kv_len, 1, window, snk,
+                                         ks, vs).float()
+    torch.testing.assert_close(got, want, atol=1e-2, rtol=2.0 ** -7)

@@ -10,6 +10,15 @@ int4 g=64 output (the experts stay f32, as there). Logits are compared
 within 1e-4 of max|logit| (the same f32 arithmetic on the CPU; only the
 summation order differs), routing exactly, greedy trajectories token
 for token. Sequences run past the window, so the sliding layers mask.
+
+int8 and fp8 caches (contiguous) and fp8 page pools: the K/V the two
+packages encode come out of f32 sums taken in another order, so a value
+one ulp apart may round to the neighbouring code: at most CODE_FLIPS of
+the codes differ, each by one step, int8 scales within SCALE_RTOL, and
+logits within KV_LOGIT_RTOL of max|logit| (as in test_torch_kvcache.py);
+the plain 8-bit decode with sinks and a window against
+decode_fused_pallas in interpret mode; int8 pools refused as the JAX
+package refuses them.
 """
 
 import numpy as np
@@ -27,6 +36,7 @@ from turboinfer_tpu.core.qtensor import QEmbed as JQEmbed
 from turboinfer_tpu.core.qtensor import QTensor as JQTensor
 from turboinfer_tpu.engine.scheduler import \
     PagedContinuousScheduler as JPaged
+from turboinfer_tpu.kernels.pallas import decode_attention as jda
 from turboinfer_tpu.loader.mapping import config_from_hf_dict
 from turboinfer_tpu.models import gptoss as jgptoss
 from turboinfer_tpu.quant import quantizer as jquantizer
@@ -38,7 +48,9 @@ from turboinfer_tpu_torch.core.qtensor import QTensor
 from turboinfer_tpu_torch.engine.engine import InferenceEngine
 from turboinfer_tpu_torch.engine.scheduler import \
     PagedContinuousScheduler as TPaged
+from turboinfer_tpu_torch.kernels import decode_attention as tda
 from turboinfer_tpu_torch.kernels.dispatch import prepare_params
+from turboinfer_tpu_torch.models import common as tcommon
 from turboinfer_tpu_torch.models import gptoss as tgptoss
 from turboinfer_tpu_torch.models import registry
 from turboinfer_tpu_torch.quant import quantizer as tquantizer
@@ -47,6 +59,12 @@ from turboinfer_tpu_torch.utils.errors import ConfigError, DeviceError
 torch.set_num_threads(2)
 
 LOGIT_RTOL = 1e-4        # of max|logit|
+# compressed caches (see the module docstring)
+KV = {"int8": (jnp.int8, torch.int8), "fp8": (jnp.uint8, torch.uint8)}
+KV_LOGIT_RTOL = 1e-3     # of max|logit|: codes one step apart
+SCALE_RTOL = 1e-5
+CODE_FLIPS = 1e-3
+KERNEL_RTOL = 2e-2       # the Pallas kernels' bf16 operands, as there
 
 CFG = dict(vocab_size=512, hidden_size=256, num_layers=4, num_heads=16,
            num_kv_heads=2, head_dim=64, intermediate_size=128,
@@ -472,3 +490,212 @@ def test_gptoss_entry_points_default_to_cuda(monkeypatch):
                  lambda: tgptoss.init_cache(cfg, 1)):
         with pytest.raises(DeviceError):
             call()
+
+
+# -- int8 and fp8 caches -----------------------------------------------------------
+
+def _codes_close(got, want):
+    """At most CODE_FLIPS of the codes differ, each by one step (int8: one
+    code; fp8: the neighbouring e4m3 value of the same sign)."""
+    got = np.asarray(got).astype(np.int16)
+    want = np.asarray(want).astype(np.int16)
+    diff = got != want
+    assert diff.mean() <= CODE_FLIPS, diff.mean()
+    assert (np.abs(got[diff] - want[diff]) == 1).all()
+
+
+def _same_cache(tc, jc, scale_rtol=SCALE_RTOL):
+    """Codes, int8 scale planes and lengths of the port's cache against
+    the JAX package's head-major one. After decode steps pass
+    scale_rtol=KV_LOGIT_RTOL: their K/V come from hidden states that read
+    codes one step apart, as the logits do."""
+    for t, j in ((tc.k, jc.k), (tc.v, jc.v)):
+        _codes_close(t.numpy(), j)
+    for t, j in ((tc.k_scale, jc.k_scale), (tc.v_scale, jc.v_scale)):
+        assert (t is None) == (j is None)
+        if t is not None:
+            np.testing.assert_allclose(t.numpy(), np.asarray(j),
+                                       rtol=scale_rtol, atol=0)
+    np.testing.assert_array_equal(tc.length.numpy(), np.asarray(jc.length))
+
+
+def _kv_close(got, want):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=KV_LOGIT_RTOL * np.abs(want).max())
+
+
+def _encoded(rng, shape, kind):
+    """Random K/V (|x| < 448 for fp8: JAX's plain decode reads 0x7F/0xFF
+    as NaN) encoded by the port's codec -> (JAX storage, JAX scales,
+    port storage, port scales), the same bytes."""
+    x = np.clip(rng.normal(size=shape) * 3, -400, 400).astype(np.float32)
+    q, s = tcommon.encode_kv_scaled(torch.from_numpy(x), KV[kind][1])
+    return (jnp.asarray(q.numpy()), None if s is None
+            else jnp.asarray(s.numpy()), q, s)
+
+
+@pytest.mark.parametrize("kind", list(KV))
+@pytest.mark.parametrize("window", [8, None], ids=["window", "full"])
+def test_compressed_decode_plain_matches_decode_fused_pallas(kind, window):
+    """GPT-OSS's 8-bit decode: the decode kernel's plain version (what
+    the wrapper runs on the CPU) on the head-major int8 (scale planes) or
+    fp8 cache, with per-head sinks, against decode_fused_pallas in
+    interpret mode on the same bytes transposed to its fused-head layout
+    [L, B, T, Hkv*D] (the scale planes stay head-major there too)."""
+    rng = np.random.default_rng(len(kind) + (window or 0))
+    L, B, Hkv, T, D, Hq = 2, 3, 2, 128, 64, 16
+    jk, jks, tk, tks = _encoded(rng, (L, B, Hkv, T, D), kind)
+    jv, jvs, tv, tvs = _encoded(rng, (L, B, Hkv, T, D), kind)
+    q = rng.normal(size=(B, Hq, D)).astype(np.float32)
+    sinks = (2 * rng.normal(size=(Hq,))).astype(np.float32)
+    kv = np.array([1, 70, 128], np.int32)
+
+    def fused(x):
+        return jnp.transpose(x, (0, 1, 3, 2, 4)).reshape(L, B, T, Hkv * D)
+    want = jda.decode_fused_pallas(
+        jnp.asarray(q), fused(jk), fused(jv), jnp.asarray(kv),
+        layer_index=jnp.int32(1), window=window, sinks=jnp.asarray(sinks),
+        k_scale=jks, v_scale=jvs, interpret=True)
+    assert want is not None
+    got = tda.decode_attention(torch.from_numpy(q), tk, tv,
+                               torch.from_numpy(kv), 1, window,
+                               torch.from_numpy(sinks), tks, tvs)
+    want = np.asarray(want)
+    assert np.abs(got.numpy() - want).max() <= \
+        KERNEL_RTOL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("kind", list(KV))
+@pytest.mark.parametrize("B,fresh", [(1, True), (3, False)])
+def test_compressed_forward_prefill_and_decode_match_jax(kind, B, fresh):
+    """Prefill into an int8 or fp8 cache (both packages attend the
+    quantized K/V read back from it, fresh or not), then decode steps
+    through the decode kernel's 8-bit read with sinks and windows:
+    logits, cache bytes and scale planes after every call."""
+    jcfg, jp, tcfg, tp = models()
+    jd, td = KV[kind]
+    rng = np.random.default_rng(30 + B)
+    S, T = 14, 32
+    toks = rng.integers(1, jcfg.vocab_size, size=(B, S)).astype(np.int32)
+    lens = np.array([14, 9, 3][:B], np.int32)
+    jc = jgptoss.init_cache(jcfg, B, max_seq=T, dtype=jd, fused=False)
+    jl, jc = jgptoss.forward(jp, jcfg, jnp.asarray(toks), jc,
+                             seq_lens=jnp.asarray(lens))
+    tc = tgptoss.init_cache(tcfg, B, max_seq=T, dtype=td, device="cpu")
+    assert (tc.k_scale is not None) == (kind == "int8")
+    tl, tc = tgptoss.forward(tp, tcfg, torch.from_numpy(toks), tc,
+                             seq_lens=torch.from_numpy(lens),
+                             fresh_prefill=fresh)
+    valid = np.arange(S)[None, :] < lens[:, None]
+    _kv_close(tl.numpy()[valid], np.asarray(jl)[valid])
+    _same_cache(tc, jc)
+    nxt = np.asarray(jnp.argmax(jl[np.arange(B), lens - 1], -1)).astype(
+        np.int32)
+    for _ in range(3):
+        jl, jc = jgptoss.forward(jp, jcfg, jnp.asarray(nxt[:, None]), jc)
+        tl, tc = tgptoss.forward(tp, tcfg, torch.from_numpy(nxt[:, None]), tc)
+        _kv_close(tl.numpy(), jl)
+        nxt = np.asarray(jnp.argmax(jl[:, 0], -1)).astype(np.int32)
+    _same_cache(tc, jc, KV_LOGIT_RTOL)
+
+
+def test_compressed_fresh_prefill_attends_the_cache():
+    """With an int8 cache the fresh prefill sees the quantized K/V (what
+    a later step reads back), not the fresh values: its logits equal a
+    non-fresh prefill's (which streams over the whole cache, so its sums
+    run over more, masked, keys) and differ from the model-dtype
+    cache's."""
+    _, _, tcfg, tp = models()
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        1, 512, (2, 12)).astype(np.int32))
+    out = {}
+    for name, dt, fresh in (("fresh", torch.int8, True),
+                            ("chunked", torch.int8, False),
+                            ("model", None, True)):
+        c = tgptoss.init_cache(tcfg, 2, max_seq=32, dtype=dt, device="cpu")
+        out[name] = tgptoss.forward(tp, tcfg, toks, c,
+                                    fresh_prefill=fresh)[0]
+    torch.testing.assert_close(out["fresh"], out["chunked"], rtol=0,
+                               atol=1e-5)
+    assert not torch.allclose(out["fresh"], out["model"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", list(KV))
+def test_compressed_generate_batch_greedy_identical(kind):
+    """generate_batch over int8 and fp8 caches: greedy tokens equal the
+    JAX engine's, and the cache holds the dtype's bytes."""
+    jcfg, jp, tcfg, tp = models()
+    je = ti.InferenceEngine(jp, jcfg, ti.InferenceConfig(
+        max_seq_len=64, kv_cache_dtype=kind))
+    te = InferenceEngine(tp, tcfg, InferenceConfig(max_seq_len=64,
+                                                   kv_cache_dtype=kind),
+                         device="cpu")
+    rng = np.random.default_rng(40)
+    prompts = [rng.integers(1, 512, size=n).tolist() for n in (7, 15, 4)]
+    jres = je.generate_batch(prompts, 12, temperature=0.0)
+    tres = te.generate_batch(prompts, 12, temperature=0.0)
+    for a, b in zip(jres, tres):
+        assert b.tokens == a.tokens and b.stop_reason == a.stop_reason
+    assert te._take_cache(3).k.dtype == KV[kind][1]
+
+
+def test_paged_fp8_decode_matches_jax():
+    """One paged decode step over fp8 pages (written through the
+    encode-and-write path, read through the plain sink- and window-aware
+    form) against the JAX package's forward_paged_decode: logits and the
+    pages after the write."""
+    jcfg, jp, tcfg, tp = models(True)
+    rng = np.random.default_rng(14)
+    L, P, page, B = jcfg.num_layers, 10, 8, 3
+    Hkv, D = jcfg.kv_heads, jcfg.head_dim_
+    jk, _, tk, _ = _encoded(rng, (L, P, Hkv, page, D), "fp8")
+    jv, _, tv, _ = _encoded(rng, (L, P, Hkv, page, D), "fp8")
+    table = np.array([[3, 7, 1, -1], [8, 2, -1, -1], [5, 4, 6, 9]], np.int32)
+    lengths = np.array([13, 6, 20], np.int32)
+    tokens = rng.integers(1, jcfg.vocab_size, (B,)).astype(np.int32)
+    want = jgptoss.forward_paged_decode(
+        jp, jcfg, jnp.asarray(tokens), jk, jv, jnp.asarray(table),
+        jnp.asarray(lengths))
+    got = tgptoss.forward_paged_decode(
+        tp, tcfg, torch.from_numpy(tokens), tk, tv, torch.from_numpy(table),
+        torch.from_numpy(lengths))
+    _kv_close(got[0].numpy(), want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == torch.uint8
+        _codes_close(g.numpy(), w)
+    with pytest.raises(NotImplementedError):
+        tgptoss.forward_paged_decode(
+            tp, tcfg, torch.from_numpy(tokens), tk.view(torch.int8),
+            tv.view(torch.int8), torch.from_numpy(table),
+            torch.from_numpy(lengths))
+
+
+def test_paged_scheduler_fp8_greedy_identical_and_int8_refused():
+    """The paged scheduler serves an fp8 pool (prefix hits included) with
+    the JAX package's greedy tokens, and refuses an int8 pool at
+    construction as the JAX package does (its contiguous scheduler and
+    engine take int8)."""
+    jcfg, jp, tcfg, tp = models()
+    icfg = dict(max_seq_len=64, temperature=0.0, eos_token_id=-1, seed=0)
+    js = JPaged(jp, jcfg, ti.InferenceConfig(kv_cache_dtype="fp8", **icfg),
+                batch_slots=2, page_size=8)
+    ts = TPaged(tp, tcfg, InferenceConfig(kv_cache_dtype="fp8", **icfg),
+                batch_slots=2, page_size=8, device="cpu")
+    assert ts.cache.k_pages.dtype == torch.uint8
+    rng = np.random.default_rng(15)
+    system = rng.integers(1, 512, 16).tolist()
+    reqs = [system + rng.integers(1, 512, n).tolist() for n in (3, 9)] + \
+        [rng.integers(1, 512, 11).tolist()]
+    jids = [js.submit(r, 10) for r in reqs]
+    tids = [ts.submit(r, 10) for r in reqs]
+    jr, tr = js.run(), ts.run()
+    for a, b in zip(jids, tids):
+        assert tr[b].tokens == jr[a].tokens
+    assert ts.pool.hits == js.pool.hits > 0
+    with pytest.raises(NotImplementedError, match="int8"):
+        JPaged(jp, jcfg, ti.InferenceConfig(kv_cache_dtype="int8", **icfg),
+               batch_slots=2, page_size=8)
+    with pytest.raises(NotImplementedError, match="int8"):
+        TPaged(tp, tcfg, InferenceConfig(kv_cache_dtype="int8", **icfg),
+               batch_slots=2, page_size=8, device="cpu")

@@ -287,8 +287,13 @@ def test_cpu_wrappers_never_launch():
     new = torch.randn(3, 2, 32)
     cache_write.kv_encode_write(new, new, kc, kc.clone(), None, None,
                                 torch.tensor([0, 9, -1]), 0, 4)
+    q256 = quantize(torch.randn(256, 16), QuantType.INT4, group_size=256)
+    qmm.qmm_int4_a8(torch.randn(9, 256), q256)
+    qmm.a8_quantize_rows(torch.randn(9, 256))
     assert kernels.launch_counts() == {"qmm_int4": 0, "qmm_int4_grouped": 0,
                                        "qmm_int8": 0, "qmm_int8_grouped": 0,
+                                       "a8_quantize_rows": 0,
+                                       "qmm_int4_a8": 0,
                                        "flash_prefill": 0,
                                        "cache_write_fresh": 0,
                                        "kv_encode_write": 0,

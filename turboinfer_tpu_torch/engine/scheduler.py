@@ -766,12 +766,15 @@ class PagedContinuousScheduler(ContinuousBatchingScheduler):
                  draft_params: Optional[Dict[str, Any]] = None,
                  draft_config: Optional[ModelConfig] = None,
                  spec_k: int = 4, device="cuda"):
-        if draft_params is not None and not hasattr(
-                registry.get_model(model_config.architecture),
-                "forward_paged_verify"):
+        model = registry.get_model(model_config.architecture)
+        if draft_params is not None and not hasattr(model,
+                                                    "forward_paged_verify"):
             raise NotImplementedError(
                 f"{model_config.architecture} has no forward_paged_verify "
                 "(speculative paged serving)")
+        cfg = config or InferenceConfig(max_seq_len=model_config.max_seq_len)
+        check_kv_dtype(model, model_config.architecture, resolve_kv_dtype(
+            cfg.kv_cache_dtype, model_config.dtype), paged=True)
         super().__init__(params, model_config, config, batch_slots,
                          decode_burst=decode_burst, max_queue=max_queue,
                          mesh=mesh, parallel=parallel,

@@ -20,6 +20,8 @@ def wrappers() -> Dict[str, Callable]:
             "qmm_int4_grouped": qmm.qmm_int4_grouped,
             "qmm_int8": qmm.qmm_int8,
             "qmm_int8_grouped": qmm.qmm_int8_grouped,
+            "a8_quantize_rows": qmm.a8_quantize_rows,
+            "qmm_int4_a8": qmm.qmm_int4_a8,
             "flash_prefill": flash_attention.flash_prefill,
             "cache_write_fresh": cache_write.cache_write_fresh,
             "kv_encode_write": cache_write.kv_encode_write,

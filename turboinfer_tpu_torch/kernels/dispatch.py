@@ -5,9 +5,11 @@ Each function hands its tensors to a kernel wrapper. The wrapper runs
 the plain PyTorch version for tensors on the CPU, and for CUDA tensors
 launches its Hopper kernel or raises on a shape the kernel does not
 take; nothing falls back quietly. Every QTensor product on the card
-goes through the kernel (int4 or int8, symmetric or with zero
-points), whatever its size: the JAX package's size threshold
-(_QMM_MIN_BYTES) is a TPU workaround.
+goes through a kernel (int4 or int8, symmetric or with zero points),
+whatever its size: for routing, the JAX package's size threshold
+(_QMM_MIN_BYTES) is a TPU workaround. Under TURBOINFER_QMM_A8=1 it also
+decides which int4 products the JAX package runs with int8 activations,
+so qmm.a8_applies keeps it there.
 """
 
 from __future__ import annotations
@@ -22,10 +24,18 @@ from turboinfer_tpu_torch.core.qtensor import QTensor
 def qmatmul(x: torch.Tensor, qt: QTensor,
             layer_index: Optional[int] = None) -> torch.Tensor:
     """By qt.bits: int4 to qmm_int4, int8 to qmm_int8 (either with its
-    zero points, when qt has them); any other width raises there."""
+    zero points, when qt has them); any other width raises there. An
+    int4 product that the JAX package runs as W4A8 (qmm.a8_applies:
+    TURBOINFER_QMM_A8=1, M > 8, g % 256 == 0, ...) goes to qmm_int4_a8."""
     from turboinfer_tpu_torch.kernels import qmm
-    fn = qmm.qmm_int8 if qt.bits == 8 else qmm.qmm_int4
-    return fn(x, qt, layer_index if qt.stacked else None)
+    li = layer_index if qt.stacked else None
+    if qt.bits == 8:
+        fn = qmm.qmm_int8
+    elif qmm.a8_applies(x.numel() // max(x.shape[-1], 1), qt, li):
+        fn = qmm.qmm_int4_a8
+    else:
+        fn = qmm.qmm_int4
+    return fn(x, qt, li)
 
 
 def qmatmul_grouped(x: torch.Tensor, qt: QTensor,

@@ -309,10 +309,18 @@ def attention_paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
     sequence's pages, then attention_decode_ref (window and sinks as
     there). q: [B, Hq, D]; k/v_pages: [P, Hkv, page, D]; block_table:
     [B, max_pages] (-1 = unassigned); kv_len: [B] (the current token
-    included)."""
-    k = _gather_pages(k_pages, block_table).to(q.dtype)
-    v = _gather_pages(v_pages, block_table).to(q.dtype)
-    return attention_decode_ref(q, k, v, kv_len, window=window, sinks=sinks)
+    included). An fp8 pool (uint8 e4m3 bits) is decoded after the gather
+    (e4m3_to_float); an int8 pool needs scales and raises."""
+    if k_pages.dtype == torch.int8:
+        raise ValueError("attention_paged_decode_ref takes no int8 pool "
+                         "(it has no scale pages)")
+
+    def gather(pages):
+        g = _gather_pages(pages, block_table)
+        return e4m3_to_float(g, q.dtype) if g.dtype == torch.uint8 \
+            else g.to(q.dtype)
+    return attention_decode_ref(q, gather(k_pages), gather(v_pages), kv_len,
+                                window=window, sinks=sinks)
 
 
 def attention_paged_verify_ref(q: torch.Tensor, k_pages: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Fused int4/int8 dequant x matmul: the wrappers of csrc/qmm.cu.
+"""Fused int4/int8 dequant x matmul: the wrappers of csrc/qmm.cu and
+csrc/qmm_a8.cu.
 
 qmm_int4 and qmm_int8 are the counterparts of
 turboinfer_tpu/kernels/pallas/qmm.py qmatmul_pallas_stacked and
@@ -9,11 +10,20 @@ in one launch). Each takes symmetric weights or zero points
 (asymmetric), as the Pallas kernels' asym branches do. On a CUDA tensor
 a wrapper launches its kernel or raises; on a CPU tensor it runs its
 plain version (qmatmul_plain, qmatmul_grouped_plain).
+
+W4A8 (csrc/qmm_a8.cu): with TURBOINFER_QMM_A8=1 the JAX package runs
+some int4 products with int8 activations (_kernel_int4_a8[_idx]), which
+changes their numbers. a8_applies is that decision; a8_quantize_rows and
+qmm_int4_a8 are the two kernels of such a product (per-row int8
+activations, then int8 x int4 on the tensor cores with the group scales
+applied per group), a8_quantize_rows_plain and qmatmul_a8_plain their
+plain versions.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,16 +32,22 @@ from turboinfer_tpu_torch.kernels import _build, ops
 from turboinfer_tpu_torch.utils.errors import KernelError
 
 
-def qmatmul_plain(x: torch.Tensor, qt: QTensor,
-                  layer_index: Optional[int] = None) -> torch.Tensor:
-    """Plain PyTorch version: x @ dequant(W[layer_index]) in x.dtype."""
+def _plain_layer(qt: QTensor, layer_index: Optional[int]) -> QTensor:
+    """The 2-D weight a plain version multiplies: layer `layer_index` of
+    a stack, or qt itself."""
     if qt.data.dim() == 4:
         raise ValueError("a 4-D expert stack must be flattened first "
                          "(QTensor.flat())")
     w = qt.layer(layer_index) if layer_index is not None else qt
     if w.stacked:
         raise ValueError("a stacked QTensor needs layer_index")
-    return ops.qmatmul_ref(x, w)
+    return w
+
+
+def qmatmul_plain(x: torch.Tensor, qt: QTensor,
+                  layer_index: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version: x @ dequant(W[layer_index]) in x.dtype."""
+    return ops.qmatmul_ref(x, _plain_layer(qt, layer_index))
 
 
 def qmatmul_grouped_plain(xg: torch.Tensor, qt: QTensor,
@@ -53,6 +69,84 @@ def qmatmul_grouped_plain(xg: torch.Tensor, qt: QTensor,
     y = torch.bmm(xg.reshape(G, -1, K).to(torch.float32),
                   w.to(torch.float32))
     return y.to(xg.dtype).reshape(*xg.shape[:-1], N)
+
+
+# -- W4A8 ---------------------------------------------------------------------
+
+# The JAX package's dispatch threshold (turboinfer_tpu/kernels/dispatch.py
+# _QMM_MIN_BYTES): a weight plane smaller than this runs its jnp path
+# there, never a Pallas kernel, so never W4A8. For routing it is a TPU
+# workaround; under TURBOINFER_QMM_A8=1 it decides which products get
+# int8 activations, so a8_applies keeps it.
+QMM_MIN_BYTES = 262144
+
+
+def a8_applies(M: int, qt: QTensor, layer_index: Optional[int] = None
+               ) -> bool:
+    """Whether the JAX package on a TPU runs the product of M activation
+    rows with qt (layer `layer_index` of a stack) through its W4A8 body
+    (_qmm_2d / _qmm_stacked, turboinfer_tpu/kernels/pallas/qmm.py:650-657
+    and :856-863): TURBOINFER_QMM_A8=1, int4 symmetric weights, M > 8,
+    g/2 a multiple of 128 (_fact_mode's "wide", :168-171; also off under
+    TURBOINFER_QMM_NO_FACT=1), tiles found, and a weight plane of at
+    least TURBOINFER_QMM_MIN_BYTES (default QMM_MIN_BYTES) bytes.
+    Environment variables are read at each call. At M > 8 with g % 256
+    == 0, _pick_tiles (:518) finds tiles exactly when 128 divides N
+    (under its default TURBOINFER_QMM_TN/_TK tiling)."""
+    if os.environ.get("TURBOINFER_QMM_A8", "0") != "1" or qt.bits != 4 \
+            or qt.zero_points is not None or M <= 8 \
+            or os.environ.get("TURBOINFER_QMM_NO_FACT") == "1":
+        return False
+    planes = qt.data.shape[0] if (layer_index is not None
+                                  and qt.data.dim() == 3) else 1
+    min_bytes = int(os.environ.get("TURBOINFER_QMM_MIN_BYTES",
+                                   str(QMM_MIN_BYTES)))
+    return (qt.data.numel() // planes >= min_bytes
+            and qt.group_size % 256 == 0 and qt.shape[1] % 128 == 0)
+
+
+def a8_quantize_rows_plain(x2: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the JAX package's _a8_quantize_rows as
+    its compiled form computes it: per row of x2 [M, K], sx = max(absmax,
+    1e-8) times f32(1/127) (XLA turns the `/ 127.0` into that multiply),
+    codes round-half-even(x / sx) (a true division) clipped to +-127.
+    Returns (codes int8 [M, K], sx f32 [M])."""
+    from turboinfer_tpu_torch.models.common import INV_127
+    xf = x2.to(torch.float32)
+    sx = xf.abs().amax(dim=-1).clamp_min(1e-8) * INV_127
+    xq = torch.round(xf / sx[:, None]).clamp(-127, 127).to(torch.int8)
+    return xq, sx
+
+
+def qmatmul_a8_plain(x: torch.Tensor, qt: QTensor,
+                     layer_index: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of the W4A8 product (the JAX package's
+    _int4_a8_body with the caller's row scaling): x's rows quantized by
+    a8_quantize_rows_plain; per scale group the integer partial
+    sum(xq * (u - 8)) (exact in f32: |partial| <= 127 * 8 * g < 2^24),
+    times the group's scale, added to an f32 accumulator in group order;
+    the accumulator cast to x.dtype, then times sx in f32 and cast again
+    (two roundings for bf16 x, one for f32)."""
+    from turboinfer_tpu_torch.core.qtensor import unpack_int4
+    w = _plain_layer(qt, layer_index)
+    if w.bits != 4 or w.zero_points is not None:
+        raise ValueError("W4A8 takes int4 symmetric weights")
+    K, N = w.shape
+    g = w.group_size
+    if 127 * 8 * g >= 1 << 24:
+        raise ValueError(f"group size {g} too large for exact f32 partials")
+    f32 = torch.float32
+    lead = x.shape[:-1]
+    xq, sx = a8_quantize_rows_plain(x.reshape(-1, K))
+    u = unpack_int4(w.data, g).to(f32)                    # [K, N], u - 8
+    s = w.scales.to(f32)
+    acc = torch.zeros((xq.shape[0], N), dtype=f32, device=x.device)
+    for j in range(K // g):
+        ks = slice(j * g, (j + 1) * g)
+        acc = acc + torch.matmul(xq[:, ks].to(f32), u[ks]) * s[j]
+    y = (acc.to(x.dtype).to(f32) * sx[:, None]).to(x.dtype)
+    return y.reshape(*lead, N)
 
 
 _DATA_DTYPE = {4: torch.uint8, 8: torch.int8}
@@ -226,3 +320,66 @@ def qmm_int8_grouped(xg: torch.Tensor, qt: QTensor,
 
 
 qmm_int8_grouped.launches = 0
+
+
+def a8_quantize_rows(x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x2 bf16 [M, K] -> (codes int8 [M, K], sx f32 [M]), the bytes of
+    a8_quantize_rows_plain, in one launch for CUDA tensors."""
+    if x2.device.type == "cpu":
+        return a8_quantize_rows_plain(x2)
+    if x2.dim() != 2 or x2.dtype != torch.bfloat16 or x2.shape[1] % 8 \
+            or not x2.is_contiguous() or x2.data_ptr() % 16:
+        raise KernelError(f"a8_quantize_rows takes a contiguous, 16-byte "
+                          f"aligned bf16 [M, K] with K % 8 == 0, got "
+                          f"{x2.dtype} {tuple(x2.shape)}")
+    M, K = x2.shape
+    xq = torch.empty((M, K), dtype=torch.int8, device=x2.device)
+    sx = torch.empty((M,), dtype=torch.float32, device=x2.device)
+    if M == 0:
+        return xq, sx
+    status = _build.library().ti_a8_quantize_rows(
+        x2.data_ptr(), xq.data_ptr(), sx.data_ptr(), M, K,
+        torch.cuda.current_stream(x2.device).cuda_stream)
+    _build.check(status, "a8_quantize_rows")
+    a8_quantize_rows.launches += 1
+    return xq, sx
+
+
+a8_quantize_rows.launches = 0
+
+
+def qmm_int4_a8(x: torch.Tensor, qt: QTensor,
+                layer_index: Optional[int] = None) -> torch.Tensor:
+    """The W4A8 product [..., K] -> [..., N] in x.dtype with int4
+    symmetric qt (2-D, or layer `layer_index` of a stack): for CUDA
+    tensors a8_quantize_rows, then the int8 tensor-core kernel; never a
+    bf16 qmm in its place."""
+    if x.device.type == "cpu":
+        return qmatmul_a8_plain(x, qt, layer_index)
+    name = "qmm_int4_a8"
+    _check(x, qt, layer_index, 4, name)
+    if qt.zero_points is not None:
+        raise KernelError(f"{name} takes symmetric weights (the JAX "
+                          "package's W4A8 body has no zero points)")
+    K, N = qt.shape
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, K).contiguous()
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()
+    M = x2.shape[0]
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M == 0:
+        return y.reshape(*lead, N)
+    w = qt.layer(0 if layer_index is None else int(layer_index))
+    _aligned(name, w.data, w.scales)
+    xq, sx = a8_quantize_rows(x2)
+    status = _build.library().ti_qmm_a8(
+        xq.data_ptr(), sx.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(),
+        y.data_ptr(), M, K, N, qt.group_size,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(status, name)
+    qmm_int4_a8.launches += 1
+    return y.reshape(*lead, N)
+
+
+qmm_int4_a8.launches = 0

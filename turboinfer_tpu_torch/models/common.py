@@ -65,15 +65,24 @@ def resolve_kv_dtype(kv_cache_dtype: Optional[str], model_dtype):
                      "(expected 'model', 'fp8', 'int8', or 'bf16')")
 
 
-def check_kv_dtype(model, architecture: str, kv_dtype) -> None:
-    """Raise for a compressed cache a family's forward does not thread:
-    int8 and fp8 caches run where the module sets SUPPORTS_INT8_KV (the
-    llama body, which MoE reuses)."""
-    if kv_dtype in COMPRESSED_KV and not getattr(model, "SUPPORTS_INT8_KV",
-                                                 False):
+def check_kv_dtype(model, architecture: str, kv_dtype,
+                   paged: bool = False) -> None:
+    """Raise for a compressed cache a family's forward does not thread,
+    with the JAX package's two questions: int8 and fp8 caches run where
+    the module sets SUPPORTS_INT8_KV (its forwards thread the scale
+    planes and read fp8); a paged pool (paged=True) of int8 needs
+    SUPPORTS_INT8_KV_PAGED too, which defaults to SUPPORTS_INT8_KV (JAX
+    scheduler.py:1400-1408: GPT-OSS serves fp8 pools, not int8 ones)."""
+    contiguous = getattr(model, "SUPPORTS_INT8_KV", False)
+    if kv_dtype in COMPRESSED_KV and not contiguous:
         raise NotImplementedError(
             f"{architecture}: int8 and fp8 KV caches are not ported for this "
-            "family yet (ROADMAP §2 (a))")
+            "family yet")
+    if paged and kv_dtype == torch.int8 and not getattr(
+            model, "SUPPORTS_INT8_KV_PAGED", contiguous):
+        raise NotImplementedError(
+            f"{architecture} paged serving does not support "
+            "kv_cache_dtype='int8'; use 'fp8' or 'bf16'")
 
 
 def init_cache(config: ModelConfig, batch_size: int,
