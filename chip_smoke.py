@@ -141,14 +141,16 @@ ROOT_REPLACES = {
                    "turboinfer_tpu/kernels/pallas/qmm.py:484",
 }
 SOURCES = {
-    "qmm_int4": "turboinfer_tpu_torch/csrc/qmm.cu",
+    "qmm_int4": "turboinfer_tpu_torch/csrc/qmm.cu; "
+                "turboinfer_tpu_torch/csrc/qmm_tc.cu (M > 16)",
     "flash_prefill": "turboinfer_tpu_torch/csrc/flash_prefill.cu",
     "cache_write_fresh": "turboinfer_tpu_torch/csrc/cache_write.cu",
     "kv_encode_write": "turboinfer_tpu_torch/csrc/cache_write.cu",
     "decode_attention": "turboinfer_tpu_torch/csrc/decode_attention.cu",
     "paged_attention": "turboinfer_tpu_torch/csrc/paged_attention.cu",
     "qmm_int4_grouped": "turboinfer_tpu_torch/csrc/qmm.cu",
-    "qmm_int8": "turboinfer_tpu_torch/csrc/qmm.cu",
+    "qmm_int8": "turboinfer_tpu_torch/csrc/qmm.cu; "
+                "turboinfer_tpu_torch/csrc/qmm_tc.cu (M > 16)",
     "qmm_int8_grouped": "turboinfer_tpu_torch/csrc/qmm.cu",
     "a8_quantize_rows": "turboinfer_tpu_torch/csrc/qmm_a8.cu",
     "qmm_int4_a8": "turboinfer_tpu_torch/csrc/qmm_a8.cu",
@@ -218,6 +220,39 @@ def kv_row_bytes(x, D: int) -> int:
     f32 scale."""
     import torch
     return D * x.element_size() + (4 if x.dtype == torch.int8 else 0)
+
+
+def qmm_tc_smem(bits: int, asym: bool, bt: int) -> int:
+    """Dynamic shared memory of qmm_tc_kernel<bits, asym, bt>, as its
+    Layout in csrc/qmm_tc.cu computes it (ptxas reports none)."""
+    rows = 64 if bits == 4 else 128
+    tx = 4 * bt * 64 + 2 * rows * 128 + 1024 * (2 if asym else 1)
+    stage = (tx + 1023) // 1024 * 1024
+    stages = min(6, (227 * 1024 - 1024 - 72) // stage)
+    return stages * stage + 1024 + 12 * stages
+
+
+def qmm_tc_ptxas(report: str):
+    """One line per tensor-core qmm kernel of the ptxas report of
+    qmm_tc.cu: registers, spills, and the dynamic shared memory."""
+    out, name = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '.*qmm_tc_kernelILi(\d)ELb"
+                      r"(\d)ELi(\d+)E", line)
+        if m:
+            name = (int(m.group(1)), m.group(2) == "1", int(m.group(3)))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            bits, asym, bt = name
+            out.append(f"qmm_tc_kernel<int{bits}{', zp' if asym else ''}, "
+                       f"{bt} tokens>: {m.group(1)} registers, {spill} bytes "
+                       f"spilled, {qmm_tc_smem(bits, asym, bt)} bytes of "
+                       f"dynamic shared memory")
+            name = None
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -335,11 +370,13 @@ def check_qmm(torch, rows, results, shapes=None, Ms=(8, 40, 256, 4096),
             row = dict(kernel=kname, shape=f"{name}{' zp' if asym else ''} "
                        f"M={M} K={K} N={N}",
                        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=b, bound_by=by)
+                       library_ms=lib_ms, bound_ms=b, bound_by=by,
+                       library_ratio=ms / lib_ms)
             rows.append(row)
             say(f"  {kname} {row['shape']}: max_abs_err={err:.4g} "
                 f"(tol {tol:.3g}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"bound_ms={b:.4f} ({by}) library_ms={lib_ms:.4f}")
+                f"bound_ms={b:.4f} ({by}) library_ms={lib_ms:.4f} "
+                f"kernel/library={ms / lib_ms:.2f}")
             if record and name == "w_gateup" and M == 8:
                 results[kname] = row
             del qt
@@ -1007,6 +1044,16 @@ def phase_kernels(torch, report):
               Ms=(8, 4096), record=False, bits=4, asym=True)
     check_qmm_grouped(torch, rows, results, bits=4, asym=True, n=64,
                       names=("we_gateup", "we_down"))
+    # the tensor-core qmm (M > 16) at the 7B int4 projections at a short
+    # verify or admission (M = 17, one 64-token tile) and a 128-token
+    # one (split-K), and at Mixtral's int4 expert planes through the
+    # E-loop of phase 8 (b)'s prefill (M = 1000)
+    check_qmm(torch, rows, results, shapes=[
+        ("wqkv", 4096, 12288), ("wo", 4096, 4096), ("w_gateup", 4096, 22016),
+        ("w_down", 11008, 4096)], Ms=(17, 128), record=False)
+    check_qmm(torch, rows, results, shapes=[
+        ("we_gateup", 4096, 28672), ("we_down", 14336, 4096)], Ms=(1000,),
+        record=False)
     # W4A8 (phase 12): the row quantizer at the 7B's widths (K=4096 and
     # w_down's 11008) and the product at every 7B projection, g=256, at
     # (b)'s B=16 decode, (c)'s verify, an admission and (a)'s prefill
@@ -2792,6 +2839,8 @@ def main(argv=None) -> int:
             say(f"  ptxas {name}: {len(regs)} kernels, <= {max(regs or [0])} "
                 f"registers; {len(spills)} spill (max {max(spills or [0])} "
                 f"bytes stored)")
+        for line in qmm_tc_ptxas(ptxas.get("qmm_tc.cu", "")):
+            say(f"  ptxas qmm_tc.cu {line}")
         report["env"] = dict(card=smi, torch=torch.__version__,
                              cuda=torch.version.cuda, build_s=build_s,
                              ptxas=ptxas)

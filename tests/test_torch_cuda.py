@@ -144,6 +144,60 @@ def test_cuda_qmm_int8_and_zero_points_match_plain(bits, asym, M, K, N, g):
     assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
 
 
+# The tensor-core path's edges (M > 16): token tiles of 64 and 128 and
+# their tails (17, 65, 129, 257, 1000), weight rows that TMA cannot
+# describe (N = 136, 1000: not a multiple of 16 bytes) and a 64-column
+# tail (N = 2880), K = 2880 (45 groups of 64) and 11008 (86 int4 stages,
+# split-K at small M), g = 64, 128, 256 and per-channel g = K = 2880
+# (a stage straddles its end), layer 3 of a 4-plane stack.
+TC_SHAPES = [(17, 2880, 136, 64), (40, 11008, 1000, 256),
+             (64, 4096, 2880, 128), (65, 2880, 1000, 64),
+             (128, 11008, 4096, 64), (129, 512, 2880, 256),
+             (256, 4096, 136, 128), (257, 2880, 2880, 64),
+             (1000, 4096, 2880, 64), (40, 2880, 2880, 2880)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,asym", [(4, False), (4, True), (8, False),
+                                       (8, True)],
+                         ids=["int4", "int4_zp", "int8", "int8_zp"])
+@pytest.mark.parametrize("M,K,N,g", TC_SHAPES)
+def test_cuda_qmm_tensor_core_edges_match_plain(bits, asym, M, K, N, g):
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(M * 7 + K + N + bits)
+    qt = _qtensor(gen, (4,), K, N, bits, asym, g)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    wrapper = qmm.qmm_int8 if bits == 8 else qmm.qmm_int4
+    before = wrapper.launches
+    got = wrapper(x, qt, 3).float()
+    want = qmm.qmatmul_plain(x, qt, 3).float()
+    assert wrapper.launches == before + 1
+    assert got.shape == (M, N) and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,asym", [(4, False), (4, True), (8, False),
+                                       (8, True)],
+                         ids=["int4", "int4_zp", "int8", "int8_zp"])
+@pytest.mark.parametrize("M,K,N", [(128, 11008, 4096), (40, 4096, 2880)])
+def test_cuda_qmm_split_k_repeats_its_bits(bits, asym, M, K, N):
+    """Split-K partials are summed in a fixed order (no atomics), so two
+    calls give the same bits, as greedy decoding needs."""
+    _need_cuda()
+    from turboinfer_tpu_torch.kernels import _build
+    assert _build.library().ti_qmm_workspace(M, K, N, bits) > 0   # split
+    gen = torch.Generator(device="cuda").manual_seed(K + bits)
+    qt = _qtensor(gen, (2,), K, N, bits, asym)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    wrapper = qmm.qmm_int8 if bits == 8 else qmm.qmm_int4
+    first = wrapper(x, qt, 1)
+    assert torch.equal(first, wrapper(x, qt, 1))
+    want = qmm.qmatmul_plain(x, qt, 1).float()
+    assert (first.float() - want).abs().max().item() <= \
+        2e-2 * want.abs().max().item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits,asym", [(8, False), (8, True), (4, True)],
                          ids=["int8", "int8_zp", "int4_zp"])

@@ -44,36 +44,24 @@
 //    through an f32 scratch and a second, tiny reduce kernel. At M = 8
 //    that is 8 f32 FMAs per weight value: ALU work that, not the bytes,
 //    limits this path on this card.
-//  * M > 16 (prefill): 2*M*K*N operations over the bf16 tensor-core
-//    rate bound it. The tensor-core path stages a 128 x 64 tile of x
-//    (16-byte loads) and a 64 x 128 tile of W dequantized to bf16 (one
-//    rounding of the f32 (q - zp) * s, as the JAX kernels and
-//    ops._dequant_ref round) in shared memory, prefetches the next K
-//    step into registers while 8 warps run WMMA bf16 16x16x16 on the
-//    current one (32 x 64 outputs each). No cp.async/TMA pipeline and no
-//    wgmma yet: that is future work.
-#include <mma.h>
-
+//  * M > 16 (prefill, verify): 2*M*K*N operations over the bf16
+//    tensor-core rate bound it from M of a few hundred up, the plane's
+//    bytes below. qmm_tc.cu serves it: wgmma (A, the weight, dequantized
+//    in registers; B, x, from shared memory) fed by a TMA ring of 3-6
+//    stages on mbarriers, 256 weight columns x 64 or 128 tokens a block,
+//    split-K with fixed-order partial sums when the tiles leave SMs
+//    idle. Its header has the design.
 #include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr int kGemvThreads = 256;
 constexpr int kGemvBN = 64;      // columns per block: 8 column groups of 8
 constexpr int kGemvRows = 512;   // byte rows per K split
 constexpr int kGemvUnroll = 8;   // weight rows in flight per thread
 constexpr int kRowsPerThread = kGemvRows / 32;   // 16 consecutive rows
-
-constexpr int kTcThreads = 256;
-constexpr int kTcBM = 128;
-constexpr int kTcBN = 128;
-constexpr int kTcBK = 64;        // logical K per step
-constexpr int kXsLd = kTcBK + 8;
-constexpr int kWsLd = kTcBN + 8;
 
 // Byte rows of a [K, N] plane, and byte rows per scale group.
 __host__ __device__ constexpr int byte_rows(int K, int bits) {
@@ -284,177 +272,6 @@ __global__ void qmm_splitk_reduce(const float* __restrict__ partial,
   y[i] = __float2bfloat16(v);
 }
 
-// Dequantize 8 packed int4 bytes (8 columns) into the low- and
-// high-nibble rows of the W tile, as bf16, with one 16-byte store each.
-template <bool kAsym>
-__device__ __forceinline__ void store_dequant4(__nv_bfloat16* lo_row,
-                                               __nv_bfloat16* hi_row,
-                                               const uint2& wv,
-                                               const uint4& sv,
-                                               const uint4& zv) {
-  __nv_bfloat162 lo[4], hi[4];
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const uint32_t word = (p < 2) ? wv.x : wv.y;
-    const uint32_t b0 = (word >> (16 * (p & 1))) & 0xFFu;
-    const uint32_t b1 = (word >> (16 * (p & 1) + 8)) & 0xFFu;
-    const float s0 = bf16_at(sv, 2 * p), s1 = bf16_at(sv, 2 * p + 1);
-    const float z0 = kAsym ? bf16_at(zv, 2 * p) : 0.f;
-    const float z1 = kAsym ? bf16_at(zv, 2 * p + 1) : 0.f;
-    lo[p] = __floats2bfloat162_rn(deq<kAsym>(nib_to_float(b0 & 0xFu), s0, z0),
-                                  deq<kAsym>(nib_to_float(b1 & 0xFu), s1, z1));
-    hi[p] = __floats2bfloat162_rn(deq<kAsym>(nib_to_float(b0 >> 4), s0, z0),
-                                  deq<kAsym>(nib_to_float(b1 >> 4), s1, z1));
-  }
-  *reinterpret_cast<uint4*>(lo_row) = *reinterpret_cast<const uint4*>(lo);
-  *reinterpret_cast<uint4*>(hi_row) = *reinterpret_cast<const uint4*>(hi);
-}
-
-// Dequantize 8 int8 codes (8 columns of one row) into a W tile row.
-template <bool kAsym>
-__device__ __forceinline__ void store_dequant8(__nv_bfloat16* row,
-                                               const uint2& wv,
-                                               const uint4& sv,
-                                               const uint4& zv) {
-  __nv_bfloat162 out[4];
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const uint32_t word = (p < 2) ? wv.x : wv.y;
-    const int sh = 16 * (p & 1);
-    const float s0 = bf16_at(sv, 2 * p), s1 = bf16_at(sv, 2 * p + 1);
-    const float z0 = kAsym ? bf16_at(zv, 2 * p) : 0.f;
-    const float z1 = kAsym ? bf16_at(zv, 2 * p + 1) : 0.f;
-    out[p] = __floats2bfloat162_rn(
-        deq<kAsym>(i8_to_float((word >> sh) & 0xFFu), s0, z0),
-        deq<kAsym>(i8_to_float((word >> (sh + 8)) & 0xFFu), s1, z1));
-  }
-  *reinterpret_cast<uint4*>(row) = *reinterpret_cast<const uint4*>(out);
-}
-
-// g is a multiple of 64, so a K step (64 logical rows: 32 int4 byte rows
-// of one half-group pair, or 64 int8 rows) lies in one scale group, and
-// each thread's 8 columns keep one scale (and zero-point) vector per
-// step. int4 stages the step's 64 x columns as two contiguous runs of 32
-// (low, then high nibble rows), int8 as one run of 64; x moves in
-// 16-byte vectors, prefetched into registers one step ahead.
-template <int kBits, bool kAsym>
-__global__ void __launch_bounds__(kTcThreads, 2)
-qmm_tc_kernel(const __nv_bfloat16* __restrict__ x,
-              const uint8_t* __restrict__ w,
-              const __nv_bfloat16* __restrict__ s,
-              const __nv_bfloat16* __restrict__ zp,
-              __nv_bfloat16* __restrict__ y, int M, int K, int N, int g) {
-  __shared__ __align__(128) __nv_bfloat16 xs[kTcBM * kXsLd];
-  __shared__ __align__(128) __nv_bfloat16 ws[kTcBK * kWsLd];
-  __shared__ __align__(128) float cs[kTcThreads / 32][16 * 16];
-
-  constexpr int kBR = kBits == 4 ? kTcBK / 2 : kTcBK;   // byte rows a step
-  constexpr int kXVec = kTcBM * kTcBK / 8 / kTcThreads;  // 4
-  constexpr int kWVec = kBR * kTcBN / 8 / kTcThreads;    // 2 (int4), 4 (int8)
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1;   // warp row: output rows wm*32 .. +31
-  const int wn = warp & 1;    // warp col: output cols wn*64 .. +63
-  const int bm0 = blockIdx.y * kTcBM, bn0 = blockIdx.x * kTcBN;
-  const int gr = byte_rows(g, kBits);
-  const int KB = byte_rows(K, kBits);
-  const int cgp = tid & 15;   // the thread's 8-column group in the tile
-  const int n = bn0 + cgp * 8;
-
-  uint4 xr[kXVec];
-  uint2 wr[kWVec];
-  uint4 sr = make_uint4(0u, 0u, 0u, 0u), zr = sr;
-
-  auto fetch = [&](int r0) {
-    const int j = r0 / gr;
-    const int kb = kBits == 4 ? j * g + (r0 - j * gr) : r0;
-#pragma unroll
-    for (int i = 0; i < kXVec; ++i) {
-      const int idx = tid + i * kTcThreads, m = idx >> 3, v = idx & 7;
-      const int k = kBits == 4 ? kb + (v < 4 ? v * 8 : gr + (v - 4) * 8)
-                               : kb + v * 8;
-      xr[i] = (bm0 + m < M) ? __ldg(reinterpret_cast<const uint4*>(
-                                  x + (size_t)(bm0 + m) * K + k))
-                            : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int i = 0; i < kWVec; ++i) {
-      const int rr = (tid + i * kTcThreads) >> 4;
-      wr[i] = n < N ? __ldg(reinterpret_cast<const uint2*>(
-                          w + (size_t)(r0 + rr) * N + n))
-                    : make_uint2(0u, 0u);
-    }
-    if (n < N) {
-      sr = __ldg(reinterpret_cast<const uint4*>(s + (size_t)j * N + n));
-      if (kAsym)
-        zr = __ldg(reinterpret_cast<const uint4*>(zp + (size_t)j * N + n));
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  fetch(0);
-  for (int r0 = 0; r0 < KB; r0 += kBR) {
-    __syncthreads();   // the previous step's tiles are consumed
-#pragma unroll
-    for (int i = 0; i < kXVec; ++i) {
-      const int idx = tid + i * kTcThreads, m = idx >> 3, v = idx & 7;
-      *reinterpret_cast<uint4*>(xs + m * kXsLd + v * 8) = xr[i];
-    }
-#pragma unroll
-    for (int i = 0; i < kWVec; ++i) {
-      const int rr = (tid + i * kTcThreads) >> 4;
-      if constexpr (kBits == 4)
-        // tile column c < 32: low-nibble row of byte row r0 + c; else high
-        store_dequant4<kAsym>(ws + rr * kWsLd + cgp * 8,
-                              ws + (rr + kBR) * kWsLd + cgp * 8, wr[i], sr,
-                              zr);
-      else
-        store_dequant8<kAsym>(ws + rr * kWsLd + cgp * 8, wr[i], sr, zr);
-    }
-    __syncthreads();
-    if (r0 + kBR < KB) fetch(r0 + kBR);   // in flight during the MMAs
-#pragma unroll
-    for (int kk = 0; kk < kTcBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> bf[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], xs + (wm * 32 + i * 16) * kXsLd + kk,
-                               kXsLd);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(bf[j], ws + kk * kWsLd + wn * 64 + j * 16,
-                               kWsLd);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::mma_sync(acc[i][j], a[i], bf[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(cs[warp], acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int m = bm0 + wm * 32 + i * 16 + (e >> 4);
-        const int nn = bn0 + wn * 64 + j * 16 + (e & 15);
-        if (m < M && nn < N)
-          y[(size_t)m * N + nn] = __float2bfloat16(cs[warp][e]);
-      }
-      __syncwarp();
-    }
-}
-
 int gemv_splits(int K, int bits) {
   return (byte_rows(K, bits) + kGemvRows - 1) / kGemvRows;
 }
@@ -510,14 +327,14 @@ void gemv_any(const Args& a) {
     a.zp ? gemv<kGrouped, 8, true>(a) : gemv<kGrouped, 8, false>(a);
 }
 
-template <int kBits, bool kAsym>
-void tc(const Args& a) {
-  dim3 grid((a.N + kTcBN - 1) / kTcBN, (a.M + kTcBM - 1) / kTcBM);
-  qmm_tc_kernel<kBits, kAsym><<<grid, kTcThreads, 0, a.stream>>>(
-      a.x, a.w, a.s, a.zp, a.y, a.M, a.K, a.N, a.g);
-}
-
 }  // namespace
+
+namespace ti {   // qmm_tc.cu: the tensor-core path (M > 16)
+long long qmm_tc_workspace(int M, int K, int N, int bits);
+int qmm_tc(const void* x, const void* w, const void* s, const void* zp,
+           void* y, void* partial, int M, int K, int N, int g, int bits,
+           cudaStream_t stream);
+}  // namespace ti
 
 extern "C" {
 
@@ -526,7 +343,8 @@ int ti_qmm_gemv_max_m() { return 16; }
 
 // f32 scratch elements the call needs (split-K partials); 0 if none.
 long long ti_qmm_workspace(int M, int K, int N, int bits) {
-  if (M > ti_qmm_gemv_max_m() || gemv_splits(K, bits) <= 1) return 0;
+  if (M > ti_qmm_gemv_max_m()) return ti::qmm_tc_workspace(M, K, N, bits);
+  if (gemv_splits(K, bits) <= 1) return 0;
   return (long long)gemv_splits(K, bits) * M * N;
 }
 
@@ -546,12 +364,10 @@ int ti_qmm(const void* x, const void* w, const void* s, const void* zp,
                static_cast<const __nv_bfloat16*>(zp), nullptr, 0,
                static_cast<__nv_bfloat16*>(y), static_cast<float*>(partial),
                1, M, K, N, g, bits, static_cast<cudaStream_t>(stream)};
-  if (M <= ti_qmm_gemv_max_m())
-    gemv_any<false>(a);
-  else if (bits == 4)
-    zp ? tc<4, true>(a) : tc<4, false>(a);
-  else
-    zp ? tc<8, true>(a) : tc<8, false>(a);
+  if (M > ti_qmm_gemv_max_m())
+    return ti::qmm_tc(x, w, s, zp, y, partial, M, K, N, g, bits,
+                      a.stream);
+  gemv_any<false>(a);
   return ti::launch_status();
 }
 

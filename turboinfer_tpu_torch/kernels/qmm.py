@@ -1,5 +1,5 @@
-"""Fused int4/int8 dequant x matmul: the wrappers of csrc/qmm.cu and
-csrc/qmm_a8.cu.
+"""Fused int4/int8 dequant x matmul: the wrappers of csrc/qmm.cu (with
+csrc/qmm_tc.cu, its wgmma path for M > 16) and csrc/qmm_a8.cu.
 
 qmm_int4 and qmm_int8 are the counterparts of
 turboinfer_tpu/kernels/pallas/qmm.py qmatmul_pallas_stacked and
