@@ -5,18 +5,21 @@
 
 Phases:
   1. environment: card name and power limit, torch/CUDA versions, and the
-     build of the CUDA kernels from csrc/ (timed);
+     build of the CUDA kernels from csrc/ (timed; ptxas registers, spills
+     and wgmma warnings of the tensor-core qmm and flash kernels);
   2. kernels: each hand-written kernel against its plain PyTorch version
      at the shapes of the paths below (the paged kernel at decode G=1 and
      verify G=5, qmm also at M=40 and M=256, the grouped qmm at
      Mixtral's expert shapes on the full 256-plane stack, the attention
      kernels also at Mixtral's GQA Hq=32 Hkv=8 D=128), timed with CUDA
      events beside its bound and one PyTorch library call computing the
-     same function;
+     same function (the flash rows also beside SDPA's is_causal form
+     where every sequence fills S from position 0);
   3. main path: the 7B-shape int4 (g=64) model, 32 layers, random weights
      from a seed, served through InferenceEngine.generate_batch for 8
      prompts of 512 tokens and 128 new tokens, greedy and sampled; every
-     kernel's launch count is checked against the model's structure;
+     kernel's launch count is checked against the model's structure; a
+     traced prefill gives the flash kernel's share of its device time;
   4. kernels against plain versions on the same path: 7B shape, 2 layers,
      prefill and first decode-step logits, greedy-token agreement;
   5. the tiny int4 fixture (D=32, K=128) through generate_batch, then
@@ -84,16 +87,16 @@ Phases:
      at Mixtral's attention, head and expert planes at (c)'s shapes, at
      GPT-OSS's K=2880 and 64-column-tail shapes, qmm_int4 with zero
      points, and qmm_int8_grouped on 64-plane expert stacks.
- 12. W4A8 (TURBOINFER_QMM_A8=1): the 7B with int4 symmetric g=256
-     weights, L=32: (a) generate_batch B=8, prompts 512, 64 new, greedy,
-     4 W4A8 products a layer in the prefill and none in decode or the
-     head (M=8), prefill and decode traced; (d) the same with the env
-     unset (no W4A8 launch), interleaved with (a) so their prefill times
-     compare; (b) B=16, prompts 128, 32 new: every product on
-     qmm_int4_a8; (c) paged speculative rounds as phase 7, the verify
-     (M=40) on qmm_int4_a8; (e) at L=2 kernels against plain versions,
-     W4A8 on both sides, within 5% of max|logit| and phase 11's tie
-     rule. Phase 2 also holds a8_quantize_rows byte for byte and
+ 12. W4A8 (TURBOINFER_QMM_A8=1): the 7B with int4 symmetric g=256 weights,
+     L=32: (a) generate_batch B=8, prompts 512, 64 new, greedy, 4 W4A8
+     products a layer in the prefill and none in decode or the head (M=8),
+     prefill (with the flash share) and decode traced; (d) the same with
+     the env unset (no W4A8 launch, prefill traced too), interleaved with
+     (a) so their prefill times compare; (b) B=16, prompts 128, 32 new:
+     every product on qmm_int4_a8; (c) paged speculative rounds as phase
+     7, the verify (M=40) on qmm_int4_a8; (e) at L=2 kernels against plain
+     versions, W4A8 on both sides, within 5% of max|logit| and phase 11's
+     tie rule. Phase 2 also holds a8_quantize_rows byte for byte and
      qmm_int4_a8 bit for bit against their plain versions at the 7B's
      projections (M = 16, 40, 256, 4096), timed beside the int8
      tensor-core bound and a torch._int_mm yardstick.
@@ -122,7 +125,8 @@ ROOT_REPLACES = {
     "qmm_int4": "turboinfer_tpu/kernels/pallas/qmm.py:957; "
                 "turboinfer_tpu/kernels/pallas/qmm.py:76 (asym); "
                 "turboinfer_tpu/kernels/pallas/qmm.py:780 (asym)",
-    "flash_prefill": "turboinfer_tpu/kernels/pallas/flash_attention.py:314",
+    "flash_prefill": "turboinfer_tpu/kernels/pallas/flash_attention.py:314; "
+                     "turboinfer_tpu/kernels/pallas/flash_attention.py:205",
     "cache_write_fresh": "turboinfer_tpu/kernels/pallas/cache_write.py:58",
     "kv_encode_write": "turboinfer_tpu/kernels/pallas/cache_write.py:58",
     "decode_attention": "turboinfer_tpu/kernels/pallas/decode_attention.py:447; "
@@ -143,7 +147,10 @@ ROOT_REPLACES = {
 SOURCES = {
     "qmm_int4": "turboinfer_tpu_torch/csrc/qmm.cu; "
                 "turboinfer_tpu_torch/csrc/qmm_tc.cu (M > 16)",
-    "flash_prefill": "turboinfer_tpu_torch/csrc/flash_prefill.cu",
+    "flash_prefill": "turboinfer_tpu_torch/csrc/flash_prefill.cuh; "
+                     "turboinfer_tpu_torch/csrc/flash_prefill.cu; "
+                     "turboinfer_tpu_torch/csrc/flash_prefill_int8.cu; "
+                     "turboinfer_tpu_torch/csrc/flash_prefill_fp8.cu",
     "cache_write_fresh": "turboinfer_tpu_torch/csrc/cache_write.cu",
     "kv_encode_write": "turboinfer_tpu_torch/csrc/cache_write.cu",
     "decode_attention": "turboinfer_tpu_torch/csrc/decode_attention.cu",
@@ -252,6 +259,52 @@ def qmm_tc_ptxas(report: str):
                        f"spilled, {qmm_tc_smem(bits, asym, bt)} bytes of "
                        f"dynamic shared memory")
             name = None
+    return out
+
+
+FLASH_KV = {"13__nv_bfloat16": "bf16", "a": "int8", "h": "fp8"}
+
+
+def flash_smem(D: int, kv: str) -> int:
+    """Dynamic shared memory of flash_prefill_kernel<D, kv>, as its Layout
+    in csrc/flash_prefill.cuh computes it."""
+    k8, tile = kv != "bf16", 128 * D * 2
+    fill = 2 * 128 * D if k8 else 2 * tile
+    stage_off = 2 * 64 * D * 2 + (4 * tile + 2 * 2 * 128 * 4 if k8 else 0)
+    stages = min(3, (227 * 1024 - 1024 - 128 - stage_off) // fill)
+    return 1024 + stage_off + stages * fill + 128
+
+
+def flash_ptxas(reports):
+    """One line per flash prefill kernel of the ptxas reports of
+    flash_prefill*.cu: registers, spills, dynamic shared memory, and any
+    wgmma warning (serialized wgmmas) ptxas printed for it."""
+    out = []
+    for fname in sorted(reports):
+        if not fname.startswith("flash_prefill"):
+            continue
+        name, spill, warns = None, 0, []
+        for line in reports[fname].splitlines():
+            m = re.search(r"Compiling entry function '.*flash_prefill_kernel"
+                          r"ILi(\d+)E(13__nv_bfloat16|a|h)E", line)
+            if m:
+                name, spill, warns = (int(m.group(1)),
+                                      FLASH_KV[m.group(2)]), 0, []
+                continue
+            if name and "wgmma" in line:
+                warns.append(line.strip())
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and name:
+                spill = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                D, kv = name
+                out.append(f"flash_prefill_kernel<D={D}, {kv}>: {m.group(1)} "
+                           f"registers, {spill} bytes spilled, "
+                           f"{flash_smem(D, kv)} bytes of dynamic shared "
+                           "memory; " + ("; ".join(warns) or
+                                         "no wgmma warning"))
+                name = None
     return out
 
 
@@ -604,6 +657,11 @@ def check_flash(torch, F, rows, results, B, Hq, Hkv, S, D, fill,
     kd, vd = dequant(torch, kt, ks), dequant(torch, vt, vs)
     lib_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
         qh, kd, vd, attn_mask=mask, enable_gqa=Hq != Hkv), 10)
+    # SDPA's causal form computes the same function only where every
+    # sequence starts at 0 and fills S (no padded keys)
+    causal_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qh, kd, vd, is_causal=True, enable_gqa=Hq != Hkv), 10) \
+        if all(a == 0 and f == S for a, f in zip(q_start, fill)) else None
     # work this data needs: valid query rows, each against its visible keys
     pairs = sum(a + s + 1 for a, f in zip(q_start, fill) for s in range(f))
     flops = 4.0 * D * Hq * pairs
@@ -612,11 +670,14 @@ def check_flash(torch, F, rows, results, B, Hq, Hkv, S, D, fill,
     row = dict(kernel="flash_prefill",
                shape=f"{what}B={B} Hq={Hq} Hkv={Hkv} S={S} D={D}",
                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-               library_ms=lib_ms, bound_ms=b, bound_by=by)
+               library_ms=lib_ms, library_causal_ms=causal_ms, bound_ms=b,
+               bound_by=by)
     rows.append(row)
+    causal = "" if causal_ms is None else \
+        f" library_causal_ms={causal_ms:.4f} (SDPA is_causal)"
     say(f"  flash_prefill {row['shape']}: max_abs_err={err:.4g} (tol {tol}) "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}) "
-        f"library_ms={lib_ms:.4f}")
+        f"library_ms={lib_ms:.4f}{causal}")
     if record:
         results["flash_prefill"] = row
 
@@ -937,6 +998,12 @@ def phase_kernels(torch, report):
                 record=False)
     check_flash(torch, F, rows, results, 8, 32, 8, 512, 128,
                 [512, 500, 384, 300, 257, 128, 64, 1], record=False)
+    # every row full (kv_len = S, q_start 0), where SDPA's is_causal form
+    # computes the same function: the 7B and Mixtral shapes
+    check_flash(torch, F, rows, results, 8, 32, 32, 512, 128, [512] * 8,
+                record=False)
+    check_flash(torch, F, rows, results, 1, 32, 8, 1024, 128, [1024],
+                record=False)
     check_decode(torch, F, rows, results, 1, 32, 8, 2048, 128, [1128],
                  record=False)
     check_decode(torch, F, rows, results, 8, 32, 8, 2048, 128,
@@ -1169,6 +1236,29 @@ def trace_steps(torch, step, steps: int, label: str):
     return res
 
 
+def trace_prefill(torch, eng, prompts, label: str, steps: int = 2):
+    """trace_steps over generate_batch's prefill (a cache taken and given
+    back each time), plus the flash prefill kernel's device ms and its
+    share of the prefill's device time."""
+    B = len(prompts)
+    tokens, seq_lens, _ = eng._pad_batch(prompts)
+
+    def prefill():
+        cache = eng._take_cache(B)
+        eng._run_prefill(tokens, seq_lens, cache)
+        eng._put_cache(B, cache)
+    res = trace_steps(torch, prefill, steps, label)
+    busy = res["device_busy_ms_per_step"]
+    flash = sum(v for k, v in res["device_ms_per_step_by_kernel"].items()
+                if "flash_prefill" in k)
+    res.update(flash_ms_per_step=flash,
+               flash_share=flash / busy if busy else None)
+    if busy:
+        say(f"  {label}: flash prefill {flash:.3f} of {busy:.3f} device ms a "
+            f"prefill (share {flash / busy:.3f})")
+    return res
+
+
 def trace_decode(torch, eng, prompts, steps: int = 8):
     """trace_steps over greedy decode steps of generate_batch's path."""
     B = len(prompts)
@@ -1256,6 +1346,8 @@ def phase_main(torch, report):
     report["main_path"] = dict(config="llama7b int4 g=64 L=32 B=8 S=512 "
                                "new=128 max_seq=1024", runs=out,
                                expected_launches=want, peak_gib=peak,
+                               prefill_trace=trace_prefill(torch, eng, prompts,
+                                                           "prefill"),
                                decode_trace=trace_decode(torch, eng, prompts))
     del eng
     torch.cuda.empty_cache()
@@ -2724,17 +2816,11 @@ def phase_w4a8(torch, report):
         same = sum(x == y for ra, rd in zip(toks["a"], toks["d"])
                    for x, y in zip(ra, rd)) / (B * NEW)
         a8(True)
-        tokens, seq_lens, _ = eng._pad_batch(prompts)
-
-        def prefill():
-            cache = eng._take_cache(B)
-            eng._run_prefill(tokens, seq_lens, cache)
-            eng._put_cache(B, cache)
-        trace_a = trace_steps(torch, prefill, 2, "(a) W4A8 prefill")
+        trace_a = trace_prefill(torch, eng, prompts, "(a) W4A8 prefill")
         dec_a = trace_decode(torch, eng, prompts)
         a8(False)
-        trace_d = trace_steps(torch, prefill, 2, "(d) bf16-activation "
-                              "prefill")
+        trace_d = trace_prefill(torch, eng, prompts,
+                                "(d) bf16-activation prefill")
         out["a"] = dict(runs=runs["a"], expected_launches=want_a,
                         prefill_ms_median=pa, prefill_trace=trace_a,
                         decode_trace=dec_a)
@@ -2841,6 +2927,8 @@ def main(argv=None) -> int:
                 f"bytes stored)")
         for line in qmm_tc_ptxas(ptxas.get("qmm_tc.cu", "")):
             say(f"  ptxas qmm_tc.cu {line}")
+        for line in flash_ptxas(ptxas):
+            say(f"  ptxas {line}")
         report["env"] = dict(card=smi, torch=torch.__version__,
                              cuda=torch.version.cuda, build_s=build_s,
                              ptxas=ptxas)

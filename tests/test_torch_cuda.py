@@ -503,6 +503,102 @@ def test_cuda_flash_prefill_stacked_compressed_matches_plain(kind, D, Hq, Hkv):
     torch.testing.assert_close(got, want, atol=2e-2, rtol=2.0 ** -7)
 
 
+GQA_GROUPS = [(4, 4), (4, 2), (8, 2), (16, 2), (6, 2)]   # gh 1, 2, 4, 8, 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [None, *KINDS], ids=["bf16", *KINDS])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("Hq,Hkv", GQA_GROUPS)
+def test_cuda_flash_prefill_gqa_stacked_matches_plain(kind, D, Hq, Hkv):
+    """The stacked read with a query head group packed into each tile's
+    rows (gh = Hq/Hkv 1, 2, 4, 8 and 3): S=200 (not a multiple of a
+    tile), q_start > 0 with kv_len < q_start + S (rows past kv_len see
+    every key), query tiles straddling kv_len, T=384 (three key tiles);
+    a repeated call gives the same bits."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(D * Hq + Hkv)
+    L, B, S, T = 2, 3, 200, 384
+    if kind is None:
+        kc = torch.randn((L, B, Hkv, T, D), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        vc = torch.randn((L, B, Hkv, T, D), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        sc = (None, None)
+    else:
+        kc, ks = _compressed(gen, (L, B, Hkv, T, D), kind)
+        vc, vs = _compressed(gen, (L, B, Hkv, T, D), kind)
+        sc = (None, None) if ks is None else (ks[1], vs[1])
+    q = torch.randn((B, S, Hq, D), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    q_start = torch.tensor([0, 37, 150], dtype=torch.int32, device="cuda")
+    kv_len = torch.tensor([200, 150, 170], dtype=torch.int32, device="cuda")
+    got = flash_attention.flash_prefill(q, kc[1], vc[1], kv_len, q_start, *sc)
+    again = flash_attention.flash_prefill(q, kc[1], vc[1], kv_len, q_start,
+                                          *sc)
+    want = flash_attention.prefill_plain(q, kc[1], vc[1], kv_len, q_start,
+                                         *sc)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2.0 ** -7)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("Hq,Hkv", GQA_GROUPS)
+@pytest.mark.parametrize("B,S,fill", [(2, 80, [77, 80]), (1, 200, [200]),
+                                      (1, 1024, [1000])],
+                         ids=["S80", "S200", "B1-S1024"])
+def test_cuda_flash_prefill_gqa_fresh_matches_plain(D, Hq, Hkv, B, S, fill):
+    """The fresh read (K/V [B, S, Hkv, D] transposed by strides) with GQA
+    packing: S=80 fill 77 and S=200 (tiles not filled), and a B=1 shape
+    with few blocks (S=1024 fill 1000, the last query tile past kv_len)."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(D + Hq * Hkv + S)
+
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = rnd(B, S, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+    kv_len = torch.tensor(fill, dtype=torch.int32, device="cuda")
+    q0 = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    got = flash_attention.flash_prefill(q, kt, vt, kv_len, q0)
+    want = flash_attention.prefill_plain(q, kt, vt, kv_len, q0)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2.0 ** -7)
+    assert torch.equal(got, flash_attention.flash_prefill(q, kt, vt, kv_len,
+                                                          q0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [None, *KINDS], ids=["bf16", *KINDS])
+def test_cuda_flash_prefill_wide_group(kind):
+    """A group wider than a 64-row tile (Hq/Hkv = 96, one kv head): each
+    block packs 48 of the heads at one position a warpgroup, D=64."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(96)
+    L, B, S, T, Hq, Hkv, D = 2, 2, 40, 160, 96, 1, 64
+    if kind is None:
+        kc = torch.randn((L, B, Hkv, T, D), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        vc = torch.randn((L, B, Hkv, T, D), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        sc = (None, None)
+    else:
+        kc, ks = _compressed(gen, (L, B, Hkv, T, D), kind)
+        vc, vs = _compressed(gen, (L, B, Hkv, T, D), kind)
+        sc = (None, None) if ks is None else (ks[1], vs[1])
+    q = torch.randn((B, S, Hq, D), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    q_start = torch.tensor([3, 100], dtype=torch.int32, device="cuda")
+    kv_len = torch.tensor([43, 120], dtype=torch.int32, device="cuda")
+    got = flash_attention.flash_prefill(q, kc[1], vc[1], kv_len, q_start, *sc)
+    want = flash_attention.prefill_plain(q, kc[1], vc[1], kv_len, q_start,
+                                         *sc)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2.0 ** -7)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", list(KINDS))
 @pytest.mark.parametrize("D,Hq,Hkv,page,G", [(128, 32, 32, 256, 1),

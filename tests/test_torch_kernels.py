@@ -171,6 +171,35 @@ def test_prefill_stacked_layer_read_matches_pallas():
         assert _rel(got.numpy(), want) < KERNEL_RTOL
 
 
+@pytest.mark.parametrize("Hq,Hkv", [(6, 2), (16, 2)], ids=["gh3", "gh8"])
+@pytest.mark.parametrize("stacked", [False, True], ids=["fresh", "stacked"])
+def test_prefill_plain_matches_pallas_gqa_groups(Hq, Hkv, stacked):
+    """The GQA groups the CUDA kernel packs into a tile's rows, gh = 3
+    (not a divisor of its 64 rows) and 8: the fresh read with kv_len < S
+    on one row, and the stacked read of a chunk with kv_len < q_start + S
+    (rows past kv_len see every key), the reference the card holds the
+    kernel against at those edges."""
+    rng = _rng(22 + Hq)
+    L, B, S, D = 2, 2, 24, 64
+    T = 64 if stacked else S
+    q = rng.normal(size=(B, S, Hq, D)).astype(np.float32)
+    lead = (L, B) if stacked else (B,)
+    k = rng.normal(size=lead + (Hkv, T, D)).astype(np.float32)
+    v = rng.normal(size=lead + (Hkv, T, D)).astype(np.float32)
+    q_start = np.array([20, 3] if stacked else [0, 0], np.int32)
+    kv_len = np.array([37, 19] if stacked else [24, 17], np.int32)
+    want = jfa.prefill_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        kv_len=jnp.asarray(kv_len), q_start=jnp.asarray(q_start),
+        layer_index=jnp.int32(1) if stacked else None, interpret=True)
+    assert want is not None
+    got = dispatch.attention_prefill(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        kv_len=torch.from_numpy(kv_len), q_start=torch.from_numpy(q_start),
+        layer_index=1 if stacked else None)
+    assert _rel(got.numpy(), want) < KERNEL_RTOL
+
+
 def test_cache_write_plain_matches_pallas():
     rng = _rng(30)
     L, B, Hkv, T, D, S = 2, 2, 4, 16, 128, 8

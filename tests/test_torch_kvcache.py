@@ -226,6 +226,32 @@ def test_stacked_prefill_plain_matches_pallas(kind):
 
 
 @pytest.mark.parametrize("kind", list(KV))
+@pytest.mark.parametrize("gh", [3, 8])
+def test_stacked_prefill_plain_matches_pallas_gqa_chunk(kind, gh):
+    """The compressed stacked read at the GQA groups the CUDA kernel packs
+    into a tile's rows (gh = 3 and 8), for a chunk with kv_len < q_start
+    + S on both rows: the rows past kv_len see every key."""
+    rng = np.random.default_rng(40 + gh)
+    L, B, S, Hkv, T, D = 2, 2, 24, 2, 64, 64
+    jk, jks, tk, tks = _store(rng, (L, B, Hkv, T, D), kind)
+    jv, jvs, tv, tvs = _store(rng, (L, B, Hkv, T, D), kind, big=True)
+    q = rng.normal(size=(B, S, gh * Hkv, D)).astype(np.float32)
+    q_start = np.array([20, 3], np.int32)
+    kv = np.array([37, 19], np.int32)
+    want = jfa.prefill_pallas(jnp.asarray(q), jk, jv, causal=True,
+                              kv_len=jnp.asarray(kv),
+                              q_start=jnp.asarray(q_start),
+                              layer_index=jnp.int32(1), k_scale=jks,
+                              v_scale=jvs, interpret=True)
+    assert want is not None
+    sc = (None, None) if tks is None else (tks[1], tvs[1])
+    got = tfa.flash_prefill(torch.from_numpy(q), tk[1], tv[1],
+                            torch.from_numpy(kv), torch.from_numpy(q_start),
+                            *sc)
+    assert _rel(got.numpy(), np.asarray(want)) < KERNEL_RTOL
+
+
+@pytest.mark.parametrize("kind", list(KV))
 @pytest.mark.parametrize("G", [1, 4])
 def test_paged_plain_matches_pallas(kind, G):
     """Paged decode and verify over int8 pages (scale pages through the

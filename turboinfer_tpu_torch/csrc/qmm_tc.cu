@@ -70,11 +70,11 @@
 // always go through TMA (their rows are 2K and 2N bytes). TMA fills rows
 // and columns past the ends with zeros (x past M or K, the weight past N
 // or the plane), so tails add nothing, and the epilogue masks them.
-#include <cuda.h>
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using namespace ti::hw;
 
 constexpr int kGroups = 2;                        // warpgroups a block
 constexpr int kThreads = kGroups * 128;
@@ -106,45 +106,6 @@ struct Layout {
 // core groups 512 bytes apart (SBO 32 x 16 B), layout type 2.
 constexpr uint64_t kDescB64 = (1ull << 16) | (32ull << 32) | (2ull << 62);
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
-                                       uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 // 8 bytes global -> shared; src_bytes 0 writes zeros.
 __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
                                           int src_bytes) {
@@ -157,19 +118,6 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
                    bar)
                : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_n64(float* d, const uint32_t* a,
@@ -248,11 +196,6 @@ __device__ __forceinline__ uint32_t bf2_mul(uint32_t a, uint32_t b) {
 __device__ __forceinline__ uint32_t bf2_sub(uint32_t a, uint32_t b) {
   __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
                              *reinterpret_cast<const __nv_bfloat162*>(&b));
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
-__device__ __forceinline__ uint32_t f2_bf2(float lo, float hi) {
-  __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
@@ -633,59 +576,6 @@ __global__ void qmm_tc_reduce(const float* __restrict__ partial,
   }
   *reinterpret_cast<uint2*>(y + (size_t)m * N + n) =
       make_uint2(f2_bf2(v.x, v.y), f2_bf2(v.z, v.w));
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, looked up once through the
-// runtime (no -lcuda at link time).
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 2-D row-major map of rows x cols elements, row_bytes apart.
-bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
-                long long cols, long long rows, long long row_bytes,
-                int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int num_sms() {
-  static const int n = [] {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v > 0 ? v : 132;
-  }();
-  return n;
 }
 
 struct Plan {

@@ -1,4 +1,5 @@
-"""Causal GQA prefill attention: the wrapper of csrc/flash_prefill.cu.
+"""Causal GQA prefill attention: the wrapper of the wgmma/TMA kernel in
+csrc/flash_prefill.cuh (entry ti_flash_prefill in csrc/flash_prefill.cu).
 
 Counterpart of turboinfer_tpu/kernels/pallas/flash_attention.py
 prefill_pallas and _prefill_stacked. K/V are any [B, Hkv, T, D] view:
@@ -6,9 +7,9 @@ the fresh prefill passes the just-computed [B, S, Hkv, D] K/V transposed
 by strides, a stacked-cache read passes layer li of the cache; neither
 is copied. A cache read may be int8 with its f32 scale planes
 k_scale/v_scale [B, Hkv, T] (layer li of [L, B, Hkv, T]) or fp8 (uint8
-e4m3 bits); the kernel decodes the rows as it loads them. On a CUDA
-tensor the wrapper launches the kernel or raises; on a CPU tensor it
-runs prefill_plain.
+e4m3 bits); the kernel decodes each K/V tile to bf16 in shared memory.
+On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
+tensor it runs prefill_plain.
 """
 
 from __future__ import annotations
