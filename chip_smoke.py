@@ -6,15 +6,19 @@
 Phases:
   1. environment: card name and power limit, torch/CUDA versions, and the
      build of the CUDA kernels from csrc/ (timed; ptxas registers, spills
-     and wgmma warnings of the tensor-core qmm and flash kernels);
+     and wgmma warnings of the tensor-core qmm and flash kernels,
+     registers and spills of each decode attention and qmm GEMV
+     instance);
   2. kernels: each hand-written kernel against its plain PyTorch version
      at the shapes of the paths below (the paged kernel at decode G=1 and
-     verify G=5, qmm also at M=40 and M=256, the grouped qmm at
+     verify G=5, qmm also at M=40 and M=256 and, across the GEMV's
+     range, at M=1 and M=16 for the 7B's int4 and int8 projections, the
+     grouped qmm at
      Mixtral's expert shapes on the full 256-plane stack, the attention
      kernels also at Mixtral's GQA Hq=32 Hkv=8 D=128), timed with CUDA
      events beside its bound and one PyTorch library call computing the
-     same function (the flash rows also beside SDPA's is_causal form
-     where every sequence fills S from position 0);
+     same function, with their ratio (the flash rows also beside SDPA's
+     is_causal form where every sequence fills S from position 0);
   3. main path: the 7B-shape int4 (g=64) model, 32 layers, random weights
      from a seed, served through InferenceEngine.generate_batch for 8
      prompts of 512 tokens and 128 new tokens, greedy and sampled; every
@@ -29,7 +33,7 @@ Phases:
      24 requests submitted at once, 12 sharing a 512-token prefix, half
      greedy and half sampled, then one shared-prefix request again;
      launch counts checked step by step;
-  7. paged speculative serving: the same model with its first 4 layers
+  7. paged speculative serving: the same model with its first 2 layers
      as the draft, spec_k=4 (verify G=5), 8 greedy requests; verify
      logits against 5 chained decode steps on the same pages;
   8. Mixtral-8x7B int4 g=64 at full width and depth (L=32), random
@@ -304,6 +308,43 @@ def flash_ptxas(reports):
                            f"{flash_smem(D, kv)} bytes of dynamic shared "
                            "memory; " + ("; ".join(warns) or
                                          "no wgmma warning"))
+                name = None
+    return out
+
+
+def decode_gemv_ptxas(reports):
+    """One line per decode attention and qmm GEMV kernel instance of the
+    ptxas reports of decode_attention.cu and qmm.cu: template arguments,
+    registers and spills."""
+    kv = {"13__nv_bfloat16": "bf16", "a": "int8", "h": "fp8"}
+    out = []
+    for fname, kname in (("decode_attention.cu", "decode_row_kernel"),
+                         ("decode_attention.cu", "decode_gqa_kernel"),
+                         ("qmm.cu", "qmm_gemv_kernel")):
+        name, spill = None, 0
+        for line in reports.get(fname, "").splitlines():
+            m = re.search(rf"Compiling entry function '_Z\w*?{kname}I(\w+?)"
+                          r"EEv", line)
+            if m:
+                name, spill = m.group(1), 0
+                continue
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and name:
+                spill = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                t = re.match(r"(13__nv_bfloat16|a|h)?(.*)", name)
+                vals = re.findall(r"L[ib](\d+)E", t.group(2) + "E")
+                if kname.startswith("decode"):
+                    args = f"{kv[t.group(1)]}, D={vals[0]}"
+                else:
+                    bits, asym, mt, v16, grp = vals
+                    args = (f"int{bits}{', zp' if asym == '1' else ''}, "
+                            f"{8 * int(mt)} tokens, "
+                            f"{'16' if v16 == '1' else '8'}-byte rows"
+                            f"{', grouped' if grp == '1' else ''}")
+                out.append(f"{kname}<{args}>: {m.group(1)} registers, "
+                           f"{spill} bytes spilled")
                 name = None
     return out
 
@@ -596,12 +637,12 @@ def check_qmm_grouped(torch, rows, results, bits=4, asym=False, n=256,
                    f"M=1 K={K} N={N} (stack of {n})",
                    max_abs_err=worst[0], tol=worst[1], ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, per_slot_loop_ms=loop_ms, bound_ms=b,
-                   bound_by=by)
+                   bound_by=by, library_ratio=ms / lib_ms)
         rows.append(row)
         say(f"  {kname} {row['shape']}: kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}) library_ms="
             f"{lib_ms:.4f} (bmm, dequantized planes) two_qmm_int{bits}_ms="
-            f"{loop_ms:.4f}")
+            f"{loop_ms:.4f} kernel/library={ms / lib_ms:.2f}")
         if name == "we_gateup" and not asym:
             results[kname] = row
         del qt, wd
@@ -875,12 +916,14 @@ def check_decode(torch, F, rows, results, B, Hq, Hkv, T, D, lens,
                f"{'' if kind is None else f'kv={kind} '}"
                f"kv_len={list(lens)}", max_abs_err=err, tol=tol,
                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-               library_max_abs_err=lib_err, bound_ms=b, bound_by=by)
+               library_max_abs_err=lib_err, bound_ms=b, bound_by=by,
+               library_ratio=ms / lib_ms)
     rows.append(row)
     say(f"  decode_attention {row['shape']}: max_abs_err={err:.4g} "
         f"(tol {tol}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"bound_ms={b:.4f} ({by}) library_ms={lib_ms:.4f} (SDPA"
-        f"{', sink column' if sinks else ''}; its max_abs_err {lib_err:.4g})")
+        f"{', sink column' if sinks else ''}; its max_abs_err {lib_err:.4g}) "
+        f"kernel/library={ms / lib_ms:.2f}")
     if record:
         results["decode_attention"] = row
 
@@ -1028,6 +1071,11 @@ def phase_kernels(torch, report):
                      True)
     check_decode(torch, F, rows, results, 8, *gpt,
                  [1128, 1, 255, 256, 257, 384, 600, 2048], False, 128, False)
+    # a full layer at GPT-OSS's published context, 131072 rows: 1024
+    # slices a kv head for the merge (the block's shared memory does not
+    # grow with T)
+    check_decode(torch, F, rows, results, 1, 64, 8, 131072, 64, [131072],
+                 False, None, True)
     # the qmm at GPT-OSS's projection shapes (K=2880 is 45 groups; wo's
     # N=2880 leaves a 64-column tail in the 128-wide tile): decode at
     # M=1 and 8, phase 9's prefills at M=1024 (a) and 4096 (b)
@@ -1111,6 +1159,13 @@ def phase_kernels(torch, report):
               Ms=(8, 4096), record=False, bits=4, asym=True)
     check_qmm_grouped(torch, rows, results, bits=4, asym=True, n=64,
                       names=("we_gateup", "we_down"))
+    # the GEMV across its M range: the 7B's int4 and int8 projections at
+    # M=1 (B=1 decode) and M=16 (B=16 decode, two token tiles)
+    for bits in (4, 8):
+        check_qmm(torch, rows, results, shapes=[
+            ("wqkv", 4096, 12288), ("wo", 4096, 4096),
+            ("w_gateup", 4096, 22016), ("w_down", 11008, 4096)],
+            Ms=(1, 16), record=False, bits=bits)
     # the tensor-core qmm (M > 16) at the 7B int4 projections at a short
     # verify or admission (M = 17, one 64-token tile) and a 128-token
     # one (split-K), and at Mixtral's int4 expert planes through the
@@ -1682,7 +1737,11 @@ def phase_speculative(torch, report, kv: str = "model", model=None,
     from turboinfer_tpu_torch.engine import paged_cache
     from turboinfer_tpu_torch.engine.scheduler import PagedContinuousScheduler
     from turboinfer_tpu_torch.models import llama
-    L, T, B, PAGE, K, DL = 32, 1024, 8, 256, 4, 4
+    # The draft is the first 2 layers: on these synthetic weights the
+    # target's layers 5-32 flip no greedy token, so a 4-layer draft would
+    # match it on every proposal, and the check below needs the verify to
+    # reject some.
+    L, T, B, PAGE, K, DL = 32, 1024, 8, 256, 4, 2
     say(f"{'phase 7' if kv == 'model' and not tag else '  (c)'}: paged "
         f"speculative serving, 7B shape int4, L={L}, draft = first {DL} "
         f"layers, spec_k={K}, 8 greedy requests x 48 tokens, "
@@ -2928,6 +2987,8 @@ def main(argv=None) -> int:
         for line in qmm_tc_ptxas(ptxas.get("qmm_tc.cu", "")):
             say(f"  ptxas qmm_tc.cu {line}")
         for line in flash_ptxas(ptxas):
+            say(f"  ptxas {line}")
+        for line in decode_gemv_ptxas(ptxas):
             say(f"  ptxas {line}")
         report["env"] = dict(card=smi, torch=torch.__version__,
                              cuda=torch.version.cuda, build_s=build_s,

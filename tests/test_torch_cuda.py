@@ -793,3 +793,204 @@ def test_cuda_decode_compressed_window_sinks_match_plain(kind, window, lens):
     want = decode_attention.decode_plain(q, kc, vc, kv_len, 1, window, snk,
                                          ks, vs).float()
     torch.testing.assert_close(got, want, atol=1e-2, rtol=2.0 ** -7)
+
+
+# The decode kernels' slices (csrc/decode_attention.cu plan_of): gh 1 (the
+# CUDA-core kernel, 64-row slices) and 2, 4, 8 and 3 (the tensor-core
+# kernel, 128-row slices); one sequence and 16; kv_len 1, T and across
+# slice edges; windows below a slice, straddling slice edges and past
+# kv_len; sinks on every other window.
+DECODE_GROUPS = [(4, 4), (4, 2), (8, 2), (16, 2), (6, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [None, *KINDS], ids=["bf16", *KINDS])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("Hq,Hkv", DECODE_GROUPS)
+@pytest.mark.parametrize("B", [1, 16])
+def test_cuda_decode_slices_match_plain(kind, D, Hq, Hkv, B):
+    _need_cuda()
+    from turboinfer_tpu_torch.kernels import _build
+    gen = torch.Generator(device="cuda").manual_seed(D * Hq + B)
+    L, T = 2, 320
+    if kind is None:
+        kc = torch.randn((L, B, Hkv, T, D), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        vc = torch.randn((L, B, Hkv, T, D), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        ks = vs = None
+    else:
+        kc, ks = _compressed(gen, (L, B, Hkv, T, D), kind)
+        vc, vs = _compressed(gen, (L, B, Hkv, T, D), kind)
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+    snk = (2 * torch.randn((Hq,), generator=gen, device="cuda")
+           ).to(torch.bfloat16).float()
+    lens = ([[1], [33], [T]] if B == 1 else
+            [[1, T, 31, 32, 33, 63, 64, 65, 100, 127, 128, 129, 200, 255,
+              256, 319]])
+    for i, (window, ln) in enumerate(
+            (w, ln) for w in (None, 7, 40, 1000) for ln in lens):
+        kv_len = torch.tensor(ln, dtype=torch.int32, device="cuda")
+        sinks = snk if i % 2 else None
+        got = decode_attention.decode_attention(q, kc, vc, kv_len, 1, window,
+                                                sinks, ks, vs)
+        want = decode_attention.decode_plain(q, kc, vc, kv_len, 1, window,
+                                             sinks, ks, vs)
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                                   rtol=2.0 ** -7)
+        assert torch.equal(got, decode_attention.decode_attention(
+            q, kc, vc, kv_len, 1, window, sinks, ks, vs))
+    torch.cuda.synchronize()
+    assert not _build.counters(q.device, B * Hkv)[:B * Hkv].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [None, "int8"], ids=["bf16", "int8"])
+@pytest.mark.parametrize("Hq,Hkv", [(16, 2), (2, 2)], ids=["gqa", "lone"])
+def test_cuda_decode_long_context_matches_plain(kind, Hq, Hkv):
+    """T = 40000: 313 sub-slices of 128 rows (a GQA group) or 625 of 64
+    (a lone head), past the 64 slices a kv head takes, so each block
+    reads 5 or 10 sub-slices in turn and the last block merges 63 slices
+    in two chunks of 32; kv_len T, mid-slice, 1 and in the second slice;
+    a window of 19200 rows; sinks; repeat calls bit-identical. One
+    sub-slice (a window of 64 rows) needs no scratch."""
+    _need_cuda()
+    from turboinfer_tpu_torch.kernels import _build
+    gen = torch.Generator(device="cuda").manual_seed(Hq + 40000)
+    L, B, T, D = 1, 4, 40000, 64
+    shape = (L, B, Hkv, T, D)
+    if kind is None:
+        kc = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        vc = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        ks = vs = None
+    else:
+        kc, ks = _compressed(gen, shape, kind)
+        vc, vs = _compressed(gen, shape, kind)
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+    snk = (2 * torch.randn((Hq,), generator=gen, device="cuda")
+           ).to(torch.bfloat16).float()
+    kv_len = torch.tensor([T, 33333, 1, 1000], dtype=torch.int32,
+                          device="cuda")
+    for window, sinks in ((None, snk), (None, None), (19200, snk)):
+        got = decode_attention.decode_attention(q, kc, vc, kv_len, 0, window,
+                                                sinks, ks, vs)
+        want = decode_attention.decode_plain(q, kc, vc, kv_len, 0, window,
+                                             sinks, ks, vs)
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                                   rtol=2.0 ** -7)
+        assert torch.equal(got, decode_attention.decode_attention(
+            q, kc, vc, kv_len, 0, window, sinks, ks, vs))
+    lib = _build.library()
+    assert lib.ti_decode_workspace(B, Hq, Hkv, T, D, 64) == 0
+    assert lib.ti_decode_workspace(B, Hq, Hkv, T, D, 0) == B * Hq * 63 * (D + 2)
+    torch.cuda.synchronize()
+    assert not _build.counters(q.device, B * Hkv)[:B * Hkv].any()
+
+
+QMM_KINDS = [(4, False), (4, True), (8, False), (8, True)]
+QMM_IDS = ["int4", "int4_zp", "int8", "int8_zp"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,asym", QMM_KINDS, ids=QMM_IDS)
+@pytest.mark.parametrize("M", range(1, 17))
+def test_cuda_qmm_gemv_every_m_matches_plain(bits, asym, M):
+    """The GEMV at every M of its range (one and two token tiles), N =
+    2880 (a 64-column strip tail), g = 64, 128 and 256; a repeat call
+    gives the same bits."""
+    _need_cuda()
+    g = (64, 128, 256)[M % 3]
+    K, N = 1536, 2880
+    gen = torch.Generator(device="cuda").manual_seed(M * 3 + bits + asym)
+    qt = _qtensor(gen, (2,), K, N, bits, asym, g)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    wrapper = qmm.qmm_int8 if bits == 8 else qmm.qmm_int4
+    got = wrapper(x, qt, 1)
+    want = qmm.qmatmul_plain(x, qt, 1).float()
+    assert (got.float() - want).abs().max().item() <= \
+        2e-2 * want.abs().max().item()
+    assert torch.equal(got, wrapper(x, qt, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,asym", QMM_KINDS, ids=QMM_IDS)
+@pytest.mark.parametrize("M,K,N,g", [(8, 11008, 4096, 64),
+                                     (1, 11008, 136, 128),
+                                     (16, 4096, 1000, 256),
+                                     (3, 2880, 2880, 64)])
+def test_cuda_qmm_gemv_split_k_repeats_its_bits(bits, asym, M, K, N, g):
+    """Split K (K = 11008: 172 steps), 8-byte weight rows (N = 136,
+    1000), and the last block's fixed-order sum: back-to-back calls on
+    one stream give the same bits and leave the counters zeroed."""
+    _need_cuda()
+    from turboinfer_tpu_torch.kernels import _build
+    gen = torch.Generator(device="cuda").manual_seed(K + N + bits + asym)
+    qt = _qtensor(gen, (2,), K, N, bits, asym, g)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    wrapper = qmm.qmm_int8 if bits == 8 else qmm.qmm_int4
+    outs = [wrapper(x, qt, 1) for _ in range(3)]
+    want = qmm.qmatmul_plain(x, qt, 1).float()
+    assert (outs[0].float() - want).abs().max().item() <= \
+        2e-2 * want.abs().max().item()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    torch.cuda.synchronize()
+    n = _build.library().ti_qmm_counters(N)
+    assert not _build.counters(x.device, n)[:n].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,asym", QMM_KINDS, ids=QMM_IDS)
+def test_cuda_qmm_grouped_split_k_repeats_its_bits(bits, asym):
+    """The grouped GEMV with split K over 8 planes: clamped slots (-1,
+    100), two rows a group, repeat calls bit-identical."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(11 + bits + asym)
+    K, N, G, M = 11008, 1024, 3, 2
+    qt = _qtensor(gen, (8,), K, N, bits, asym)
+    x = torch.randn((G, M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    s = torch.tensor([-1, 7, 100], dtype=torch.int32, device="cuda")
+    wrapper = qmm.qmm_int8_grouped if bits == 8 else qmm.qmm_int4_grouped
+    got = wrapper(x, qt, s)
+    want = qmm.qmatmul_grouped_plain(x, qt, s).float()
+    assert (got.float() - want).abs().max().item() <= \
+        2e-2 * want.abs().max().item()
+    assert torch.equal(got, wrapper(x, qt, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,asym", QMM_KINDS, ids=QMM_IDS)
+@pytest.mark.parametrize("M", [1, 9])
+def test_cuda_qmm_grouped_stays_inside_its_scratch(bits, asym, M):
+    """Two planes of N = 7168 (56 column blocks each): the launch plans
+    its split count over both groups' 112 blocks, more splits than one
+    group's 56 would take when the dequantization is heavy (zero points
+    or M > 8). The scratch ti_qmm_grouped_workspace sizes holds every
+    partial: a guard of NaNs past its end stays untouched, and the
+    result matches the plain version."""
+    _need_cuda()
+    from turboinfer_tpu_torch.kernels import _build
+    gen = torch.Generator(device="cuda").manual_seed(13 + bits + asym + M)
+    K, N, G = 4096, 7168, 2
+    qt = _qtensor(gen, (4,), K, N, bits, asym)
+    x = torch.randn((G, M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    s = torch.tensor([3, 0], dtype=torch.int32, device="cuda")
+    lib = _build.library()
+    nws = lib.ti_qmm_grouped_workspace(G, M, K, N, bits)
+    assert nws > 0                                       # split K
+    ws = torch.full((nws + G * M * N,), float("nan"), device="cuda")
+    y = torch.empty((G, M, N), dtype=torch.bfloat16, device="cuda")
+    cnt = _build.counters(x.device, G * lib.ti_qmm_counters(N))
+    zp = qt.zero_points
+    status = lib.ti_qmm_grouped(
+        x.data_ptr(), qt.data.data_ptr(), qt.scales.data_ptr(),
+        None if zp is None else zp.data_ptr(), s.data_ptr(), y.data_ptr(),
+        ws.data_ptr(), cnt.data_ptr(), G, M, K, N, qt.group_size, bits,
+        qt.data.shape[0], torch.cuda.current_stream().cuda_stream)
+    assert status == 0
+    torch.cuda.synchronize()
+    assert torch.isnan(ws[nws:]).all()
+    want = qmm.qmatmul_grouped_plain(x, qt, s).float()
+    assert (y.float() - want).abs().max().item() <= \
+        2e-2 * want.abs().max().item()
+    wrapper = qmm.qmm_int8_grouped if bits == 8 else qmm.qmm_int4_grouped
+    assert torch.equal(y, wrapper(x, qt, s))

@@ -126,6 +126,84 @@ __device__ __forceinline__ float merge_splits(const float* po,
   return o / fmaxf(l, 1e-30f);
 }
 
+// cp.async copies of one thread, global -> shared: kBytes (4, 8 or 16)
+// at dst, of which the first src_bytes come from src and the rest are
+// zeros (src_bytes 0 reads nothing). 16-byte copies bypass L1 (K/V rows
+// stream once); smaller ones go through it.
+template <int kBytes>
+__device__ __forceinline__ void async_copy(void* dst, const void* src,
+                                           int src_bytes = kBytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(d),
+                 "l"(src), "n"(kBytes), "r"(src_bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Arrival counters for a merge done by the last block of a group to
+// finish: every block of the group calls it after writing its partial
+// result; it returns true in exactly one block, the last, which then
+// reads the partials (with __ldcg: other SMs wrote them) and must set
+// *counter back to 0, so the zeroed buffer is zeroed again for the next
+// launch (and for CUDA-graph replays). Called by all threads of the
+// block; `flag` is a shared int. The barrier orders the block's writes
+// before thread 0's release, and its acquire before the block's reads.
+__device__ __forceinline__ bool last_to_arrive(int* counter, int expected,
+                                               int* flag) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int old;
+    asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], 1;"
+                 : "=r"(old)
+                 : "l"(counter)
+                 : "memory");
+    *flag = old == expected - 1;
+  }
+  __syncthreads();
+  return *flag;
+}
+
+// Lets `kernel` take up to `bytes` of dynamic shared memory (above 48 KB
+// only after this).
+template <typename F>
+inline int allow_smem(F kernel, int bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+// d (+)= a b: mma.sync m16n8k16, bf16 operands (a: 4 registers of the
+// 16 x 16 A fragment, b0 b1: the 16 x 8 B fragment), f32 sums.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 -> bf16x2 (lo in the low half), round to nearest even.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 
 }  // namespace ti

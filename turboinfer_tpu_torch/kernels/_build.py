@@ -35,16 +35,17 @@ _LLP = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
     "ti_qmm_gemv_max_m": ([], _I),
     "ti_qmm_workspace": ([_I] * 4, _LL),
-    "ti_qmm": ([_VP] * 6 + [_I] * 5 + [_VP], _I),
-    "ti_qmm_grouped": ([_VP] * 7 + [_I] * 7 + [_VP], _I),
+    "ti_qmm_grouped_workspace": ([_I] * 5, _LL),
+    "ti_qmm_counters": ([_I], _I),
+    "ti_qmm": ([_VP] * 7 + [_I] * 5 + [_VP], _I),
+    "ti_qmm_grouped": ([_VP] * 8 + [_I] * 7 + [_VP], _I),
     "ti_a8_quantize_rows": ([_VP] * 3 + [_I] * 2 + [_VP], _I),
     "ti_qmm_a8": ([_VP] * 5 + [_I] * 4 + [_VP], _I),
     "ti_flash_prefill": ([_VP] * 8 + [_I] * 7 + [_LLP, _F, _VP], _I),
     "ti_cache_write_fresh": ([_VP] * 4 + [_I] * 5 + [_LLP, _VP], _I),
     "ti_kv_encode_write": ([_VP] * 7 + [_I] * 4 + [_LL, _LL, _LLP, _VP], _I),
-    "ti_decode_split_rows": ([], _I),
-    "ti_decode_workspace": ([_I] * 4, _LL),
-    "ti_decode_attention": ([_VP] * 9 + [_I] * 7 + [_LLP, _F, _VP], _I),
+    "ti_decode_workspace": ([_I] * 6, _LL),
+    "ti_decode_attention": ([_VP] * 10 + [_I] * 7 + [_LLP, _F, _VP], _I),
     "ti_paged_workspace": ([_I] * 5, _LL),
     "ti_paged_attention": ([_VP] * 9 + [_I] * 10 + [_LLP, _F, _VP], _I),
 }
@@ -127,6 +128,30 @@ def library() -> ctypes.CDLL:
                 fn.restype = restype
             _lib = lib
         return _lib
+
+
+_counters: Dict[object, object] = {}
+COUNTERS_MIN = 1 << 16
+
+
+def counters(device, n: int):
+    """A buffer of at least n int32 zeros on `device`, kept for the
+    process: the arrival counters of the kernels that merge split results
+    in their last block (decode attention, the qmm GEMV). Every launch
+    leaves the counters it used at 0 again, so kernels launched in order on
+    one stream (CUDA-graph replays too) share it. It is made outside any
+    graph capture: growing it inside one raises."""
+    import torch
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise KernelError(f"{n} arrival counters needed while a CUDA "
+                              "graph is being captured: run the call once "
+                              "before capturing it")
+        buf = torch.zeros((max(n, COUNTERS_MIN),), dtype=torch.int32,
+                          device=device)
+        _counters[device] = buf
+    return buf
 
 
 def longlongs(*vals) -> ctypes.Array:

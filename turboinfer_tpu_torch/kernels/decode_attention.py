@@ -111,18 +111,18 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     vs = None if v_scale is None else v_scale[li].data_ptr()
     kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
+    win = 0 if window is None else int(window)
     lib = _build.library()
-    work = torch.empty((lib.ti_decode_workspace(B, Hq, T, D),),
-                       dtype=torch.float32, device=q.device)
+    nws = lib.ti_decode_workspace(B, Hq, Hkv, T, D, win)
+    work = torch.empty((max(nws, 1),), dtype=torch.float32, device=q.device)
     strides = _build.longlongs(q.stride(0), q.stride(1), kc.stride(0),
                                kc.stride(1))
     status = lib.ti_decode_attention(
         q.data_ptr(), kc.data_ptr(), vc.data_ptr(), ks, vs, out.data_ptr(),
-        work.data_ptr(), kv_len.data_ptr(),
-        None if sinks is None else sinks.data_ptr(), B, Hq, Hkv, T, D,
-        KV_DTYPES[k_cache.dtype], 0 if window is None else int(window),
-        strides, 1.0 / math.sqrt(D),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        work.data_ptr(), _build.counters(q.device, B * Hkv).data_ptr(),
+        kv_len.data_ptr(), None if sinks is None else sinks.data_ptr(), B,
+        Hq, Hkv, T, D, KV_DTYPES[k_cache.dtype], win, strides,
+        1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "decode_attention")
     decode_attention.launches += 1
     return out

@@ -218,9 +218,10 @@ def _qmm(x: torch.Tensor, qt: QTensor, layer_index: Optional[int],
     lib = _build.library()
     nws = lib.ti_qmm_workspace(M, K, N, bits)
     ws = torch.empty((max(nws, 1),), dtype=torch.float32, device=x.device)
+    cnt = _build.counters(x.device, lib.ti_qmm_counters(N))
     status = lib.ti_qmm(x2.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(),
-                        _ptr(w.zero_points), y.data_ptr(), ws.data_ptr(), M,
-                        K, N, qt.group_size, bits,
+                        _ptr(w.zero_points), y.data_ptr(), ws.data_ptr(),
+                        cnt.data_ptr(), M, K, N, qt.group_size, bits,
                         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, name)
     return y.reshape(*lead, N)
@@ -252,12 +253,13 @@ def _qmm_grouped(xg: torch.Tensor, qt: QTensor, slots: torch.Tensor,
     if G == 0 or M == 0:
         return y.reshape(*xg.shape[:-1], N)
     slots = slots.to(torch.int32).contiguous()
-    ws = torch.empty((max(G * lib.ti_qmm_workspace(M, K, N, bits), 1),),
-                     dtype=torch.float32, device=xg.device)
+    nws = lib.ti_qmm_grouped_workspace(G, M, K, N, bits)
+    ws = torch.empty((max(nws, 1),), dtype=torch.float32, device=xg.device)
+    cnt = _build.counters(xg.device, G * lib.ti_qmm_counters(N))
     status = lib.ti_qmm_grouped(
         x3.data_ptr(), qt.data.data_ptr(), qt.scales.data_ptr(),
         _ptr(qt.zero_points), slots.data_ptr(), y.data_ptr(), ws.data_ptr(),
-        G, M, K, N, qt.group_size, bits, qt.data.shape[0],
+        cnt.data_ptr(), G, M, K, N, qt.group_size, bits, qt.data.shape[0],
         torch.cuda.current_stream(xg.device).cuda_stream)
     _build.check(status, name)
     return y.reshape(*xg.shape[:-1], N)
