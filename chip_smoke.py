@@ -7,11 +7,12 @@ Phases:
   1. environment: card name and power limit, torch/CUDA versions, and the
      build of the CUDA kernels from csrc/ (timed; ptxas registers, spills
      and wgmma warnings of the tensor-core qmm and flash kernels,
-     registers and spills of each decode attention and qmm GEMV
-     instance);
+     registers and spills of each decode attention, paged attention and
+     qmm GEMV instance);
   2. kernels: each hand-written kernel against its plain PyTorch version
      at the shapes of the paths below (the paged kernel at decode G=1 and
-     verify G=5, qmm also at M=40 and M=256 and, across the GEMV's
+     verify G=5, also at Mixtral's GQA shape over bf16, int8 and fp8
+     pools, qmm also at M=40 and M=256 and, across the GEMV's
      range, at M=1 and M=16 for the 7B's int4 and int8 projections, the
      grouped qmm at
      Mixtral's expert shapes on the full 256-plane stack, the attention
@@ -32,7 +33,8 @@ Phases:
      PagedContinuousScheduler (8 slots, 256-token pages, max_seq 1024):
      24 requests submitted at once, 12 sharing a 512-token prefix, half
      greedy and half sampled, then one shared-prefix request again;
-     launch counts checked step by step;
+     launch counts checked step by step; an 8-step trace of the paged
+     decode step gives the paged kernel's device ms/step;
   7. paged speculative serving: the same model with its first 2 layers
      as the draft, spec_k=4 (verify G=5), 8 greedy requests; verify
      logits against 5 chained decode steps on the same pages;
@@ -312,14 +314,17 @@ def flash_ptxas(reports):
     return out
 
 
-def decode_gemv_ptxas(reports):
-    """One line per decode attention and qmm GEMV kernel instance of the
-    ptxas reports of decode_attention.cu and qmm.cu: template arguments,
-    registers and spills."""
+def merge_kernels_ptxas(reports):
+    """One line per instance of the kernels that merge in their last block
+    (decode attention, paged attention, the qmm GEMV) from the ptxas
+    reports of decode_attention.cu, paged_attention.cu and qmm.cu:
+    template arguments, registers and spills."""
     kv = {"13__nv_bfloat16": "bf16", "a": "int8", "h": "fp8"}
     out = []
     for fname, kname in (("decode_attention.cu", "decode_row_kernel"),
                          ("decode_attention.cu", "decode_gqa_kernel"),
+                         ("paged_attention.cu", "paged_row_kernel"),
+                         ("paged_attention.cu", "paged_tc_kernel"),
                          ("qmm.cu", "qmm_gemv_kernel")):
         name, spill = None, 0
         for line in reports.get(fname, "").splitlines():
@@ -335,7 +340,10 @@ def decode_gemv_ptxas(reports):
             if m and name:
                 t = re.match(r"(13__nv_bfloat16|a|h)?(.*)", name)
                 vals = re.findall(r"L[ib](\d+)E", t.group(2) + "E")
-                if kname.startswith("decode"):
+                if kname == "paged_tc_kernel":
+                    args = (f"{kv[t.group(1)]}, D={vals[0]}, "
+                            f"{8 * int(vals[1])}-row chunks")
+                elif kname != "qmm_gemv_kernel":
                     args = f"{kv[t.group(1)]}, D={vals[0]}"
                 else:
                     bits, asym, mt, v16, grp = vals
@@ -993,11 +1001,13 @@ def check_paged(torch, F, rows, results, B, Hq, Hkv, D, page, P, lens, G,
     b, by = bound_ms(nbytes, 4.0 * Hq * pairs * D)
     row = dict(kernel="paged_attention", shape=f"{what} B={B} P={P} "
                f"kv_len={list(lens)}", max_abs_err=err, tol=tol, ms=ms,
-               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b, bound_by=by)
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b, bound_by=by,
+               library_ratio=ms / lib_ms)
     rows.append(row)
     say(f"  paged_attention {row['shape']}: max_abs_err={err:.4g} (tol {tol}) "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}) "
-        f"library_ms={lib_ms:.4f} (SDPA, gather excluded)")
+        f"library_ms={lib_ms:.4f} (SDPA, gather excluded) "
+        f"kernel/library={ms / lib_ms:.2f} kernel/bound={ms / b:.2f}")
     if record:
         results["paged_attention"] = row
     del kp, vp, kg, vg
@@ -1053,6 +1063,14 @@ def phase_kernels(torch, report):
                  [513, 1, 575, 560, 530, 600, 512, 575], record=False)
     check_paged(torch, F, rows, results, 8, 32, 8, 128, 256, 33, paged_lens,
                 1, record=False)
+    # the same over 8-bit pools, and a spec_k=4 verify there (G=5: 20
+    # query rows a kv head) over every pool
+    for kind in KV_KINDS:
+        check_paged(torch, F, rows, results, 8, 32, 8, 128, 256, 33,
+                    paged_lens, 1, record=False, kind=kind)
+    for kind in (None, *KV_KINDS):
+        check_paged(torch, F, rows, results, 8, 32, 8, 128, 256, 33,
+                    paged_lens, 5, record=False, kind=kind)
     # GPT-OSS-20B's decode (Hq=64, Hkv=8, D=64, T=2048): its sliding
     # (window 128) and full layers with per-head sinks, phase 9's kv_len,
     # then the slice boundaries: kv_len 1, 255, 256, 257, a window start
@@ -1703,8 +1721,15 @@ def phase_serving(torch, report, kv: str = "model", model=None,
     for r in unique[:B]:
         sched.submit(r, 64, temperature=0.0)
     sched.step()                           # admissions and the first step
-    out["decode_trace"] = trace_steps(torch, sched.step, 8,
-                                      f"paged decode ({kv} pool)")
+    tr = out["decode_trace"] = trace_steps(torch, sched.step, 8,
+                                           f"paged decode ({kv} pool)")
+    tr["paged_ms_per_step"] = sum(
+        v for k, v in tr["device_ms_per_step_by_kernel"].items()
+        if "paged" in k)
+    if tr["busy_share"] is not None:
+        say(f"  paged attention {tr['paged_ms_per_step']:.3f} of "
+            f"{tr['device_busy_ms_per_step']:.3f} device ms/step, "
+            f"{tr['kernels_per_step']:.1f} kernels/step")
     sched.run()
     if kv == "model":
         report["paged_serving"] = out
@@ -2988,7 +3013,7 @@ def main(argv=None) -> int:
             say(f"  ptxas qmm_tc.cu {line}")
         for line in flash_ptxas(ptxas):
             say(f"  ptxas {line}")
-        for line in decode_gemv_ptxas(ptxas):
+        for line in merge_kernels_ptxas(ptxas):
             say(f"  ptxas {line}")
         report["env"] = dict(card=smi, torch=torch.__version__,
                              cuda=torch.version.cuda, build_s=build_s,

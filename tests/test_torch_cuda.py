@@ -994,3 +994,133 @@ def test_cuda_qmm_grouped_stays_inside_its_scratch(bits, asym, M):
         2e-2 * want.abs().max().item()
     wrapper = qmm.qmm_int8_grouped if bits == 8 else qmm.qmm_int4_grouped
     assert torch.equal(y, wrapper(x, qt, s))
+
+
+# -- paged attention: every query row of a kv head in one tile ---------------
+
+# (G, Hq, Hkv): R = G * Hq / Hkv query rows a kv head. R = 1 is the
+# CUDA-core kernel; 5 (a 7B verify, gh = 1) and 20 (Mixtral's gh = 4 at
+# G = 5) one tensor-core row chunk of 8 and 32 rows; 128 (G = 16, gh = 8)
+# four chunks of 32 over the same staged keys.
+PAGED_ROWS = [(1, 4, 4), (5, 4, 4), (5, 8, 2), (16, 8, 1)]
+PAGED_ROW_IDS = ["R1", "R5", "R20", "R128"]
+
+
+def _paged_pools(gen, shape, kind):
+    """bf16 K/V pools, or int8 (with scale pages) / fp8 by the plain codec
+    -> (k, v, k_scale, v_scale)."""
+    if kind is None:
+        k, v = (torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        return k, v, None, None
+    (k, ks), (v, vs) = _compressed(gen, shape, kind), _compressed(gen, shape,
+                                                                  kind)
+    return k, v, ks, vs
+
+
+def _paged_check(q, kp, vp, table, kv_len, li, ks, vs):
+    """The kernel against paged_plain on the rows that see a key, and a
+    repeat call bit for bit."""
+    G = q.shape[1]
+    got = paged_attention.paged_attention(q, kp, vp, table, kv_len, li, ks, vs)
+    want = paged_attention.paged_plain(q, kp, vp, table, kv_len, li, G, ks, vs)
+    qpos = kv_len.clamp(min=1)[:, None] - G + torch.arange(G, device="cuda")
+    valid = qpos >= 0
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got[valid].float(), want[valid].float(),
+                               atol=1e-2, rtol=2.0 ** -7)
+    assert torch.equal(got, paged_attention.paged_attention(
+        q, kp, vp, table, kv_len, li, ks, vs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [None, *KINDS], ids=["bf16", *KINDS])
+@pytest.mark.parametrize("G,Hq,Hkv", PAGED_ROWS, ids=PAGED_ROW_IDS)
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("page", [8, 16, 256])
+def test_cuda_paged_rows_match_plain(kind, G, Hq, Hkv, D, page):
+    """Sub-slices of 128 (or 64) keys that cross 8- and 16-token pages,
+    kv_len 1, below G, at and across the sub-slice edges and at the
+    capacity, through a shuffled table of distinct pages with -1 past each
+    row's need; repeat calls bit-identical and the counters left zeroed."""
+    _need_cuda()
+    from turboinfer_tpu_torch.kernels import _build
+    gen = torch.Generator(device="cuda").manual_seed(D * G + Hq + page)
+    max_pages = 2 if page == 256 else 320 // page
+    cap = max_pages * page
+    B, L = 8, 2
+    P = B * max_pages + 1
+    kp, vp, ks, vs = _paged_pools(gen, (L, P, Hkv, page, D), kind)
+    q = torch.randn((B, G, Hq, D), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    lens = [1, 3, 63, 128, 129, 256, 300, cap]
+    table = torch.randperm(P, generator=gen, device="cuda")[:B * max_pages]
+    table = table.reshape(B, max_pages).int()
+    for b, n in enumerate(lens):
+        table[b, -(-n // page):] = -1
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    _paged_check(q, kp, vp, table, kv_len, 1, ks, vs)
+    torch.cuda.synchronize()
+    assert not _build.counters(q.device, B * Hkv)[:B * Hkv].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [None, *KINDS], ids=["bf16", *KINDS])
+@pytest.mark.parametrize("G,Hq,Hkv", [(1, 2, 2), (5, 8, 2), (16, 16, 2)],
+                         ids=["R1", "R20", "R128"])
+def test_cuda_paged_long_context_matches_plain(kind, G, Hq, Hkv):
+    """A capacity of 157 pages of 256 (40192 rows): 314 sub-slices of 128
+    keys (628 of 64 for R = 1), past the 64 slices a kv head takes, so
+    each block reads 5 (10) sub-slices in turn; at R = 128 the four row
+    chunks keep their running outputs in shared memory between them.
+    kv_len at the capacity, mid-slice, 1 and in the second slice. One
+    slice covering the capacity needs no scratch."""
+    _need_cuda()
+    from turboinfer_tpu_torch.kernels import _build
+    gen = torch.Generator(device="cuda").manual_seed(G + Hq + 40000)
+    B, page, max_pages, D = 4, 256, 157, 64
+    P = B * max_pages + 1
+    kp, vp, ks, vs = _paged_pools(gen, (1, P, Hkv, page, D), kind)
+    q = torch.randn((B, G, Hq, D), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    table = torch.randperm(P, generator=gen, device="cuda")[:B * max_pages]
+    table = table.reshape(B, max_pages).int()
+    kv_len = torch.tensor([max_pages * page, 33333, 1, 1000],
+                          dtype=torch.int32, device="cuda")
+    _paged_check(q, kp, vp, table, kv_len, 0, ks, vs)
+    R = G * Hq // Hkv
+    lib = _build.library()
+    assert lib.ti_paged_workspace(B, Hkv, R, max_pages * page, D) == \
+        B * Hkv * R * 63 * (D + 2)
+    assert lib.ti_paged_workspace(B, Hkv, R, 128 if R > 1 else 64, D) == 0
+    assert lib.ti_paged_workspace(B, Hkv, R, 256, D) > 0
+    torch.cuda.synchronize()
+    assert not _build.counters(q.device, B * Hkv)[:B * Hkv].any()
+
+
+@pytest.mark.cuda
+def test_cuda_paged_counters_stay_zero_at_mixed_shapes():
+    """Calls at mixed B and G on one stream, unsynchronised in between:
+    each matches its plain form and every arrival counter is 0 after."""
+    _need_cuda()
+    from turboinfer_tpu_torch.kernels import _build
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    L, P, Hkv, page, D = 2, 60, 8, 16, 128
+    kp, vp, _, _ = _paged_pools(gen, (L, P, Hkv, page, D), None)
+    runs = []
+    for B, G in ((1, 1), (8, 5), (3, 16), (8, 1), (2, 2)):
+        q = torch.randn((B, G, 32, D), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        table = torch.randint(0, P, (B, 40), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        kv_len = torch.randint(G, 40 * page + 1, (B,), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        got = paged_attention.paged_attention(q, kp, vp, table, kv_len, B % 2)
+        runs.append((got, q, table, kv_len, B % 2))
+    for got, q, table, kv_len, li in runs:
+        want = paged_attention.paged_plain(q, kp, vp, table, kv_len, li,
+                                           q.shape[1])
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                                   rtol=2.0 ** -7)
+    torch.cuda.synchronize()
+    assert not _build.counters(q.device, 8 * Hkv)[:8 * Hkv].any()

@@ -82,6 +82,32 @@ def test_paged_plain_matches_pallas(D, gh, page, G):
     assert _rel(got.numpy()[valid], np.asarray(want)[valid]) < KERNEL_RTOL
 
 
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("page", [8, 16])
+def test_paged_plain_matches_pallas_full_tile(D, page):
+    """The widest tile the kernel takes: G=16 tokens of a group of gh=8
+    heads, R = 128 query rows a kv head, one sequence shorter than G
+    (its early rows see no key) and one whose last page is partial."""
+    rng = np.random.default_rng(D + page)
+    L, P, Hkv, B, G, gh, max_pages = 1, 9, 1, 2, 16, 8, 4
+    lens = [G - 5, 3 * page + 1]
+    kp = rng.normal(size=(L, P, Hkv, page, D)).astype(np.float32)
+    vp = rng.normal(size=(L, P, Hkv, page, D)).astype(np.float32)
+    q = rng.normal(size=(B, G, Hkv * gh, D)).astype(np.float32)
+    table = _table(rng, B, P, max_pages, lens, page)
+    kv = np.asarray(lens, np.int32)
+    want = jpa.paged_verify_pallas(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(table),
+        jnp.asarray(kv), layer_index=jnp.int32(0), interpret=True)
+    got = tpa.paged_attention(torch.from_numpy(q), torch.from_numpy(kp),
+                              torch.from_numpy(vp), torch.from_numpy(table),
+                              torch.from_numpy(kv), 0)
+    qpos = kv[:, None] - G + np.arange(G)[None, :]
+    valid = qpos >= 0
+    assert valid.sum() == G + 11
+    assert _rel(got.numpy()[valid], np.asarray(want)[valid]) < KERNEL_RTOL
+
+
 def test_dispatch_paged_decode_is_verify_at_one_token():
     rng = np.random.default_rng(3)
     kp = torch.from_numpy(rng.normal(size=(2, 6, 2, 8, 32)).astype(np.float32))

@@ -47,7 +47,7 @@ SIGNATURES = {
     "ti_decode_workspace": ([_I] * 6, _LL),
     "ti_decode_attention": ([_VP] * 10 + [_I] * 7 + [_LLP, _F, _VP], _I),
     "ti_paged_workspace": ([_I] * 5, _LL),
-    "ti_paged_attention": ([_VP] * 9 + [_I] * 10 + [_LLP, _F, _VP], _I),
+    "ti_paged_attention": ([_VP] * 10 + [_I] * 10 + [_LLP, _F, _VP], _I),
 }
 
 _lock = threading.Lock()
@@ -137,7 +137,8 @@ COUNTERS_MIN = 1 << 16
 def counters(device, n: int):
     """A buffer of at least n int32 zeros on `device`, kept for the
     process: the arrival counters of the kernels that merge split results
-    in their last block (decode attention, the qmm GEMV). Every launch
+    in their last block (decode attention, paged attention, the qmm
+    GEMV). Every launch
     leaves the counters it used at 0 again, so kernels launched in order on
     one stream (CUDA-graph replays too) share it. It is made outside any
     graph capture: growing it inside one raises."""

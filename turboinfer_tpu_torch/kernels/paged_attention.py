@@ -11,8 +11,9 @@ bits). Query g sits at kv_len - G + g and sees keys at or before it.
 Table ids are clamped to [0, P-1] and kv_len to at least 1, as the JAX
 kernel clamps them.
 
-On CUDA tensors paged_attention launches the kernel or raises; on CPU
-tensors it runs paged_plain.
+On CUDA tensors paged_attention launches the kernel (one launch: the
+slices of a long sequence are merged by the last block to finish) or
+raises, with no host sync; on CPU tensors it runs paged_plain.
 """
 
 from __future__ import annotations
@@ -105,15 +106,16 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((B, Hkv, R, D), dtype=q.dtype, device=q.device)
     lib = _build.library()
-    work = torch.empty((lib.ti_paged_workspace(B, Hkv, R, max_pages * page,
-                                               D),),
-                       dtype=torch.float32, device=q.device)
+    # the slice plan lives in C: it follows the pool's capacity and the
+    # shapes, never kv_len's values, so nothing here waits on the device
+    nws = lib.ti_paged_workspace(B, Hkv, R, max_pages * page, D)
+    work = torch.empty((max(nws, 1),), dtype=torch.float32, device=q.device)
     strides = _build.longlongs(q4.stride(0), q4.stride(1), q4.stride(2))
     status = lib.ti_paged_attention(
         q4.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks, vs, out.data_ptr(),
-        work.data_ptr(), table.data_ptr(), kv_len.data_ptr(), B, Hkv, R, gh,
-        G, P, page, max_pages, D, KV_DTYPES[k_pages.dtype], strides,
-        1.0 / math.sqrt(D),
+        work.data_ptr(), _build.counters(q.device, B * Hkv).data_ptr(),
+        table.data_ptr(), kv_len.data_ptr(), B, Hkv, R, gh, G, P, page,
+        max_pages, D, KV_DTYPES[k_pages.dtype], strides, 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "paged_attention")
     paged_attention.launches += 1
