@@ -6,7 +6,7 @@
 Phases:
   1. environment: card name and power limit, torch/CUDA versions, and the
      build of the CUDA kernels from csrc/ (timed; ptxas registers, spills
-     and wgmma warnings of the tensor-core qmm and flash kernels,
+     and wgmma warnings of the tensor-core qmm, flash and W4A8 kernels,
      registers and spills of each decode attention, paged attention and
      qmm GEMV instance);
   2. kernels: each hand-written kernel against its plain PyTorch version
@@ -104,8 +104,9 @@ Phases:
      versions, W4A8 on both sides, within 5% of max|logit| and phase 11's
      tie rule. Phase 2 also holds a8_quantize_rows byte for byte and
      qmm_int4_a8 bit for bit against their plain versions at the 7B's
-     projections (M = 16, 40, 256, 4096), timed beside the int8
-     tensor-core bound and a torch._int_mm yardstick.
+     projections (M = 16, 40, 256, 4096), repeat calls bit-identical,
+     timed beside the int8 tensor-core bound, the bf16 path (qmm_int4) on
+     the same plane and x, and a torch._int_mm yardstick.
 Exits non-zero on any failure (no CPU fallback). The last stdout line is
 {"ok": true, "device": {...}}; before it come a {"kernels": [...]} line
 and the nvidia-smi name/power-limit line.
@@ -314,6 +315,48 @@ def flash_ptxas(reports):
     return out
 
 
+def qmm_a8_ptxas(report: str):
+    """One line per kernel instance of the ptxas report of qmm_a8.cu:
+    the W4A8 product (token tile, product instruction, warpgroups, units
+    a stage, split warpgroups, nibble form) and the row quantizer
+    (threads a row, values a chunk): registers, spills, and any wgmma
+    warning
+    (serialized wgmmas) ptxas printed for it."""
+    out, name, spill, warns = [], None, 0, []
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '.*qmm_a8_kernelILi(\d+)ELi"
+                      r"(\d)ELi(\d)ELi(\d)ELb(\d)E", line)
+        q = re.search(r"Compiling entry function '.*a8_quantize_rows_kernel"
+                      r"ILi(\d+)ELi(\d+)E", line)
+        if m:
+            bt, wg, ku, split, x16 = m.groups()
+            mma = "mma.sync" if int(bt) <= 64 and ku == "4" else "wgmma"
+            name = (f"qmm_a8_kernel<{bt} tokens, {mma}, {wg} column "
+                    f"warpgroup{'s' if wg != '1' else ''}, {ku} unit"
+                    f"{'s' if ku != '1' else ''} a stage, "
+                    + (f"{split} warpgroups splitting the groups, "
+                       if split != "1" else "")
+                    + f"{'16(u-8), g <= 256' if x16 == '1' else 'u-8, g > 256'}>")
+            spill, warns = 0, []
+            continue
+        if q:
+            name, spill, warns = (f"a8_quantize_rows_kernel<{q.group(1)} "
+                                  f"threads a row, {q.group(2)}-value "
+                                  "chunks>"), 0, []
+            continue
+        if name and "wgmma" in line:
+            warns.append(line.strip())
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {spill} bytes "
+                       "spilled; " + ("; ".join(warns) or "no wgmma warning"))
+            name = None
+    return out
+
+
 def merge_kernels_ptxas(reports):
     """One line per instance of the kernels that merge in their last block
     (decode attention, paged attention, the qmm GEMV) from the ptxas
@@ -519,8 +562,8 @@ def check_a8_quantize(torch, rows, results, shapes):
                    library_ms=None, bound_ms=b, bound_by=by)
         rows.append(row)
         say(f"  a8_quantize_rows M={M} K={K}: byte exact, kernel_ms={ms:.4f}"
-            f" plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}) library_ms="
-            "none")
+            f" plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}, x{ms / b:.2f})"
+            " library_ms=none")
         if (M, K) == (4096, 4096):
             results["a8_quantize_rows"] = row
 
@@ -530,11 +573,13 @@ def check_qmm_a8(torch, rows, results, shapes, Ms, g=256):
     on layers of a 4-layer int4 g=256 stack against qmatmul_a8_plain, bit
     for bit (tolerance 0: the group partials are exact integers on both
     sides and every later step is one IEEE rounding in the same order);
-    timed beside its bound (int8 operations or bytes), the plain version
-    and, as a labelled yardstick only, torch._int_mm on the codes and the
-    weight unpacked to int8 beforehand: the same integer work without the
-    group scales (no one PyTorch call computes a group-scaled W4A8
-    product, so library_ms is null)."""
+    timed beside its bound (int8 operations or bytes), the plain version,
+    the bf16 path (qmm_int4 on the same plane and x: what the product
+    runs without TURBOINFER_QMM_A8) and, as a labelled yardstick only,
+    torch._int_mm on the codes and the weight unpacked to int8
+    beforehand: the same integer work without the group scales (no one
+    PyTorch call computes a group-scaled W4A8 product, so library_ms is
+    null; _int_mm takes M > 16 only)."""
     from turboinfer_tpu_torch.core.qtensor import unpack_int4
     from turboinfer_tpu_torch.kernels import qmm
     gen = torch.Generator(device="cuda").manual_seed(13)
@@ -549,9 +594,13 @@ def check_qmm_a8(torch, rows, results, shapes, Ms, g=256):
             err = (got.float() - want.float()).abs().max().item()
             need(torch.equal(got, want), f"qmm_int4_a8 {name} M={M}: "
                  f"max_abs_err {err}, not bit for bit")
+            need(torch.equal(qmm.qmm_int4_a8(x, qt, 1), got),
+                 f"qmm_int4_a8 {name} M={M}: a repeat call differs")
             iters = {16: 20, 40: 10, 256: 5}.get(M, 3)
             ms = cuda_ms(torch, lambda i: qmm.qmm_int4_a8(x, qt, i % L),
                          iters)
+            bf16_ms = cuda_ms(torch, lambda i: qmm.qmm_int4(x, qt, i % L),
+                              iters)
             plain_ms = cuda_ms(torch, lambda i: qmm.qmatmul_a8_plain(
                 x, qt, i % L), 2, reps=3)
             int_mm_ms = None
@@ -566,13 +615,16 @@ def check_qmm_a8(torch, rows, results, shapes, Ms, g=256):
             row = dict(kernel="qmm_int4_a8", shape=f"{name} M={M} K={K} "
                        f"N={N} g={g}", max_abs_err=err, tol=0.0, ms=ms,
                        plain_ms=plain_ms, library_ms=None,
+                       bf16_path_ms=bf16_ms, bf16_path_ratio=ms / bf16_ms,
                        int_mm_yardstick_ms=int_mm_ms, bound_ms=b,
-                       bound_by=by)
+                       bound_by=by, bound_ratio=ms / b)
             rows.append(row)
             say(f"  qmm_int4_a8 {row['shape']}: bit exact, kernel_ms="
-                f"{ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by})"
-                f" library_ms=none; yardstick torch._int_mm (no group "
-                f"scales) {'n/a (M <= 16)' if int_mm_ms is None else f'{int_mm_ms:.4f}'}")
+                f"{ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}, "
+                f"x{ms / b:.2f}) library_ms=none; bf16 path (qmm_int4, same "
+                f"plane) {bf16_ms:.4f} (a8/bf16 {ms / bf16_ms:.3f}); "
+                f"yardstick torch._int_mm (no group scales) "
+                f"{'n/a (M <= 16)' if int_mm_ms is None else f'{int_mm_ms:.4f}'}")
             if name == "w_gateup" and M == 4096:
                 results["qmm_int4_a8"] = row
             del qt
@@ -2834,9 +2886,10 @@ def phase_w4a8(torch, report):
     wo, w_gateup, w_down at M=4096), none in decode at M=8 and none for
     the last-position head (M=8), as the JAX package decides; the prefill
     and decode traced. (d) the same run with the env unset: no W4A8
-    launch; (a) and (d) interleaved a, d, a, d in this process, so their
-    prefill times compare. (b) B=16 prompts of 128, 32 new: every product
-    of the prefill, the head and each decode step (M=16) on qmm_int4_a8.
+    launch; (a) and (d) interleaved a, d, a, d in this process after one
+    untimed prefill each, so their prefill times compare. (b) B=16
+    prompts of 128, 32 new: every product of the prefill, the head and
+    each decode step (M=16) on qmm_int4_a8.
     (c) paged speculative rounds as phase 7 (spec_k=4): the verify at
     M=40 on qmm_int4_a8, the draft's decode at M=8 not. (e) at L=2,
     kernels against plain versions (the plain side runs W4A8 too):
@@ -2881,7 +2934,16 @@ def phase_w4a8(torch, report):
                          cache_write_fresh=L, decode_attention=L * (NEW - 1))
     want_d = expected_launches(L, decode_forwards=NEW - 1)
     try:
-        # (a) and (d), interleaved
+        # (a) and (d), interleaved, after one untimed prefill each: the
+        # first W4A8 prefill of the process took 175 ms more than the next
+        # on the H100, a one-time cost a median of two runs cannot absorb
+        tokens, seq_lens, _ = eng._pad_batch(prompts)
+        for on in (True, False):
+            a8(on)
+            cache = eng._take_cache(B)
+            eng._run_prefill(tokens, seq_lens, cache)
+            eng._put_cache(B, cache)
+        torch.cuda.synchronize()
         runs, toks = {"a": [], "d": []}, {}
         for rep in range(2):
             for key, on, want in (("a", True, want_a), ("d", False, want_d)):
@@ -3013,6 +3075,8 @@ def main(argv=None) -> int:
             say(f"  ptxas qmm_tc.cu {line}")
         for line in flash_ptxas(ptxas):
             say(f"  ptxas {line}")
+        for line in qmm_a8_ptxas(ptxas.get("qmm_a8.cu", "")):
+            say(f"  ptxas qmm_a8.cu {line}")
         for line in merge_kernels_ptxas(ptxas):
             say(f"  ptxas {line}")
         report["env"] = dict(card=smi, torch=torch.__version__,

@@ -706,9 +706,13 @@ def _a8_rows(gen, M, K):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K", [(1, 8), (9, 4096), (40, 11008), (300, 2880)])
+@pytest.mark.parametrize("M,K", [(1, 8), (9, 4096), (40, 11008), (300, 2880),
+                                 (4096, 4096), (4096, 11008), (16, 4104),
+                                 (9, 40000)])
 def test_cuda_a8_quantize_rows_is_byte_exact(M, K):
-    """The row quantizer's codes and f32 row scales, bit for bit."""
+    """The row quantizer's codes and f32 row scales, bit for bit: 256 and
+    512 threads a row (K below and above 8192), 8-value chunks (K % 16 ==
+    8, K = 8) and a row of 80 KB in shared memory (K = 40000)."""
     _need_cuda()
     x = _a8_rows(torch.Generator(device="cuda").manual_seed(M + K), M, K)
     before = qmm.a8_quantize_rows.launches
@@ -720,14 +724,36 @@ def test_cuda_a8_quantize_rows_is_byte_exact(M, K):
 
 
 @pytest.mark.cuda
+def test_cuda_a8_quantize_rows_refuses_rows_past_shared_memory():
+    """A row lives in shared memory: K past the kernel's 112 * 1024 values
+    raises, as K % 8 != 0 does."""
+    _need_cuda()
+    from turboinfer_tpu_torch.utils.errors import KernelError
+    for K in (112 * 1024 + 8, 12):
+        x = torch.zeros((1, K), dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(KernelError):
+            qmm.a8_quantize_rows(x)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N,g", [
     (9, 256, 128, 256), (16, 4096, 12288, 256), (40, 1024, 264, 256),
-    (130, 512, 136, 64), (300, 2048, 512, 512), (17, 11008, 256, 256)])
+    (130, 512, 136, 64), (300, 2048, 512, 512), (17, 11008, 256, 256),
+    (16, 11008, 4096, 256), (40, 11008, 4096, 256), (64, 512, 256, 256),
+    (65, 512, 256, 256), (256, 4096, 4096, 256), (4096, 4096, 512, 256),
+    (4096, 11008, 1024, 256), (16, 512, 208, 256), (33, 1024, 4104, 256),
+    (9, 256, 136, 64), (40, 1024, 256, 512), (300, 1024, 256, 128),
+    (1, 512, 256, 256), (100, 1536, 320, 768)])
 def test_cuda_qmm_int4_a8_matches_plain(M, K, N, g):
     """The W4A8 kernel against qmatmul_a8_plain on layer 1 of a stack,
     bit for bit: the group partials are exact integers on both sides and
-    every later step is one IEEE rounding in the same order. M and N
-    tails, K=11008 (43 groups), g from 64 to 512."""
+    every later step is one IEEE rounding in the same order. Token tiles
+    16-64 (mma.sync) and 128 (wgmma) on both sides of the boundary (64,
+    65), 2 and 4 warpgroups splitting a tile's groups (N = 4096 at M = 16
+    and 40), one and two column warpgroups at M = 4096, K=11008 (43
+    groups, an odd stage count), N tails inside a column tile (208) and
+    rows TMA cannot describe (N % 16 == 8: 264, 136, 4104), g from 64 to
+    768 (one unit a stage below 256, the u - 8 form above)."""
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(M * K + N)
     qt = _qtensor(gen, (2,), K, N, 4, False, g)
@@ -739,6 +765,23 @@ def test_cuda_qmm_int4_a8_matches_plain(M, K, N, g):
         before[0] + 1, before[1] + 1)
     assert got.shape == (M, N) and got.dtype == torch.bfloat16
     assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+@pytest.mark.cuda
+def test_cuda_qmm_int4_a8_repeats_its_bits():
+    """Calls of mixed shapes in one stream (split warpgroups, mma.sync
+    and wgmma tiles) give the same bits each time they repeat."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    cases = []
+    for M, K, N in ((16, 11008, 4096), (40, 4096, 4096), (16, 4096, 12288),
+                    (256, 4096, 4096), (4096, 4096, 512)):
+        cases.append((_a8_rows(gen, M, K), _qtensor(gen, (2,), K, N, 4, False,
+                                                    256)))
+    first = [qmm.qmm_int4_a8(x, qt, 1) for x, qt in cases]
+    for _ in range(2):
+        again = [qmm.qmm_int4_a8(x, qt, 1) for x, qt in cases]
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.cuda

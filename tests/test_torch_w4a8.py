@@ -160,7 +160,7 @@ def _qt_pair(seed, L, K, N, g):
     return jqt, tqt
 
 
-@pytest.mark.parametrize("M", [24, 64])
+@pytest.mark.parametrize("M", [9, 16, 24, 40, 64])
 @pytest.mark.parametrize("stacked", [False, True], ids=["2d", "stacked"])
 def test_qmatmul_a8_plain_matches_pallas_body(monkeypatch, M, stacked):
     """qmatmul_a8_plain (what dispatch.qmatmul runs on the CPU with the
@@ -168,7 +168,9 @@ def test_qmatmul_a8_plain_matches_pallas_body(monkeypatch, M, stacked):
     mode (_kernel_int4_a8[_idx]) in f32, within PRODUCT_RTOL; apart from
     the bf16-activation product by more than that (the A8 body ran), and
     within 2e-2 of the int8-simulated product of the JAX package's own
-    W4A8 test."""
+    W4A8 test. M = 9 (the fewest rows that take W4A8), 16 (a B=16
+    decode), 24, 40 (a verify) and 64 take the CUDA kernel's small token
+    tiles of 16, 32, 48 and 64 rows."""
     monkeypatch.setenv("TURBOINFER_QMM_A8", "1")
     K, N, g, L = 1024, 512, 256, 2
     jqt, tqt = _qt_pair(M, L, K, N, g)

@@ -324,16 +324,23 @@ def qmm_int8_grouped(xg: torch.Tensor, qt: QTensor,
 qmm_int8_grouped.launches = 0
 
 
+# Longest row a8_quantize_rows takes (csrc/qmm_a8.cu kQMaxK): the kernel
+# holds a row in shared memory.
+A8_MAX_K = 112 * 1024
+
+
 def a8_quantize_rows(x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x2 bf16 [M, K] -> (codes int8 [M, K], sx f32 [M]), the bytes of
-    a8_quantize_rows_plain, in one launch for CUDA tensors."""
+    a8_quantize_rows_plain, in one launch for CUDA tensors (K <=
+    A8_MAX_K)."""
     if x2.device.type == "cpu":
         return a8_quantize_rows_plain(x2)
     if x2.dim() != 2 or x2.dtype != torch.bfloat16 or x2.shape[1] % 8 \
-            or not x2.is_contiguous() or x2.data_ptr() % 16:
+            or x2.shape[1] > A8_MAX_K or not x2.is_contiguous() \
+            or x2.data_ptr() % 16:
         raise KernelError(f"a8_quantize_rows takes a contiguous, 16-byte "
-                          f"aligned bf16 [M, K] with K % 8 == 0, got "
-                          f"{x2.dtype} {tuple(x2.shape)}")
+                          f"aligned bf16 [M, K] with K % 8 == 0 and K <= "
+                          f"{A8_MAX_K}, got {x2.dtype} {tuple(x2.shape)}")
     M, K = x2.shape
     xq = torch.empty((M, K), dtype=torch.int8, device=x2.device)
     sx = torch.empty((M,), dtype=torch.float32, device=x2.device)
