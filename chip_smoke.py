@@ -7,8 +7,8 @@ Phases:
   1. environment: card name and power limit, torch/CUDA versions, and the
      build of the CUDA kernels from csrc/ (timed; ptxas registers, spills
      and wgmma warnings of the tensor-core qmm, flash and W4A8 kernels,
-     registers and spills of each decode attention, paged attention and
-     qmm GEMV instance);
+     registers and spills of each decode attention, paged attention,
+     qmm GEMV and encode-and-write instance);
   2. kernels: each hand-written kernel against its plain PyTorch version
      at the shapes of the paths below (the paged kernel at decode G=1 and
      verify G=5, also at Mixtral's GQA shape over bf16, int8 and fp8
@@ -65,7 +65,8 @@ Phases:
      generate_batch at B=8, prompts of 960, 128 new tokens, max_seq 2048,
      with "model", "int8" and "fp8" caches (launch counts with the
      encode-and-write kernel, cache bytes, peak memory, an 8-step trace
-     with the decode attention's device time); (b) paged serving as phase
+     with the decode attention's device time, a traced prefill with the
+     encode-and-write kernel's share); (b) paged serving as phase
      6 over an int8, then an fp8 pool (the fp8 run with half the new
      tokens; prefix hits equal to phase 6's); (c) speculative serving as
      phase 7 over int8 pages; (d) at L=2, kernels against plain versions,
@@ -73,8 +74,11 @@ Phases:
      with greedy agreement 1.0, and Mixtral's contiguous path (L=2, B=1
      grouped decode; phase 8 runs the B=2 E-loop) within 5%. Phase 2
      also holds the encode-and-write kernel byte for byte (decode,
-     prefill and paged addressing, an fp8 sweep across +-464) and the
-     int8/fp8 reads of the
+     prefill and paged addressing, an fp8 sweep across +-464, phase 10
+     (a)'s and phase 9 (e)'s prefills with the model's K/V views), each
+     row beside its byte bound, the decode rows with the wrapper's host
+     time a call, the fp8 rows beside a .to(float8_e4m3fn) yardstick;
+     and the int8/fp8 reads of the
      decode, stacked-prefill and paged kernels, at phase 10's own
      prefill, decode and admission shapes too.
  11. int8 and zero-point weights: (a) the 7B at the default
@@ -353,6 +357,31 @@ def qmm_a8_ptxas(report: str):
         if m and name:
             out.append(f"{name}: {m.group(1)} registers, {spill} bytes "
                        "spilled; " + ("; ".join(warns) or "no wgmma warning"))
+            name = None
+    return out
+
+
+def encode_write_ptxas(report: str):
+    """One line per kv_encode_write_kernel instance (D, int8 or fp8, rows
+    a lane) of the ptxas report of cache_write.cu: registers and
+    spills."""
+    out, name, spill = [], None, 0
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '.*kv_encode_write_kernel"
+                      r"ILi(\d+)ELb(\d)ELi(\d+)E", line)
+        if m:
+            name = (f"D={m.group(1)}, {'fp8' if m.group(2) == '1' else 'int8'}"
+                    f", {m.group(3)} row{'s' if m.group(3) != '1' else ''} a "
+                    "lane")
+            spill = 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"kv_encode_write_kernel<{name}>: {m.group(1)} "
+                       f"registers, {spill} bytes spilled")
             name = None
     return out
 
@@ -823,27 +852,35 @@ def check_cache_write(torch, rows, results, B=8, Hkv=32, S=512, T=1024,
 
 
 def check_encode_write(torch, rows, results, kind: str, layout: str,
-                       record: bool):
+                       record: bool, B: int = 8, S=None, Hkv: int = 32,
+                       D: int = 128, Hq=None):
     """kv_encode_write against kv_encode_write_plain (encode_kv_scaled and
-    an indexed assignment), byte for byte, at phase 10's 7B shapes (Hkv=32,
-    D=128, layer 2 of 4): a B=8 decode step into [4, 8, 32, 2048, 128], a
-    B=8 S=1024 fresh prefill slab into the same cache, and a B=8 G=5
-    verify into 256-token pages of a [4, 33, 32, 256, 128] pool; K/V are
-    strided views of a fused qkv product. layout "sweep": one B=8 S=1024
-    slab of bf16 values swept across [-600, 600], so every fp8 row crosses
-    +-464 (0x7F/0xFF codes). No single library call computes the encode:
-    library_ms is None."""
+    an indexed assignment), byte for byte, into layer 2 of 4 of a cache:
+    a decode step (S=1, positions 900 + 113 b) into [4, B, Hkv, 2048, D],
+    a fresh prefill slab (S=1024 unless given) into the same cache, and a
+    G=5 verify into 256-token pages of a [4, 33, Hkv, 256, D] pool.
+    K/V are strided views of a fused qkv product; with Hq given, as the
+    model hands them over: K heads of the RoPE output [N, Hq + Hkv, D],
+    V of the product [N, (Hq + 2 Hkv) D]. layout "sweep": a slab of bf16
+    values swept across [-600, 600], so every fp8 row crosses +-464
+    (0x7F/0xFF codes). Each row also carries its ratio to the byte
+    bound; the decode rows the wrapper's host time per call (1000 calls,
+    no sync between them), the fp8 rows a yardstick: x.to(float8_e4m3fn)
+    of K and V, one library pass each that reads the bf16 values and
+    writes a byte each (not the same function: no NaN codes, no
+    scatter). No single library call computes the encode: library_ms is
+    None."""
     from turboinfer_tpu_torch.kernels import cache_write as cw
     gen = torch.Generator(device="cuda").manual_seed(9)
-    L, Hkv, D, T, P, PAGE = 4, 32, 128, 2048, 33, 256
+    L, T, P, PAGE = 4, 2048, 33, 256
     dt = {"int8": torch.int8, "fp8": torch.uint8}[kind]
     if layout == "paged":
-        B, S, W = 8, 5, PAGE
+        S, W = 5, PAGE
         shape = (L, P, Hkv, PAGE, D)
         slot = torch.randperm(P * PAGE, generator=gen, device="cuda")[:B * S]
         rows0 = (slot // PAGE) * (Hkv * PAGE) + slot % PAGE
     else:
-        B, S, W = 8, (1 if layout == "decode" else 1024), T
+        S, W = (1 if layout == "decode" else S or 1024), T
         shape = (L, B, Hkv, T, D)
         start = (torch.arange(B, device="cuda") * 113 + 900
                  if layout == "decode" else torch.zeros(B, device="cuda",
@@ -852,14 +889,20 @@ def check_encode_write(torch, rows, results, kind: str, layout: str,
         rows0 = (torch.arange(B, device="cuda")[:, None] * (Hkv * T)
                  + pos).reshape(-1)
     N = B * S
-    qkv = torch.randn((N, 3 * Hkv * D), generator=gen, device="cuda")
+    qkv = torch.randn((N, ((Hq or Hkv) + 2 * Hkv) * D), generator=gen,
+                      device="cuda")
     if layout == "sweep":
         qkv = torch.linspace(-600, 600, qkv.numel(), device="cuda").reshape(
             qkv.shape)[:, torch.randperm(qkv.shape[1], generator=gen,
                                          device="cuda")]
     qkv = qkv.to(torch.bfloat16)
-    k = qkv[:, Hkv * D: 2 * Hkv * D].view(N, Hkv, D)
-    v = qkv[:, 2 * Hkv * D:].view(N, Hkv, D)
+    v = qkv[:, -Hkv * D:].view(N, Hkv, D)
+    if Hq is None:
+        k = qkv[:, Hkv * D: 2 * Hkv * D].view(N, Hkv, D)
+    else:
+        rope = torch.randn((N, (Hq + Hkv) * D), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        k = rope[:, Hq * D:].view(N, Hkv, D)
     kc = torch.zeros(shape, dtype=dt, device="cuda")
     vc = torch.zeros_like(kc)
     ks = vs = None
@@ -876,14 +919,18 @@ def check_encode_write(torch, rows, results, kind: str, layout: str,
                                    ref[2].view(torch.int32))
                        and torch.equal(vs.view(torch.int32),
                                        ref[3].view(torch.int32))))
-    what = f"{kind} {layout} B={B} S={S} Hkv={Hkv} D={D}"
+    what = (f"{kind} {layout} B={B} S={S} Hkv={Hkv} D={D}"
+            + (f" (K from the RoPE output of Hq={Hq})" if Hq else ""))
     need(same, f"kv_encode_write {what} differs from the plain encode-write")
     if layout == "sweep":
         nan_codes = int(((kc == 0x7F) | (kc == 0xFF)).sum()) if kind == "fp8" \
             else 0
         need(kind != "fp8" or nan_codes > 0, "fp8 sweep wrote no 0x7F/0xFF")
-    ms = cuda_ms(torch, lambda i: cw.kv_encode_write(
-        k, v, kc, vc, ks, vs, rows0, (i % L) * shape[1] * Hkv * W, W), 20)
+
+    def kernel(i):
+        cw.kv_encode_write(k, v, kc, vc, ks, vs, rows0,
+                           (i % L) * shape[1] * Hkv * W, W)
+    ms = cuda_ms(torch, kernel, 20)
     plain_ms = cuda_ms(torch, lambda i: cw.kv_encode_write_plain(
         k, v, kc, vc, ks, vs, rows0, (i % L) * shape[1] * Hkv * W, W), 5,
         reps=3, graph=False)
@@ -891,13 +938,46 @@ def check_encode_write(torch, rows, results, kind: str, layout: str,
     b, by = bound_ms(nbytes, 0.0)
     row = dict(kernel="kv_encode_write", shape=what, max_abs_err=0.0, tol=0.0,
                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b,
-               bound_by=by)
+               bound_by=by, bound_ratio=ms / b)
+    extra = ""
+    if layout == "decode":
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(1000):
+            kernel(i)
+        row["host_us"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        extra += f" host_us={row['host_us']:.2f} a call"
+    if kind == "fp8":
+        f8 = torch.float8_e4m3fn
+        row["yardstick_ms"] = cuda_ms(torch, lambda i: (k.to(f8), v.to(f8)),
+                                      20)
+        extra += (f" yardstick_ms={row['yardstick_ms']:.4f} (K and V "
+                  ".to(float8_e4m3fn): not the same function)")
     rows.append(row)
     say(f"  kv_encode_write {what}: exact={same} kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}) library_ms=None "
-        f"(no one call encodes)")
+        f"plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}) "
+        f"ratio={ms / b:.2f}{extra} library_ms=None (no one call encodes)")
     if record:
         results["kv_encode_write"] = row
+
+
+def check_encode_writes(torch, rows, results):
+    """Every kv_encode_write row of phase 2, int8 and fp8: the 7B's
+    decode step, B=8 S=1024 prefill slab, G=5 paged verify and the
+    +-600 sweep; phase 10 (a)'s own prefill (960-token prompts in the
+    1024 bucket, T=2048, the model's K and V views); GPT-OSS-20B's
+    prefills of phase 9 (e) (Hq=64, Hkv=8, D=64: B=1 S=1024 and B=8
+    S=512). The int8 decode row is the kernels line's."""
+    for kind in KV_KINDS:
+        for layout in ("decode", "prefill", "paged", "sweep"):
+            check_encode_write(torch, rows, results, kind, layout,
+                               record=kind == "int8" and layout == "decode")
+        check_encode_write(torch, rows, results, kind, "prefill", False,
+                           Hq=32)
+        for B, S in ((1, 1024), (8, 512)):
+            check_encode_write(torch, rows, results, kind, "prefill", False,
+                               B=B, S=S, Hkv=8, D=64, Hq=64)
 
 
 def check_decode(torch, F, rows, results, B, Hq, Hkv, T, D, lens,
@@ -1160,10 +1240,8 @@ def phase_kernels(torch, report):
     # exact at its three addressings and across fp8's +-464; the
     # compressed reads of the decode kernel at the 7B and Mixtral shapes,
     # of the stacked prefill, and of the paged kernel at G=1 and G=5
+    check_encode_writes(torch, rows, results)
     for kind in KV_KINDS:
-        for layout in ("decode", "prefill", "paged", "sweep"):
-            check_encode_write(torch, rows, results, kind, layout,
-                               record=kind == "int8" and layout == "decode")
         check_decode(torch, F, rows, results, 8, 32, 32, 1024, 128,
                      [1, 513, 960, 1024, 700, 64, 300, 1000], False,
                      kind=kind)
@@ -2632,6 +2710,15 @@ def phase_kvcache(torch, report):
         tr["kv_encode_write_ms_per_step"] = sum(
             v for k, v in by.items() if "kv_encode_write" in k)
         stats["decode_trace"] = tr
+        # the prefill's device time and the encode-and-write share of it
+        trp = trace_prefill(torch, eng, prompts, f"(a) {kv} prefill")
+        trp["kv_encode_write_ms_per_step"] = sum(
+            v for k, v in trp.get("device_ms_per_step_by_kernel", {}).items()
+            if "kv_encode_write" in k)
+        say(f"  (a) {kv} prefill: encode-write "
+            f"{trp['kv_encode_write_ms_per_step']:.4f} of "
+            f"{trp['device_busy_ms_per_step']:.3f} device ms a prefill")
+        stats["prefill_trace"] = trp
         stats["greedy_tokens"] = [r.tokens[S:] for r in res]
         say(f"  (a) {kv}: cache {stats['cache_bytes'] / 2**30:.3f} GiB, peak "
             f"{stats['peak_gib']:.2f} GiB; trace: device "
@@ -3079,6 +3166,8 @@ def main(argv=None) -> int:
             say(f"  ptxas qmm_a8.cu {line}")
         for line in merge_kernels_ptxas(ptxas):
             say(f"  ptxas {line}")
+        for line in encode_write_ptxas(ptxas.get("cache_write.cu", "")):
+            say(f"  ptxas cache_write.cu {line}")
         report["env"] = dict(card=smi, torch=torch.__version__,
                              cuda=torch.version.cuda, build_s=build_s,
                              ptxas=ptxas)

@@ -458,6 +458,131 @@ def test_cuda_kv_encode_write_is_byte_exact(kind, D, Hkv, layout):
         assert torch.equal(vs.view(torch.int32), ref[3].view(torch.int32))
 
 
+# Row absmax values whose int8 rows sit on rounding ties: at 127 the
+# scale is exactly 1.0 and at 63.5 exactly 0.5, so every bf16 value with
+# a .5 (or .25) fraction divides to a half-integer; the others put many
+# quotients within 2^-13 of one; 3e-13 is under the 1e-12 scale floor,
+# 2^-130 a subnormal, 1.5e38 near the top of the range.
+TIE_ABSMAX = (127.0, 63.5, 1.0, 448.0, 100.5, 3e-13, 2.0 ** -130, 1.5e38)
+
+
+def _tie_rows(D):
+    """bf16 rows [R, D] as f32: for each absmax a of TIE_ABSMAX, every
+    bf16 value of magnitude <= a, both signs, D - 1 a row beside a."""
+    import numpy as np
+    out = []
+    for a in TIE_ABSMAX:
+        a16 = int(np.float32(a).view(np.uint32)) >> 16
+        mags = (np.arange(a16 + 1, dtype=np.uint32) << 16).view(np.float32)
+        vals = np.concatenate([mags, -mags[1:]])
+        vals = np.concatenate([vals, np.zeros((-len(vals)) % (D - 1),
+                                              np.float32)])
+        vals = vals.reshape(-1, D - 1)
+        out.append(np.concatenate([np.full((len(vals), 1), mags[-1]), vals],
+                                  axis=1))
+    return torch.from_numpy(np.concatenate(out))
+
+
+def _encode_rows_both_ways(x, kind, Hkv=2):
+    """x [R, D] bf16 rows (R even) through kv_encode_write and its plain
+    version into a [1, 1, Hkv, R / Hkv, D] cache, as K and, reversed, as
+    V -> (kernel tensors, plain tensors): caches, then scale planes."""
+    R, D = x.shape
+    N = R // Hkv
+    k = x.reshape(N, Hkv, D)
+    v = x.flip(0).reshape(N, Hkv, D)
+    shape = (1, 1, Hkv, N, D)
+    kc = torch.zeros(shape, dtype=KINDS[kind], device="cuda")
+    vc = torch.zeros_like(kc)
+    ks = vs = None
+    if kind == "int8":
+        ks = torch.zeros(shape[:-1], device="cuda")
+        vs = torch.zeros_like(ks)
+    ref = [t.clone() if t is not None else None for t in (kc, vc, ks, vs)]
+    rows = torch.arange(N, device="cuda")
+    cache_write.kv_encode_write(k, v, kc, vc, ks, vs, rows, 0, N)
+    cache_write.kv_encode_write_plain(k, v, *ref, rows, 0, N)
+    torch.cuda.synchronize()
+    return [kc, vc, ks, vs], ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_cuda_kv_encode_write_fp8_every_bf16_pattern(D):
+    """All 65536 bf16 bit patterns (subnormals, +-448..464 and past it,
+    inf and NaN of both signs) through the hardware e4m3 conversion and
+    the NaN-code mask, byte for byte with the plain encode."""
+    _need_cuda()
+    bits = torch.arange(-32768, 32768, dtype=torch.int16)
+    x = bits.view(torch.bfloat16).reshape(-1, D).cuda()
+    got, want = _encode_rows_both_ways(x, "fp8")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    codes = got[0].flatten()
+    assert int(((codes == 0x7F) | (codes == 0xFF)).sum()) > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_cuda_kv_encode_write_int8_tie_rows(D):
+    """int8 rows built on rounding ties (_tie_rows): the codes, taken from
+    x * (1 / scale) with a division only near a .5 tie, equal the plain
+    encode's round-half-even of the IEEE quotient byte for byte, and the
+    scales bit for bit."""
+    _need_cuda()
+    x = _tie_rows(D)
+    x = torch.cat([x, x[: len(x) % 2]]).to(torch.bfloat16).cuda()
+    got, want = _encode_rows_both_ways(x, "int8")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for g, w in zip(got[2:], want[2:]):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_cuda_kv_encode_write_nonfinite_rows(kind):
+    """Rows holding inf, -inf or NaN beside finite values (an int8 row's
+    scale turns inf or NaN, and its codes come from the division path)
+    and all-zero rows (the 1e-12 scale floor), byte for byte and scales
+    bit for bit with the plain encode."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = 3 * torch.randn((64, 128), generator=gen, device="cuda")
+    x[0, 5], x[1, 0], x[2, 127] = float("inf"), float("-inf"), float("nan")
+    x[3, 9], x[3, 10] = float("inf"), float("nan")
+    x[4:6] = 0.0
+    got, want = _encode_rows_both_ways(x.to(torch.bfloat16), kind)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for g, w in zip(got[2:], want[2:]):
+        if g is not None:
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_kv_encode_write_refuses_misaligned_rows():
+    """The kernel reads K/V rows as 16-byte vectors: a view starting one
+    element in, or with a head stride off a multiple of 8 elements,
+    raises rather than taking a slower path."""
+    from turboinfer_tpu_torch.utils.errors import KernelError
+    _need_cuda()
+    N, Hkv, D = 4, 2, 64
+    kc = torch.zeros((1, 1, Hkv, 8, D), dtype=torch.uint8, device="cuda")
+    vc = torch.zeros_like(kc)
+    rows = torch.arange(N, device="cuda")
+    flat = torch.randn((N, Hkv * D + 8), device="cuda").to(torch.bfloat16)
+    good = flat[:, : Hkv * D].view(N, Hkv, D)
+    shifted = flat[:, 1: 1 + Hkv * D].view(N, Hkv, D)
+    wide = torch.randn((N, Hkv, D + 4), device="cuda").to(
+        torch.bfloat16)[..., :D]
+    cache_write.kv_encode_write(good, good, kc, vc, None, None, rows, 0, 8)
+    for bad in (shifted, wide):
+        with pytest.raises(KernelError):
+            cache_write.kv_encode_write(bad, good, kc, vc, None, None, rows,
+                                        0, 8)
+        with pytest.raises(KernelError):
+            cache_write.kv_encode_write(good, bad, kc, vc, None, None, rows,
+                                        0, 8)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", list(KINDS))
 @pytest.mark.parametrize("D,Hq,Hkv,window", [(128, 32, 32, None),

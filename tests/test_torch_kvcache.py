@@ -112,6 +112,47 @@ def test_int8_codes_and_scales_match_jax(dtype):
                                atol=0)
 
 
+# Row absmax values whose int8 rows sit on rounding ties (as the `cuda`
+# tests of the encode-and-write kernel build them): at 127 the scale is
+# exactly 1.0 and at 63.5 exactly 0.5, so every bf16 value with a .5 (or
+# .25) fraction divides to a half-integer; 3e-13 is under the 1e-12
+# scale floor, 2^-130 a subnormal, 1.5e38 near the top of the range.
+TIE_ABSMAX = (127.0, 63.5, 1.0, 448.0, 100.5, 3e-13, 2.0 ** -130, 1.5e38)
+
+
+def _tie_row_bits(D):
+    """bf16 bit patterns [R, D]: for each absmax a of TIE_ABSMAX, every
+    bf16 value of magnitude <= a, both signs, D - 1 a row beside a."""
+    out = []
+    for a in TIE_ABSMAX:
+        a16 = int(np.float32(a).view(np.uint32)) >> 16
+        mags = np.arange(a16 + 1, dtype=np.uint16)
+        vals = np.concatenate([mags, mags[1:] | 0x8000])
+        vals = np.concatenate([vals, np.zeros((-len(vals)) % (D - 1),
+                                              np.uint16)]).reshape(-1, D - 1)
+        out.append(np.concatenate(
+            [np.full((len(vals), 1), a16, np.uint16), vals], axis=1))
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_int8_tie_rows_match_jitted_jax(D):
+    """The rows the encode-and-write kernel's tie test feeds it: the port's
+    plain int8 encode (the kernel's reference on the card) equals the
+    JAX package's compiled encode_kv_scaled, codes byte for byte and
+    scales bit for bit, on exact and near .5 ties."""
+    jx, tx = _bf16_pair(_tie_row_bits(D))
+    jq, js = _jit_encode(jx, jnp.int8)
+    tq, ts = tcommon.encode_kv_scaled(tx, torch.int8)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy().view(np.uint32),
+                                  np.asarray(js).view(np.uint32))
+    # the rows do reach exact ties: x / scale == k + 0.5 at scale 1.0
+    x = tx.float()
+    assert bool(((x[:, 0] == 127) & (x[:, 1:].frac().abs() == 0.5)
+                 .any(dim=1)).any())
+
+
 def test_fp8_bytes_match_jax_across_the_saturation_trap():
     """torch's float8_e4m3fn cast saturates |x| > 464 to +-448 where the
     JAX package writes the NaN codes 0x7F/0xFF; the port's encode masks

@@ -12,6 +12,13 @@ fused with the encode of models/common.encode_kv_scaled (the JAX model
 encodes, then writes with dynamic_update_slice): token n, head h lands in
 row rows[n] + layer_off + h * head_stride of the storage viewed as
 [rows, D], its int8 scale at the same index of the [rows] scale plane.
+The kernel reads each K/V row as 16-byte vectors (D / 8 lanes a row),
+takes the int8 quotient x / scale from x * (1 / scale) and two FMA
+corrections instead of a division, and converts fp8 with the hardware's
+saturating e4m3 conversion before masking in the NaN codes; its bytes
+and scales equal the plain version's bit for bit (the argument is in
+csrc/cache_write.cu). It needs 16-byte aligned K/V rows and caches (the
+C entry checks the pointers and strides), and raises on others.
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU
 tensors it runs its plain version.
@@ -27,6 +34,7 @@ from turboinfer_tpu_torch.kernels import _build
 from turboinfer_tpu_torch.utils.errors import KernelError
 
 HEAD_DIMS = (32, 64, 128)
+MISALIGNED = -1    # ti_kv_encode_write's refusal (checked in C: no host cost)
 
 
 def cache_write_plain(k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -157,6 +165,10 @@ def kv_encode_write(k_new: torch.Tensor, v_new: torch.Tensor,
         None if fp8 else v_scale.data_ptr(), rows.data_ptr(), N, Hkv, D,
         int(fp8), int(layer_off), int(head_stride), strides,
         torch.cuda.current_stream(dev).cuda_stream)
+    if status == MISALIGNED:
+        raise KernelError(f"kv_encode_write: K/V rows and caches must be "
+                          f"16-byte aligned (K/V strides {k_new.stride()}, "
+                          f"{v_new.stride()})")
     _build.check(status, "kv_encode_write")
     kv_encode_write.launches += 1
 
