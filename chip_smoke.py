@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port (turboinfer_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12] [--json PATH]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13] [--json PATH]
 
 Phases:
   1. environment: card name and power limit, torch/CUDA versions, and the
@@ -111,6 +111,29 @@ Phases:
      projections (M = 16, 40, 256, 4096), repeat calls bit-identical,
      timed beside the int8 tensor-core bound, the bf16 path (qmm_int4) on
      the same plane and x, and a torch._int_mm yardstick.
+ 13. Gemma-2-27B (google/gemma-2-27b's published config: 46 layers,
+     hidden 4608, 32:16 heads of 128, FFN 36864, vocab 256000, a 4096-key
+     window on every even layer, attention and final softcaps 50 and 30),
+     int4 g=64, bf16, all 46 layers, synthetic weights from a seed, build
+     peak printed: (a) generate_batch B=2, prompts of 4500 and 5000 (past
+     the window), 64 new tokens, max_seq 8192 (launch counts of the run
+     and of one decode step: 46 decode attention launches, 4L+1
+     products; a traced prefill and 8 traced decode steps; peak memory);
+     (b) B=8, prompts 512, 128 new; (c) the paged scheduler with 8
+     requests of 600-5000 tokens, 4 sharing a 4200-token prefix (48
+     prefix hits, no page leaked), with speculative rounds of a 2-layer
+     draft at spec_k=4 (paged verify windowed and softcapped); (d) at L=2
+     (a windowed and a global layer), kernels against plain versions: a
+     4160-token prompt's prefill and decode step, paged decode and
+     verify over pools filled to 4150 and 5000, within 5% of max|logit|
+     and phase 11's tie rule; (e) (a) over int8 and fp8 caches. Phase 2
+     also holds the flash, decode and paged kernels with the window and
+     the softcap at Gemma-2-27B's shapes (flash B=1 S=5000 at windows
+     4096 and 600, B=8 S=512, a chunk at q_start 4096; decode B=8
+     T=8192; paged G=1 and G=5 over 256-token pages), bf16, int8 and fp8,
+     the queries drawn 30x wider on the capped rows that must bite, each
+     beside SDPA with the window's mask (not the same function: no
+     softcap); phase 1 prints the softcap flash instances' ptxas lines.
 Exits non-zero on any failure (no CPU fallback). The last stdout line is
 {"ok": true, "device": {...}}; before it come a {"kernels": [...]} line
 and the nvidia-smi name/power-limit line.
@@ -165,7 +188,10 @@ SOURCES = {
     "cache_write_fresh": "turboinfer_tpu_torch/csrc/cache_write.cu",
     "kv_encode_write": "turboinfer_tpu_torch/csrc/cache_write.cu",
     "decode_attention": "turboinfer_tpu_torch/csrc/decode_attention.cu",
-    "paged_attention": "turboinfer_tpu_torch/csrc/paged_attention.cu",
+    "paged_attention": "turboinfer_tpu_torch/csrc/paged_attention.cuh; "
+                       "turboinfer_tpu_torch/csrc/paged_attention.cu; "
+                       "turboinfer_tpu_torch/csrc/paged_attention_int8.cu; "
+                       "turboinfer_tpu_torch/csrc/paged_attention_fp8.cu",
     "qmm_int4_grouped": "turboinfer_tpu_torch/csrc/qmm.cu",
     "qmm_int8": "turboinfer_tpu_torch/csrc/qmm.cu; "
                 "turboinfer_tpu_torch/csrc/qmm_tc.cu (M > 16)",
@@ -297,10 +323,10 @@ def flash_ptxas(reports):
         name, spill, warns = None, 0, []
         for line in reports[fname].splitlines():
             m = re.search(r"Compiling entry function '.*flash_prefill_kernel"
-                          r"ILi(\d+)E(13__nv_bfloat16|a|h)E", line)
+                          r"ILi(\d+)E(13__nv_bfloat16|a|h)Lb(\d)E", line)
             if m:
-                name, spill, warns = (int(m.group(1)),
-                                      FLASH_KV[m.group(2)]), 0, []
+                name, spill, warns = (int(m.group(1)), FLASH_KV[m.group(2)],
+                                      m.group(3) == "1"), 0, []
                 continue
             if name and "wgmma" in line:
                 warns.append(line.strip())
@@ -309,8 +335,9 @@ def flash_ptxas(reports):
                 spill = int(m.group(1))
             m = re.search(r"Used (\d+) registers", line)
             if m and name:
-                D, kv = name
-                out.append(f"flash_prefill_kernel<D={D}, {kv}>: {m.group(1)} "
+                D, kv, cap = name
+                out.append(f"flash_prefill_kernel<D={D}, {kv}"
+                           f"{', softcap' if cap else ''}>: {m.group(1)} "
                            f"registers, {spill} bytes spilled, "
                            f"{flash_smem(D, kv)} bytes of dynamic shared "
                            "memory; " + ("; ".join(warns) or
@@ -389,17 +416,22 @@ def encode_write_ptxas(report: str):
 def merge_kernels_ptxas(reports):
     """One line per instance of the kernels that merge in their last block
     (decode attention, paged attention, the qmm GEMV) from the ptxas
-    reports of decode_attention.cu, paged_attention.cu and qmm.cu:
-    template arguments, registers and spills."""
+    reports of decode_attention.cu, paged_attention*.cu and qmm.cu:
+    template arguments (with the decode kernels' softcap flag and the
+    paged kernels' window/softcap flag), registers and spills."""
     kv = {"13__nv_bfloat16": "bf16", "a": "int8", "h": "fp8"}
+    paged = "\n".join(reports.get(f"paged_attention{t}.cu", "")
+                    for t in ("", "_int8", "_fp8"))
     out = []
-    for fname, kname in (("decode_attention.cu", "decode_row_kernel"),
-                         ("decode_attention.cu", "decode_gqa_kernel"),
-                         ("paged_attention.cu", "paged_row_kernel"),
-                         ("paged_attention.cu", "paged_tc_kernel"),
-                         ("qmm.cu", "qmm_gemv_kernel")):
+    for report, kname in ((reports.get("decode_attention.cu", ""),
+                           "decode_row_kernel"),
+                          (reports.get("decode_attention.cu", ""),
+                           "decode_gqa_kernel"),
+                          (paged, "paged_row_kernel"),
+                          (paged, "paged_tc_kernel"),
+                          (reports.get("qmm.cu", ""), "qmm_gemv_kernel")):
         name, spill = None, 0
-        for line in reports.get(fname, "").splitlines():
+        for line in report.splitlines():
             m = re.search(rf"Compiling entry function '_Z\w*?{kname}I(\w+?)"
                           r"EEv", line)
             if m:
@@ -412,11 +444,14 @@ def merge_kernels_ptxas(reports):
             if m and name:
                 t = re.match(r"(13__nv_bfloat16|a|h)?(.*)", name)
                 vals = re.findall(r"L[ib](\d+)E", t.group(2) + "E")
+                # the last flag: decode's softcap, paged's window/softcap
+                flag = {"decode": ", softcap", "paged_": ", window/softcap"
+                        }.get(kname[:6], "") if vals[-1] == "1" else ""
                 if kname == "paged_tc_kernel":
                     args = (f"{kv[t.group(1)]}, D={vals[0]}, "
-                            f"{8 * int(vals[1])}-row chunks")
+                            f"{8 * int(vals[1])}-row chunks{flag}")
                 elif kname != "qmm_gemv_kernel":
-                    args = f"{kv[t.group(1)]}, D={vals[0]}"
+                    args = f"{kv[t.group(1)]}, D={vals[0]}{flag}"
                 else:
                     bits, asym, mt, v16, grp = vals
                     args = (f"int{bits}{', zp' if asym == '1' else ''}, "
@@ -738,26 +773,52 @@ def check_qmm_grouped(torch, rows, results, bits=4, asym=False, n=256,
         torch.cuda.empty_cache()
 
 
-def _attn_mask(torch, B, S, T, kv_len, q_start):
+def _attn_mask(torch, B, S, T, kv_len, q_start, window=None):
     qpos = q_start[:, None] + torch.arange(S, device="cuda")[None, :]
     kpos = torch.arange(T, device="cuda")
-    return ((qpos[:, :, None] >= kpos[None, None, :])
-            & (kpos[None, None, :] < kv_len[:, None, None]))[:, None]
+    mask = ((qpos[:, :, None] >= kpos[None, None, :])
+            & (kpos[None, None, :] < kv_len[:, None, None]))
+    if window is not None:
+        mask &= kpos[None, None, :] > qpos[:, :, None] - window
+    return mask[:, None]
+
+
+def mask_kw(window, softcap):
+    """The window/softcap keywords of an attention wrapper call, none
+    when both are off (so the check functions also drive a tree whose
+    wrappers predate them, as tools/attention_ab.py does)."""
+    return {k: v for k, v in (("window", window), ("softcap", softcap))
+            if v is not None}
+
+
+def mask_label(window, softcap, qscale=1.0):
+    return "".join([f" window={window}" if window else "",
+                    f" softcap={softcap}" if softcap else "",
+                    f" q x{qscale:g}" if qscale != 1.0 else ""])
 
 
 def check_flash(torch, F, rows, results, B, Hq, Hkv, S, D, fill,
-                record: bool, q_start=None, T=None, kind=None):
+                record: bool, q_start=None, T=None, kind=None, window=None,
+                softcap=None, qscale=1.0):
     """Fresh prefill (q_start None): K/V are the just-computed [B, S, Hkv,
     D] read transposed, kv_len = fill. Chunked prefill: K/V are layer 1
     of a stacked [2, B, Hkv, T, D] cache, queries at q_start[b] + s,
     kv_len = q_start + fill < T; kind "int8"/"fp8" compresses that
-    cache (the library yardstick then reads it dequantized beforehand)."""
+    cache (the library yardstick then reads it dequantized beforehand).
+    window/softcap: the masks of Gemma-2's local and global layers, with
+    the queries drawn qscale wider so the scores reach past the cap;
+    rows at or past kv_len (which a window may leave without a key) are
+    left out of the comparison. The yardstick is SDPA with the window's
+    bool mask: with a softcap it is not the same function."""
     from turboinfer_tpu_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(2)
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
     q = rnd(B, S, Hq, D)
+    if qscale != 1.0:
+        q = (q.float() * qscale).to(torch.bfloat16)
+    mk = mask_kw(window, softcap)
     if q_start is None:
         q_start, T = [0] * B, S
         kt, vt = (rnd(B, S, Hkv, D).transpose(1, 2) for _ in range(2))
@@ -771,43 +832,61 @@ def check_flash(torch, F, rows, results, B, Hq, Hkv, S, D, fill,
     need(max(lens) <= T, "check_flash: kv_len beyond the cache")
     qs = torch.tensor(q_start, dtype=torch.int32, device="cuda")
     kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    got = fa.flash_prefill(q, kt, vt, kv_len, qs, ks, vs)
-    want = fa.prefill_plain(q, kt, vt, kv_len, qs, ks, vs)
+    got = fa.flash_prefill(q, kt, vt, kv_len, qs, ks, vs, **mk)
+    want = fa.prefill_plain(q, kt, vt, kv_len, qs, ks, vs, **mk)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
+    live = (qs[:, None] + torch.arange(S, device="cuda")[None, :]
+            < kv_len[:, None])
+    if window is None:
+        live[:] = True
+    err = (got.float() - want.float())[live].abs().max().item()
     tol = 2e-2        # bf16 probabilities in P V, plus one bf16 ulp
-    need(within(torch, got, want, tol), f"flash_prefill {what}D={D} Hq={Hq} "
-         f"Hkv={Hkv}: max_abs_err {err} beyond {tol} + 1 bf16 ulp")
+    what += mask_label(window, softcap, qscale)[1:] + (" " if window
+                                                       or softcap else "")
+    need(bool(torch.isfinite(got.float()).all())
+         and within(torch, got[live], want[live], tol),
+         f"flash_prefill {what}D={D} Hq={Hq} Hkv={Hkv}: max_abs_err {err} "
+         f"beyond {tol} + 1 bf16 ulp")
     ms = cuda_ms(torch, lambda i: fa.flash_prefill(q, kt, vt, kv_len, qs, ks,
-                                                   vs), 10)
-    plain_ms = cuda_ms(torch, lambda i: fa.prefill_plain(q, kt, vt, kv_len,
-                                                         qs, ks, vs), 2, reps=3)
-    mask = _attn_mask(torch, B, S, T, kv_len, qs)
+                                                   vs, **mk), 10)
+    plain_ms = cuda_ms(torch, lambda i: fa.prefill_plain(
+        q, kt, vt, kv_len, qs, ks, vs, **mk), 2, reps=3)
+    mask = _attn_mask(torch, B, S, T, kv_len, qs, window)
     qh = q.transpose(1, 2)
     kd, vd = dequant(torch, kt, ks), dequant(torch, vt, vs)
     lib_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
         qh, kd, vd, attn_mask=mask, enable_gqa=Hq != Hkv), 10)
+    del mask
     # SDPA's causal form computes the same function only where every
-    # sequence starts at 0 and fills S (no padded keys)
+    # sequence starts at 0 and fills S (no padded keys, no window)
     causal_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
         qh, kd, vd, is_causal=True, enable_gqa=Hq != Hkv), 10) \
-        if all(a == 0 and f == S for a, f in zip(q_start, fill)) else None
-    # work this data needs: valid query rows, each against its visible keys
-    pairs = sum(a + s + 1 for a, f in zip(q_start, fill) for s in range(f))
+        if window is None and all(a == 0 and f == S for a, f in
+                                  zip(q_start, fill)) else None
+    # work this data needs: valid query rows, each against its visible
+    # keys; each kv head reads the keys from the earliest window on
+    w = window or 1 << 30
+    pairs = sum(min(a + s + 1, w) for a, f in zip(q_start, fill)
+                for s in range(f))
     flops = 4.0 * D * Hq * pairs
-    nbytes = 2 * 2 * B * S * Hq * D + 2 * Hkv * kv_row_bytes(kt, D) * sum(lens)
+    keys = sum(n - max(0, a - w + 1) for a, n in zip(q_start, lens))
+    nbytes = 2 * 2 * B * S * Hq * D + 2 * Hkv * kv_row_bytes(kt, D) * keys
     b, by = bound_ms(nbytes, flops)
+    same = softcap is None
     row = dict(kernel="flash_prefill",
                shape=f"{what}B={B} Hq={Hq} Hkv={Hkv} S={S} D={D}",
                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                library_ms=lib_ms, library_causal_ms=causal_ms, bound_ms=b,
-               bound_by=by)
+               bound_by=by, window=window, softcap=softcap,
+               library_same_function=same)
     rows.append(row)
     causal = "" if causal_ms is None else \
         f" library_causal_ms={causal_ms:.4f} (SDPA is_causal)"
     say(f"  flash_prefill {row['shape']}: max_abs_err={err:.4g} (tol {tol}) "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}) "
-        f"library_ms={lib_ms:.4f}{causal}")
+        f"library_ms={lib_ms:.4f}"
+        f"{'' if same else ' (SDPA, window mask: not the same function)'}"
+        f"{causal}")
     if record:
         results["flash_prefill"] = row
 
@@ -981,11 +1060,13 @@ def check_encode_writes(torch, rows, results):
 
 
 def check_decode(torch, F, rows, results, B, Hq, Hkv, T, D, lens,
-                 record: bool, window=None, sinks: bool = False, kind=None):
+                 record: bool, window=None, sinks: bool = False, kind=None,
+                 softcap=None, qscale=1.0):
     """decode_attention against decode_plain on layer 0 of a stacked
     cache, optionally with a window and per-head sinks (from a seed), or
     compressed to kind "int8"/"fp8" (SDPA then reads K/V dequantized
-    beforehand, the dequantization not timed).
+    beforehand, the dequantization not timed), or with a softcap (the
+    queries drawn qscale wider; SDPA is then not the same function).
     The library yardstick is SDPA with a float mask on the same keys
     plus one appended key column (K = 0, V = 0, mask value = the head's
     sink), which computes exactly the sink softmax; K/V extension and
@@ -998,24 +1079,28 @@ def check_decode(torch, F, rows, results, B, Hq, Hkv, T, D, lens,
     vc = torch.randn((L, B, Hkv, T, D), generator=gen,
                      device="cuda").to(torch.bfloat16)
     q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+    if qscale != 1.0:
+        q = (q.float() * qscale).to(torch.bfloat16)
     snk = (2 * torch.randn((Hq,), generator=gen, device="cuda")).to(
         torch.bfloat16).float() if sinks else None       # f32, as prepared
     (kc, ks), (vc, vs) = compress(torch, kc, kind), compress(torch, vc, kind)
     kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    got = da.decode_attention(q, kc, vc, kv_len, 0, window, snk, ks, vs)
-    want = da.decode_plain(q, kc, vc, kv_len, 0, window, snk, ks, vs)
+    mk = mask_kw(None, softcap)
+    got = da.decode_attention(q, kc, vc, kv_len, 0, window, snk, ks, vs, **mk)
+    want = da.decode_plain(q, kc, vc, kv_len, 0, window, snk, ks, vs, **mk)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     tol = 1e-2        # f32 sums in another order, plus one bf16 ulp
     what = (f"D={D} Hq={Hq} Hkv={Hkv} window={window} "
             f"sinks={'yes' if sinks else 'no'}"
-            f"{'' if kind is None else f' kv={kind}'}")
+            f"{'' if kind is None else f' kv={kind}'}"
+            f"{mask_label(None, softcap, qscale)}")
     need(within(torch, got, want, tol), f"decode_attention {what}: "
          f"max_abs_err {err} beyond {tol} + 1 bf16 ulp")
     ms = cuda_ms(torch, lambda i: da.decode_attention(
-        q, kc, vc, kv_len, i % L, window, snk, ks, vs), 20)
+        q, kc, vc, kv_len, i % L, window, snk, ks, vs, **mk), 20)
     plain_ms = cuda_ms(torch, lambda i: da.decode_plain(
-        q, kc, vc, kv_len, i % L, window, snk, ks, vs), 5, reps=3)
+        q, kc, vc, kv_len, i % L, window, snk, ks, vs, **mk), 5, reps=3)
     kq, vq = kc, vc                  # the kernel's operands, for the bound
     if kind is not None:
         kc = dequant(torch, kc, ks)
@@ -1054,16 +1139,20 @@ def check_decode(torch, F, rows, results, B, Hq, Hkv, T, D, lens,
     row = dict(kernel="decode_attention", shape=f"B={B} Hq={Hq} Hkv={Hkv} "
                f"T={T} D={D} window={window} sinks={'yes' if sinks else 'no'} "
                f"{'' if kind is None else f'kv={kind} '}"
+               f"{mask_label(None, softcap, qscale)[1:]}"
+               f"{' ' if softcap else ''}"
                f"kv_len={list(lens)}", max_abs_err=err, tol=tol,
                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                library_max_abs_err=lib_err, bound_ms=b, bound_by=by,
-               library_ratio=ms / lib_ms)
+               library_ratio=ms / lib_ms, window=window, softcap=softcap,
+               library_same_function=softcap is None)
     rows.append(row)
     say(f"  decode_attention {row['shape']}: max_abs_err={err:.4g} "
         f"(tol {tol}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"bound_ms={b:.4f} ({by}) library_ms={lib_ms:.4f} (SDPA"
-        f"{', sink column' if sinks else ''}; its max_abs_err {lib_err:.4g}) "
-        f"kernel/library={ms / lib_ms:.2f}")
+        f"{', sink column' if sinks else ''}"
+        f"{', no softcap: not the same function' if softcap else ''}; its "
+        f"max_abs_err {lib_err:.4g}) kernel/library={ms / lib_ms:.2f}")
     if record:
         results["decode_attention"] = row
 
@@ -1079,26 +1168,34 @@ def paged_table(torch, gen, B, P, max_pages, need):
 
 
 def check_paged(torch, F, rows, results, B, Hq, Hkv, D, page, P, lens, G,
-                record: bool, kind=None):
+                record: bool, kind=None, T=1024, window=None, softcap=None,
+                qscale=1.0):
     """paged_attention at G query tokens per row against paged_plain;
     rows whose query sees no key (kv_len < G: undefined, the caller
     discards them) are left out of the comparison. kind "int8"/"fp8":
-    a compressed pool (int8 with its scale pages)."""
+    a compressed pool (int8 with its scale pages). window/softcap as in
+    check_flash (queries drawn qscale wider; the bound counts the keys
+    from the earliest query's window on)."""
     from turboinfer_tpu_torch.kernels import paged_attention as pa
     gen = torch.Generator().manual_seed(6 + G)
-    L, T = 2, 1024
+    L = 2
     max_pages = -(-T // page)
-    kp = torch.randn((L, P, Hkv, page, D), generator=gen).to(
+    # pools past the 7B's 1024 positions are drawn on the card
+    dgen = gen if T <= 1024 else torch.Generator(device="cuda").manual_seed(
+        6 + G)
+    kp = torch.randn((L, P, Hkv, page, D), generator=dgen,
+                     device=dgen.device).to(torch.bfloat16).cuda()
+    vp = torch.randn((L, P, Hkv, page, D), generator=dgen,
+                     device=dgen.device).to(torch.bfloat16).cuda()
+    q = (qscale * torch.randn((B, G, Hq, D), generator=gen)).to(
         torch.bfloat16).cuda()
-    vp = torch.randn((L, P, Hkv, page, D), generator=gen).to(
-        torch.bfloat16).cuda()
-    q = torch.randn((B, G, Hq, D), generator=gen).to(torch.bfloat16).cuda()
     (kp, ks), (vp, vs) = compress(torch, kp, kind), compress(torch, vp, kind)
     table = paged_table(torch, gen, B, P, max_pages,
                         [-(-max(n, 1) // page) for n in lens])
     kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    got = pa.paged_attention(q, kp, vp, table, kv_len, 1, ks, vs)
-    want = pa.paged_plain(q, kp, vp, table, kv_len, 1, G, ks, vs)
+    mk = mask_kw(window, softcap)
+    got = pa.paged_attention(q, kp, vp, table, kv_len, 1, ks, vs, **mk)
+    want = pa.paged_plain(q, kp, vp, table, kv_len, 1, G, ks, vs, **mk)
     torch.cuda.synchronize()
     kvc = kv_len.clamp(min=1)
     valid = ((kvc[:, None] - G + torch.arange(G, device="cuda")[None, :])
@@ -1106,13 +1203,15 @@ def check_paged(torch, F, rows, results, B, Hq, Hkv, D, page, P, lens, G,
     err = (got.float() - want.float())[valid].abs().max().item()
     tol = 1e-2        # f32 sums in another order, plus one bf16 ulp
     what = (f"G={G} D={D} Hq={Hq} Hkv={Hkv} page={page}"
-            f"{'' if kind is None else f' kv={kind}'}")
-    need(within(torch, got[valid], want[valid], tol),
+            f"{'' if kind is None else f' kv={kind}'}"
+            f"{mask_label(window, softcap, qscale)}")
+    need(bool(torch.isfinite(got.float()).all())
+         and within(torch, got[valid], want[valid], tol),
          f"paged_attention {what}: max_abs_err {err} beyond {tol} + 1 bf16 ulp")
     ms = cuda_ms(torch, lambda i: pa.paged_attention(q, kp, vp, table, kv_len,
-                                                     i % L, ks, vs), 20)
+                                                     i % L, ks, vs, **mk), 20)
     plain_ms = cuda_ms(torch, lambda i: pa.paged_plain(
-        q, kp, vp, table, kv_len, i % L, G, ks, vs), 5, reps=3)
+        q, kp, vp, table, kv_len, i % L, G, ks, vs, **mk), 5, reps=3)
     # library yardstick: SDPA on K/V gathered (and dequantized)
     # beforehand, neither timed
     t = table.long().clamp(0, P - 1)
@@ -1121,24 +1220,31 @@ def check_paged(torch, F, rows, results, B, Hq, Hkv, D, page, P, lens, G,
     vg = [dequant(torch, vp[li], None if vs is None else vs[li])[t].transpose(
         1, 2).reshape(B, Hkv, max_pages * page, D) for li in range(L)]
     qpos = kvc[:, None] - G + torch.arange(G, device="cuda")[None, :]
-    mask = (torch.arange(max_pages * page, device="cuda")[None, None, :]
-            <= qpos[:, :, None])[:, None]
+    kpos = torch.arange(max_pages * page, device="cuda")[None, None, :]
+    mask = kpos <= qpos[:, :, None]
+    if window is not None:
+        mask &= kpos > qpos[:, :, None] - window
+    mask = mask[:, None]
     qh = q.transpose(1, 2)
     lib_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
         qh, kg[i % L], vg[i % L], attn_mask=mask, enable_gqa=Hq != Hkv), 20)
-    fill = sum(max(1, n) for n in lens)
+    w = window or 1 << 30
+    # keys from the earliest query's window on; each query's visible keys
+    fill = sum(max(1, n) - max(0, max(n, 1) - G + 1 - w) for n in lens)
     nbytes = 2 * Hkv * fill * kv_row_bytes(kp, D) + 2 * B * G * Hq * D * 2
-    pairs = sum(max(0, min(max(n, 1), max(n, 1) - G + g + 1))
+    pairs = sum(max(0, min(max(n, 1), max(n, 1) - G + g + 1, w))
                 for n in lens for g in range(G))
     b, by = bound_ms(nbytes, 4.0 * Hq * pairs * D)
     row = dict(kernel="paged_attention", shape=f"{what} B={B} P={P} "
                f"kv_len={list(lens)}", max_abs_err=err, tol=tol, ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b, bound_by=by,
-               library_ratio=ms / lib_ms)
+               library_ratio=ms / lib_ms, window=window, softcap=softcap,
+               library_same_function=softcap is None)
     rows.append(row)
     say(f"  paged_attention {row['shape']}: max_abs_err={err:.4g} (tol {tol}) "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}) "
-        f"library_ms={lib_ms:.4f} (SDPA, gather excluded) "
+        f"library_ms={lib_ms:.4f} (SDPA, gather excluded"
+        f"{', no softcap: not the same function' if softcap else ''}) "
         f"kernel/library={ms / lib_ms:.2f} kernel/bound={ms / b:.2f}")
     if record:
         results["paged_attention"] = row
@@ -1343,8 +1449,63 @@ def phase_kernels(torch, report):
             check_decode(torch, F, rows, results, 8, *gpt,
                          [1128, 1, 255, 256, 257, 384, 600, 2048], False,
                          window, True, kind=kind)
+    check_gemma2_attention(torch, F, rows, results)
     report["kernel_rows"] = rows
     return results
+
+
+# Gemma-2-27B's attention (phase 13): Hq=32, Hkv=16, D=128, cap 50, a
+# 4096-key window on its local layers. Queries drawn GEMMA2_QSCALE wider
+# put the scores (spread ~30) 2-3x past the cap in their tails; the rows
+# at scale 1 stay below it.
+GEMMA2_ATTN = (32, 16, 128)
+GEMMA2_CAP, GEMMA2_WINDOW, GEMMA2_QSCALE = 50.0, 4096, 30.0
+
+
+def check_gemma2_attention(torch, F, rows, results):
+    """Phase 2's rows at Gemma-2-27B's attention shapes, each against its
+    plain version at the existing tolerances, over bf16, int8 and fp8
+    K/V: the flash prefill of a 5000-token prompt (B=1) with window 4096
+    and with window 600 (the cap not biting), of B=8 512-token prompts
+    (cap only), and a chunked read at q_start 4096 (window 4096, and a
+    global layer); decode at B=8 T=8192 on a local and a global layer;
+    paged decode (G=1) and verify (G=5) over 256-token pages, local and
+    global. An 8-bit prefill reads the stacked cache (q_start 0), as the
+    model's prefill over an int8 or fp8 cache does."""
+    Hq, Hkv, D = GEMMA2_ATTN
+    cap, win, qx = GEMMA2_CAP, GEMMA2_WINDOW, GEMMA2_QSCALE
+    for kind in (None, *KV_KINDS):
+        for window, scale in ((win, qx), (600, 1.0)):
+            if kind is None:
+                check_flash(torch, F, rows, results, 1, Hq, Hkv, 5000, D,
+                            [5000], False, window=window, softcap=cap,
+                            qscale=scale)
+            else:
+                check_flash(torch, F, rows, results, 1, Hq, Hkv, 5000, D,
+                            [5000], False, q_start=[0], T=8192, kind=kind,
+                            window=window, softcap=cap, qscale=scale)
+        fill = [512, 500, 384, 300, 257, 128, 64, 1]
+        if kind is None:
+            check_flash(torch, F, rows, results, 8, Hq, Hkv, 512, D, fill,
+                        False, softcap=cap, qscale=qx)
+        else:
+            check_flash(torch, F, rows, results, 8, Hq, Hkv, 512, D, fill,
+                        False, q_start=[0] * 8, T=1024, kind=kind,
+                        softcap=cap, qscale=qx)
+        for window in (win, None):
+            check_flash(torch, F, rows, results, 1, Hq, Hkv, 904, D, [904],
+                        False, q_start=[4096], T=8192, kind=kind,
+                        window=window, softcap=cap, qscale=qx)
+        lens = [4000, 8192, 4097, 6000, 5000, 7777, 4500, 8000]
+        for window, scale in ((win, qx), (None, 1.0)):
+            check_decode(torch, F, rows, results, 8, Hq, Hkv, 8192, D, lens,
+                         False, window, kind=kind, softcap=cap, qscale=scale)
+        paged_lens = [600, 5000, 4097, 8192, 4200, 1000, 7000, 4500]
+        for G in (1, 5):
+            for window, scale in ((win, qx), (None, 1.0)):
+                check_paged(torch, F, rows, results, 8, Hq, Hkv, D, 256,
+                            8 * 32 + 1, paged_lens, G, False, kind=kind,
+                            T=8192, window=window, softcap=cap, qscale=scale)
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -2244,44 +2405,47 @@ def kernels_vs_plain(torch, mod, cfg, params, step_want, label: str,
         need(all(step_counts[k] == v for k, v in want.items()),
              f"{label} L={L} B={B} decode: launches {step_counts}, want {want}")
         for i, name in ((0, "prefill"), (2, "decode_step")):
-            a, b_ = res["cuda"][i], res["cpu"][i]
-            err = (a - b_).abs().max().item()
-            ref = b_.abs().max().item()
-            tol = 5e-2 * ref
-            need(bool(torch.isfinite(a).all()) and err <= tol,
-                 f"{label} L={L} B={B} {name}: kernel vs plain max_abs_err "
-                 f"{err} > {tol}")
-            same = a.argmax(-1) == b_.argmax(-1)
-            agree = same.float().mean().item()
-            # the plain logit of the kernel's token, below the plain top
-            gap = b_.max(-1).values - b_.gather(
-                -1, a.argmax(-1, keepdim=True))[:, 0]
-            tie_gap = TIE_ULPS * BF16_ULP * 2.0 ** math.floor(math.log2(ref))
-            tie = ~same & (gap <= tie_gap)
-            ties += int(tie.sum())
-            need(not all_agree or agree == 1.0, f"{label} L={L} B={B} {name}: "
-                 f"greedy agreement {agree} < 1")
-            need(not decided_agree or bool((same | tie).all()),
-                 f"{label} L={L} B={B} {name}: greedy tokens differ beyond a "
-                 f"tie of {tie_gap} (plain-logit gaps {gap.tolist()})")
-            need(not decided_agree or ties <= MAX_TIE_ROWS,
-                 f"{label} L={L}: {ties} tie rows > {MAX_TIE_ROWS}")
-            out[f"B{B}_{name}"] = dict(max_abs_err=err, tol=tol,
-                                       max_abs_logit=ref,
-                                       greedy_agreement=agree,
-                                       tie_rows=int(tie.sum()),
-                                       tie_gaps=gap[tie].tolist(),
-                                       tie_gap=tie_gap)
-            say(f"  (d) {label} L={L} B={B} {name}: logits max_abs_err="
-                f"{err:.4g} (tol {tol:.3g}, max|logit|={ref:.3g}) greedy "
-                f"agreement {agree:.3f}"
-                + (f" ({int(tie.sum())} tie rows within {tie_gap}, "
-                   f"plain-logit gaps "
-                   f"{[round(g, 4) for g in gap[tie].tolist()]})"
-                   if bool(tie.any()) else ""))
+            out[f"B{B}_{name}"], ties = logits_agree(
+                torch, res["cuda"][i], res["cpu"][i], f"{label} L={L} B={B} "
+                f"{name}", ties, all_agree, decided_agree)
     out["seconds"] = time.perf_counter() - t0
     say(f"  (d) {label} L={L}: {out['seconds']:.1f} s, the CPU side included")
     return out
+
+
+def logits_agree(torch, a, b_, what: str, ties: int, all_agree: bool,
+                 decided_agree: bool):
+    """Kernel logits a against plain logits b_ [rows, V]: within 5% of
+    max|logit|; all_agree: every greedy token equal; decided_agree:
+    equal but in tie rows (see TIE_ULPS), at most MAX_TIE_ROWS counting
+    the `ties` before. Returns (the measurements, the ties so far)."""
+    err = (a - b_).abs().max().item()
+    ref = b_.abs().max().item()
+    tol = 5e-2 * ref
+    need(bool(torch.isfinite(a).all()) and err <= tol,
+         f"{what}: kernel vs plain max_abs_err {err} > {tol}")
+    same = a.argmax(-1) == b_.argmax(-1)
+    agree = same.float().mean().item()
+    # the plain logit of the kernel's token, below the plain top
+    gap = b_.max(-1).values - b_.gather(-1, a.argmax(-1, keepdim=True))[:, 0]
+    tie_gap = TIE_ULPS * BF16_ULP * 2.0 ** math.floor(math.log2(ref))
+    tie = ~same & (gap <= tie_gap)
+    ties += int(tie.sum())
+    need(not all_agree or agree == 1.0,
+         f"{what}: greedy agreement {agree} < 1")
+    need(not decided_agree or bool((same | tie).all()),
+         f"{what}: greedy tokens differ beyond a tie of {tie_gap} "
+         f"(plain-logit gaps {gap.tolist()})")
+    need(not decided_agree or ties <= MAX_TIE_ROWS,
+         f"{what}: {ties} tie rows > {MAX_TIE_ROWS}")
+    say(f"  (d) {what}: logits max_abs_err={err:.4g} (tol {tol:.3g}, "
+        f"max|logit|={ref:.3g}) greedy agreement {agree:.3f}"
+        + (f" ({int(tie.sum())} tie rows within {tie_gap}, plain-logit gaps "
+           f"{[round(g, 4) for g in gap[tie].tolist()]})"
+           if bool(tie.any()) else ""))
+    return dict(max_abs_err=err, tol=tol, max_abs_logit=ref,
+                greedy_agreement=agree, tie_rows=int(tie.sum()),
+                tie_gaps=gap[tie].tolist(), tie_gap=tie_gap), ties
 
 
 def mixtral_vs_plain(torch, report_out, kinds=("model",),
@@ -2597,19 +2761,22 @@ def phase_gptoss(torch, report):
 
 # -- phase 10 --------------------------------------------------------------
 
-def paged_vs_plain(torch, cfg, params, kind: str):
+def paged_vs_plain(torch, cfg, params, kind, PAGE=64, T=256,
+                   lens=(1, 70, 130, 250), decided_agree=False):
     """(d): forward_paged_decode (G=1) and forward_paged_verify (G=5) over
-    an int8 (with scale pages) or fp8 pool of random encoded K/V, kernels
-    on the card against the plain versions on the CPU on a copy of the
-    same pool: logits within 5% of max|logit|, greedy agreement 1.0."""
+    an int8 (with scale pages), fp8 or (kind None) model-dtype pool of
+    random encoded K/V, rows at `lens`, kernels on the card against the
+    plain versions on the CPU on a copy of the same pool: logits within
+    5% of max|logit|, greedy agreement 1.0 (decided_agree: equal but in
+    tie rows, see logits_agree)."""
     from turboinfer_tpu_torch.engine import paged_cache
     from turboinfer_tpu_torch.models import llama
     from turboinfer_tpu_torch.models.common import params_to
-    B, PAGE, T = 4, 64, 256
+    B, npg = len(lens), T // PAGE
     g = torch.Generator(device="cuda").manual_seed(13)
     gen = torch.Generator().manual_seed(13)
-    dt = {"int8": torch.int8, "fp8": torch.uint8}[kind]
-    cache = paged_cache.init_paged_cache(cfg, B, num_pages=1 + B * 4,
+    dt = {"int8": torch.int8, "fp8": torch.uint8}.get(kind)
+    cache = paged_cache.init_paged_cache(cfg, B, num_pages=1 + B * npg,
                                          page_size=PAGE, max_seq=T, dtype=dt,
                                          device="cuda")
     pools = [cache.k_pages, cache.v_pages]
@@ -2621,11 +2788,11 @@ def paged_vs_plain(torch, cfg, params, kind: str):
         pools[i].copy_(code)
         if sc is not None:
             scales[i].copy_(sc)
-    table = torch.randperm(B * 4, generator=gen).add(1).to(
-        torch.int32).reshape(B, 4)
-    lens = torch.tensor([1, 70, 130, 250], dtype=torch.int32)
+    table = torch.randperm(B * npg, generator=gen).add(1).to(
+        torch.int32).reshape(B, npg)
+    lens = torch.tensor(lens, dtype=torch.int32)
     cpu_params = params_to(params, "cpu")
-    out = {}
+    out, ties = {}, 0
     for G in (1, 5):
         toks = torch.randint(1, cfg.vocab_size, (B, G), generator=gen,
                              dtype=torch.int32)
@@ -2638,20 +2805,11 @@ def paged_vs_plain(torch, cfg, params, kind: str):
             lg = llama.forward_paged_verify(p, cfg, toks.to(dev), kp, vp,
                                             table.to(dev), lens.to(dev),
                                             **sc)[0]
-            res.append(lg.float().cpu())
-        a, b_ = res
-        err = (a - b_).abs().max().item()
-        ref = b_.abs().max().item()
-        tol = 5e-2 * ref
-        agree = (a.argmax(-1) == b_.argmax(-1)).float().mean().item()
-        need(bool(torch.isfinite(a).all()) and err <= tol and agree == 1.0,
-             f"(d) paged {kind} G={G}: max_abs_err {err} (tol {tol}), greedy "
-             f"agreement {agree}")
-        out[f"paged_G{G}"] = dict(max_abs_err=err, tol=tol, max_abs_logit=ref,
-                                  greedy_agreement=agree)
-        say(f"  (d) L={cfg.num_layers} paged {kind} G={G}: logits "
-            f"max_abs_err={err:.4g} (tol {tol:.3g}, max|logit|={ref:.3g}) "
-            f"greedy agreement {agree:.3f}")
+            res.append(lg.float().cpu().reshape(B * G, -1))
+        out[f"paged_G{G}"], ties = logits_agree(
+            torch, *res, f"L={cfg.num_layers} paged {kind or 'model'} "
+            f"G={G} kv_len={lens.tolist()}", ties, not decided_agree,
+            decided_agree)
     return out
 
 
@@ -3117,9 +3275,225 @@ def phase_w4a8(torch, report):
     return runs["a"][0]["launches"]
 
 
+# -- phase 13 --------------------------------------------------------------
+
+def decode_step_launches(torch, kernels, eng, prompts, want):
+    """The launches of one decode step of generate_batch's path after a
+    prefill of `prompts`, checked against `want`."""
+    B = len(prompts)
+    tokens, seq_lens, _ = eng._pad_batch(prompts)
+    cache = eng._take_cache(B)
+    logits, cache = eng._run_prefill(tokens, seq_lens, cache)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    _, cache = eng._decode_step(logits.argmax(-1).to(torch.int32), cache)
+    counts = kernels.launch_counts()
+    eng._put_cache(B, cache)
+    need(counts == want, f"one B={B} decode step: launches {counts} != {want}")
+    say(f"  one B={B} decode step: launches {counts}, as expected")
+    return counts
+
+
+def gemma2_batch(torch, kernels, params, cfg, kv: str, runs, report_out):
+    """(a), (b) and (e) of phase 13: generate_batch on one engine of
+    kv_cache_dtype kv (max_seq 8192, greedy) for each (label, prompts,
+    new tokens) of runs: logits finite, launch counts, tokens, peak
+    memory, the cache's bytes; the first run also one decode step
+    counted alone and traced (a prefill, 8 decode steps)."""
+    from turboinfer_tpu_torch.config import InferenceConfig
+    from turboinfer_tpu_torch.engine.engine import InferenceEngine
+    L, T = cfg.num_layers, cfg.max_seq_len
+    eng = InferenceEngine(params, cfg, InferenceConfig(
+        max_seq_len=T, temperature=0.0, seed=0, eos_token_id=-1,
+        measure_ttft=True, kv_cache_dtype=kv), device="cuda")
+    compressed = kv != "model"
+    for i, (label, prompts, new) in enumerate(runs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        B = len(prompts)
+        say(f"  {label} generate_batch B={B}, prompts "
+            f"{sorted({len(p) for p in prompts})}, {new} new, max_seq {T}, "
+            f"kv_cache_dtype={kv}")
+        path_logits(torch, eng, prompts)
+        res, counts, stats = run_counted(torch, kernels, eng, prompts, new,
+                                         f"{label} {kv} greedy")
+        want = expected_launches(L, new - 1, compressed=compressed)
+        need(counts == want, f"{label} {kv}: launch counts {counts} != "
+                             f"{want}")
+        need(all(len(r.tokens) == len(p) + new for r, p in zip(res, prompts))
+             and all(0 <= t < cfg.vocab_size for r in res for t in r.tokens),
+             f"{label} {kv}: wrong tokens")
+        stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        cache = eng._take_cache(B)
+        stats["cache_bytes"] = cache_bytes(cache)
+        eng._put_cache(B, cache)
+        if i == 0:
+            stats["step_launches"] = decode_step_launches(
+                torch, kernels, eng, prompts, expected_launches(
+                    L, 1, prefills=0, compressed=compressed))
+            stats["prefill_trace"] = trace_prefill(
+                torch, eng, prompts, f"{label} {kv} prefill", steps=1)
+            stats["decode_trace"] = trace_decode(torch, eng, prompts)
+        say(f"  {label} {kv}: launches as expected {want}; cache "
+            f"{stats['cache_bytes'] / 2**30:.3f} GiB; peak "
+            f"{stats['peak_gib']:.2f} GiB")
+        report_out[f"{label} {kv}"] = stats
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report_out[f"{runs[0][0]} {kv}"]["launches"]
+
+
+def gemma2_paged(torch, kernels, params, cfg, gen, report_out):
+    """(c) of phase 13: PagedContinuousScheduler (8 slots, 256-token
+    pages, max_seq 8192) with speculative rounds (the first 2 layers as
+    the draft, spec_k=4, greedy): 8 requests of 600-5000 tokens, 4 of
+    them a 4200-token prefix and their own suffix, 32 new tokens each.
+    All 8 admit in the first step, in submission order, so the first
+    sharing request pools the prefix's 16 full pages and each later one
+    hits all 16: 48 hits. No page may leak; the verify runs windowed and
+    softcapped on the paged kernel."""
+    from turboinfer_tpu_torch.config import InferenceConfig
+    from turboinfer_tpu_torch.engine.scheduler import PagedContinuousScheduler
+    L, T, PAGE, DL, K, NEW = cfg.num_layers, cfg.max_seq_len, 256, 2, 4, 32
+    say(f"  (c) paged serving, 8 slots, page {PAGE}, max_seq {T}, 8 requests "
+        f"(4 sharing a 4200-token prefix), speculative rounds: draft = first "
+        f"{DL} layers, spec_k={K}, {NEW} new tokens each")
+    sched = PagedContinuousScheduler(
+        params, cfg, InferenceConfig(max_seq_len=T, temperature=0.0, seed=0,
+                                     eos_token_id=-1),
+        batch_slots=8, page_size=PAGE, draft_params=first_layers(params, DL),
+        draft_config=cfg.replace(num_layers=DL), spec_k=K, device="cuda")
+
+    def rand(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+    prefix = rand(4200)
+    unique = [rand(n) for n in (600, 1700, 3000, 5000)]
+    shared = [prefix + rand(n) for n in (50, 300, 500, 800)]
+    reqs = [r for pair in zip(unique, shared) for r in pair]
+    want_hits = 3 * (len(prefix) // PAGE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [sched.submit(r, NEW) for r in reqs]
+    kernels.reset_launch_counts()
+    steps = 0
+    while sched.pending:
+        sched.step()
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    res = sched.run()
+    need(all(len(res[i].tokens) == len(r) + NEW
+             and all(0 <= t < cfg.vocab_size for t in res[i].tokens)
+             for i, r in zip(rids, reqs)), "(c) wrong tokens")
+    acc, prop = sched.spec_accepted, sched.spec_proposed
+    need(prop > 0, "(c) no speculative round ran")
+    need(counts["paged_attention"] > 0 and counts["flash_prefill"] > 0
+         and counts["decode_attention"] > 0,
+         f"(c) launches {counts}: a kernel of the path did not run")
+    need(sched.pool.hits == want_hits, f"(c) prefix hits {sched.pool.hits} "
+         f"!= {want_hits} (misses {sched.pool.misses})")
+    need(sched.pool.live_pages == 1
+         and sched.pool.available == sched.pool.num_pages - 1,
+         f"(c) pages leaked: {sched.pool.live_pages} live, "
+         f"{sched.pool.available} available of {sched.pool.num_pages}")
+    prefill_ms = [r.prefill_time_ms for r in res.values()]
+    out = dict(requests=8, steps=steps, wall_s=wall,
+               tokens_per_s=8 * NEW / wall,
+               prefill_ms_median=statistics.median(prefill_ms),
+               prefill_ms_max=max(prefill_ms), accepted=acc, proposed=prop,
+               acceptance=acc / prop, launches=counts,
+               prefix_hits=sched.pool.hits, prefix_misses=sched.pool.misses,
+               pool_pages=sched.pool.num_pages)
+    say(f"  (c) 8 requests in {wall:.3f} s over {steps} steps, "
+        f"{out['tokens_per_s']:.1f} tok/s; prefill_ms median "
+        f"{out['prefill_ms_median']:.1f} max {out['prefill_ms_max']:.1f}; "
+        f"acceptance {acc}/{prop}; prefix hits {sched.pool.hits} (the plan: "
+        f"{want_hits}), misses {sched.pool.misses}; no page leaked; launches "
+        f"{counts}")
+    report_out["paged"] = out
+    del sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_gemma2(torch, report):
+    """Phase 13: Gemma-2-27B (google/gemma-2-27b's config.json, as
+    config.gemma2_27b_config transcribes it: 46 layers, hidden 4608,
+    32:16 heads of 128, FFN 36864 GeGLU, vocab 256000, 8192 positions,
+    a 4096-key window on every even layer, softcaps 50 / 30, attn_scale
+    144**-0.5, (1 + w) and sandwich norms, tied embeddings), int4 g=64,
+    bf16, synthetic weights from a seed, all 46 layers: (a)
+    generate_batch B=2, prompts of 4500 and 5000 (past the window), 64
+    new tokens, max_seq 8192, launch counts of the run and of one decode
+    step, a traced prefill and 8 traced decode steps; (b) B=8, prompts
+    512, 128 new; (e) (a) over int8 and fp8 caches; (c) paged serving
+    with speculative verify (gemma2_paged); (d) at L=2 (layer 0 windowed,
+    layer 1 global), kernels against plain versions: a 4160-token
+    prompt, then paged decode and verify over pools filled past the
+    window, within 5% of max|logit| and under phase 11's tie rule."""
+    from turboinfer_tpu_torch import kernels
+    from turboinfer_tpu_torch.config import gemma2_27b_config
+    from turboinfer_tpu_torch.kernels.dispatch import prepare_params
+    from turboinfer_tpu_torch.loader.synthetic import \
+        create_synthetic_quantized_model
+    from turboinfer_tpu_torch.models import llama
+    cfg = gemma2_27b_config()
+    L, T = cfg.num_layers, cfg.max_seq_len
+    say(f"phase 13: Gemma-2-27B int4 g=64, L={L}, hidden "
+        f"{cfg.hidden_size}, Hq={cfg.num_heads} Hkv={cfg.kv_heads} "
+        f"D={cfg.head_dim_}, FFN {cfg.ffn_dim}, V={cfg.vocab_size}, window "
+        f"{cfg.sliding_window} on even layers, softcaps "
+        f"{cfg.attn_logit_softcap}/{cfg.final_logit_softcap}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = prepare_params(create_synthetic_quantized_model(
+        cfg, bits=4, group_size=64, device="cuda", seed=0).params)
+    torch.cuda.synchronize()
+    out = dict(config="gemma-2-27b int4 g=64 L=46 bf16 max_seq 8192",
+               build_s=time.perf_counter() - t0,
+               build_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               allocated_gib=torch.cuda.memory_allocated() / 2**30,
+               weight_bytes=qtensor_bytes(params))
+    say(f"  model built in {out['build_s']:.1f} s: int4 weights "
+        f"{out['weight_bytes'] / 1e9:.2f} GB, {out['allocated_gib']:.2f} GiB "
+        f"allocated, build peak {out['build_peak_gib']:.2f} GiB")
+    gen = torch.Generator().manual_seed(13)
+
+    def rand(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+    long = [rand(4500), rand(5000)]
+    launches = gemma2_batch(torch, kernels, params, cfg, "model", [
+        ("(a)", long, 64), ("(b)", [rand(512) for _ in range(8)], 128)], out)
+    for kv in KV_KINDS:
+        gemma2_batch(torch, kernels, params, cfg, kv, [("(e)", long, 64)], out)
+    gemma2_paged(torch, kernels, params, cfg, gen, out)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) L=2: layer 0 windowed, layer 1 global
+    cfg2 = cfg.replace(num_layers=2)
+    params2 = prepare_params(create_synthetic_quantized_model(
+        cfg2, bits=4, group_size=64, device="cuda", seed=1).params)
+    out["vs_plain"] = kernels_vs_plain(
+        torch, llama, cfg2, params2, lambda B: {"decode_attention": 2},
+        "Gemma-2-27B", 15, decided_agree=True, batches=((1, [4160]),))
+    out["vs_plain"].update(paged_vs_plain(
+        torch, cfg2, params2, None, PAGE=256, T=T, lens=(4150, 5000),
+        decided_agree=True))
+    del params2
+    torch.cuda.empty_cache()
+    report["gemma2"] = out
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13")
     ap.add_argument("--json", default=None,
                     help="also write every measurement to this JSON file")
     args = ap.parse_args(argv)
@@ -3193,6 +3567,7 @@ def main(argv=None) -> int:
         kv_launches = run(10, phase_kvcache, {})
         w8_launches = run(11, phase_int8_weights, {})
         a8_launches = run(12, phase_w4a8, {})
+        gemma2_launches = run(13, phase_gemma2, {})
     except (SmokeError, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         if args.json:
@@ -3209,7 +3584,8 @@ def main(argv=None) -> int:
     # launches_int8_cache from phase 10(a)'s int8 run,
     # launches_int8_weights from phase 11 (a) and (c); the W4A8 kernels
     # from phase 12 (a)'s first greedy run with the env set, and
-    # launches_w4a8 from that run for every kernel
+    # launches_w4a8 from that run for every kernel; launches_gemma2 from
+    # phase 13 (a)'s run (windowed and softcapped flash and decode)
     kern = []
     for name in kernels.wrappers():
         r = results.get(name, {})
@@ -3228,6 +3604,7 @@ def main(argv=None) -> int:
                      "launches_int8_cache": kv_launches.get(name, 0),
                      "launches_int8_weights": w8_launches.get(name, 0),
                      "launches_w4a8": a8_launches.get(name, 0),
+                     "launches_gemma2": gemma2_launches.get(name, 0),
                      "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
                      "plain_ms": r.get("plain_ms"),
                      "bound_ms": r.get("bound_ms"),

@@ -1292,3 +1292,187 @@ def test_cuda_paged_counters_stay_zero_at_mixed_shapes():
                                    rtol=2.0 ** -7)
     torch.cuda.synchronize()
     assert not _build.counters(q.device, 8 * Hkv)[:8 * Hkv].any()
+
+
+# -- softcap and sliding windows (Gemma-2, Mistral) ---------------------------
+
+# (window, softcap, query scale): a cap the scores pass by 2-3x (queries
+# drawn 4x wider: scores of spread ~4, tails past 10 against cap 4), the
+# same cap on a window that is no multiple of the 128-key tiles, Gemma-2's
+# cap 50 that plain scores stay below, windows alone, and Gemma-2-27B's
+# window less 37 keys
+WINDOW_CAPS = {"cap4": (None, 4.0, 4.0), "w600_cap4": (600, 4.0, 4.0),
+               "w600_cap50": (600, 50.0, 1.0), "w129": (129, None, 1.0),
+               "w13": (13, None, 1.0), "w4059_cap4": (4096 - 37, 4.0, 4.0)}
+
+
+def _kv_pair(gen, shape, kind):
+    """K and V of `kind` (None: bf16) -> (k, v, k_scale, v_scale)."""
+    return _paged_pools(gen, shape, kind)
+
+
+def _qpos_rows(q_start, S, kv_len):
+    """[B, S] rows whose position is < kv_len: each sees at least its own
+    key, whatever the window (a padded row may see none: undefined)."""
+    pos = q_start[:, None] + torch.arange(S, device="cuda")[None, :]
+    return pos < kv_len[:, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", list(WINDOW_CAPS))
+@pytest.mark.parametrize("D,Hq,Hkv", [(128, 32, 16), (64, 8, 2), (32, 4, 4),
+                                      (128, 8, 1)])
+def test_cuda_flash_prefill_fresh_window_softcap_matches_plain(mask, D, Hq,
+                                                               Hkv):
+    """The fresh read with a window and a softcap, S=1100 fill 1100 and
+    777 (S=4200 for the 4059-key window): with gh=2 (Gemma-2's 32:16) a
+    block holds 64 positions, so at window 600 blocks whose first tile
+    (q_first - window + 1) mod 128 > 64 give their later rows a first
+    tile with every key masked; a repeated call gives the same bits."""
+    _need_cuda()
+    window, cap, qs = WINDOW_CAPS[mask]
+    gen = torch.Generator(device="cuda").manual_seed(D + Hq + len(mask))
+    B, S = 2, 4200 if window and window > 2000 else 1100
+
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+    q = (qs * rnd(B, S, Hq, D).float()).to(torch.bfloat16)
+    k, v = rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+    kv_len = torch.tensor([S, S - 323], dtype=torch.int32, device="cuda")
+    q0 = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    got = flash_attention.flash_prefill(q, kt, vt, kv_len, q0, window=window,
+                                        softcap=cap)
+    want = flash_attention.prefill_plain(q, kt, vt, kv_len, q0,
+                                         window=window, softcap=cap)
+    rows = _qpos_rows(q0, S, kv_len)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got[rows].float(), want[rows].float(),
+                               atol=2e-2, rtol=2.0 ** -7)
+    assert torch.equal(got, flash_attention.flash_prefill(
+        q, kt, vt, kv_len, q0, window=window, softcap=cap))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [None, *KINDS], ids=["bf16", *KINDS])
+@pytest.mark.parametrize("mask", ["cap4", "w600_cap4", "w129", "w13"])
+@pytest.mark.parametrize("Hq,Hkv", [(32, 16), (6, 2)])
+def test_cuda_flash_prefill_stacked_window_softcap_matches_plain(kind, mask,
+                                                                 Hq, Hkv):
+    """The chunked read of layer 1 of a stacked cache (bf16, int8, fp8)
+    at q_start 4096 and 700 with a window and a softcap: the key loop
+    starts at the tile of the block's earliest window."""
+    _need_cuda()
+    window, cap, qs = WINDOW_CAPS[mask]
+    gen = torch.Generator(device="cuda").manual_seed(Hq + len(mask))
+    L, B, S, T, D = 2, 2, 300, 4608, 128
+    kc, vc, ks, vs = _kv_pair(gen, (L, B, Hkv, T, D), kind)
+    sc = (None, None) if ks is None else (ks[1], vs[1])
+    q = (qs * torch.randn((B, S, Hq, D), generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    q_start = torch.tensor([4096, 700], dtype=torch.int32, device="cuda")
+    kv_len = torch.tensor([4396, 911], dtype=torch.int32, device="cuda")
+    got = flash_attention.flash_prefill(q, kc[1], vc[1], kv_len, q_start,
+                                        *sc, window=window, softcap=cap)
+    want = flash_attention.prefill_plain(q, kc[1], vc[1], kv_len, q_start,
+                                         *sc, window=window, softcap=cap)
+    rows = _qpos_rows(q_start, S, kv_len)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got[rows].float(), want[rows].float(),
+                               atol=2e-2, rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [None, *KINDS], ids=["bf16", *KINDS])
+@pytest.mark.parametrize("mask", list(WINDOW_CAPS))
+@pytest.mark.parametrize("Hq,Hkv", [(32, 16), (8, 1), (4, 4)])
+def test_cuda_decode_window_softcap_matches_plain(kind, mask, Hq, Hkv):
+    """Decode over bf16, int8 and fp8 caches (T=8192) with a softcap on
+    the tensor-core GQA kernel (gh 2 and 8) and the lone-head kernel, on
+    windowed and global rows: kv_len 1, 4000, 4097 (a window start past
+    a slice edge), 8192; a repeated call gives the same bits."""
+    _need_cuda()
+    window, cap, qs = WINDOW_CAPS[mask]
+    gen = torch.Generator(device="cuda").manual_seed(Hq * Hkv + len(mask))
+    L, B, T, D = 2, 4, 8192, 128
+    kc, vc, ks, vs = _kv_pair(gen, (L, B, Hkv, T, D), kind)
+    q = (qs * torch.randn((B, Hq, D), generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    kv_len = torch.tensor([1, 4000, 4097, 8192], dtype=torch.int32,
+                          device="cuda")
+    got = decode_attention.decode_attention(q, kc, vc, kv_len, 1, window,
+                                            None, ks, vs, cap)
+    want = decode_attention.decode_plain(q, kc, vc, kv_len, 1, window, None,
+                                         ks, vs, cap)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                               rtol=2.0 ** -7)
+    assert torch.equal(got, decode_attention.decode_attention(
+        q, kc, vc, kv_len, 1, window, None, ks, vs, cap))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [None, *KINDS], ids=["bf16", *KINDS])
+@pytest.mark.parametrize("mask", ["cap4", "w600_cap4", "w600_cap50", "w129",
+                                  "w13"])
+@pytest.mark.parametrize("G,Hq,Hkv,page", [(1, 32, 16, 256), (5, 32, 16, 256),
+                                           (1, 4, 4, 16), (5, 8, 1, 16),
+                                           (16, 16, 2, 8)],
+                         ids=["G1-gh2", "G5-gh2", "G1-gh1", "G5-gh8",
+                              "G16-gh8"])
+def test_cuda_paged_window_softcap_matches_plain(kind, mask, G, Hq, Hkv,
+                                                 page):
+    """Paged decode (G=1) and verify (G=5, 16) over bf16, int8 and fp8
+    pools with a window and a softcap. The slices count from the earliest
+    query's first visible key (kv_len - G + 1 - window), so the first
+    slice holds keys the later queries do not see (their max there is
+    -1e30 and the merge weighs them 0); kv_len G (every query at its
+    own start), a window start mid-page, and full tables; a repeated
+    call gives the same bits and the counters end at 0."""
+    _need_cuda()
+    from turboinfer_tpu_torch.kernels import _build
+    window, cap, qs = WINDOW_CAPS[mask]
+    gen = torch.Generator(device="cuda").manual_seed(G * Hq + page + len(mask))
+    L, P, B, max_pages = 2, 300, 4, 4096 // page
+    kp, vp, ks, vs = _kv_pair(gen, (L, P, Hkv, page, 128), kind)
+    q = (qs * torch.randn((B, G, Hq, 128), generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    table = torch.randint(0, P, (B, max_pages), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    kv_len = torch.tensor([G, 777, 2000, max_pages * page], dtype=torch.int32,
+                          device="cuda")
+    got = paged_attention.paged_attention(q, kp, vp, table, kv_len, 1, ks, vs,
+                                          window, cap)
+    want = paged_attention.paged_plain(q, kp, vp, table, kv_len, 1, G, ks, vs,
+                                       window, cap)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                               rtol=2.0 ** -7)
+    assert torch.equal(got, paged_attention.paged_attention(
+        q, kp, vp, table, kv_len, 1, ks, vs, window, cap))
+    torch.cuda.synchronize()
+    assert not _build.counters(q.device, B * Hkv)[:B * Hkv].any()
+
+
+@pytest.mark.cuda
+def test_cuda_attention_refuses_head_dim_256():
+    """D=256 (Gemma-2-2B/9B, Gemma-3) and D=96 (Phi-3) are not ported to
+    the kernels yet: each wrapper raises on the card, nothing falls back."""
+    _need_cuda()
+    from turboinfer_tpu_torch.utils.errors import KernelError
+    for D in (96, 256):
+        q = torch.zeros((1, 8, 4, D), dtype=torch.bfloat16, device="cuda")
+        kv = torch.zeros((1, 2, 8, D), dtype=torch.bfloat16, device="cuda")
+        lens = torch.tensor([8], dtype=torch.int32, device="cuda")
+        with pytest.raises(KernelError):
+            flash_attention.flash_prefill(q, kv, kv, lens, lens * 0,
+                                          window=4, softcap=50.0)
+        cache = torch.zeros((1, 1, 2, 16, D), dtype=torch.bfloat16,
+                            device="cuda")
+        with pytest.raises(KernelError):
+            decode_attention.decode_attention(q[:, 0], cache, cache, lens, 0,
+                                              softcap=50.0)
+        table = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+        with pytest.raises(KernelError):
+            paged_attention.paged_attention(q[:, :1], cache[:, :1],
+                                            cache[:, :1], table, lens, 0,
+                                            window=4, softcap=50.0)

@@ -296,6 +296,137 @@ def test_decode_plain_window_sinks_match_fused_pallas(case, sinks):
                 torch.from_numpy(kv_len), 0, window=0)
 
 
+# -- softcap and sliding windows (Gemma-2, Mistral) ---------------------------
+
+# (window, softcap): windows that are no tile multiple, caps the scores
+# (drawn at ~2x their usual spread) pass by 2-3x, and a cap they stay
+# below
+_MASKS = {"w13_cap2": (13, 2.0), "cap2": (None, 2.0), "w5": (5, None),
+          "w600_cap50": (600, 50.0)}
+
+
+def _kv_store(rng, shape, kind):
+    """Random K/V, as f32 or encoded to kind "int8"/"fp8" by the port's
+    codec -> (JAX storage, JAX scales, port storage, port scales), the
+    same bytes."""
+    from turboinfer_tpu_torch.models.common import encode_kv_scaled
+    x = rng.normal(size=shape).astype(np.float32)
+    if kind is None:
+        return jnp.asarray(x), None, torch.from_numpy(x), None
+    q, s = encode_kv_scaled(torch.from_numpy(x),
+                            {"int8": torch.int8, "fp8": torch.uint8}[kind])
+    return (jnp.asarray(q.numpy()), None if s is None else
+            jnp.asarray(s.numpy()), q, s)
+
+
+@pytest.mark.parametrize("mask", list(_MASKS))
+@pytest.mark.parametrize("stacked,kind", [(False, None), (True, None),
+                                          (True, "int8"), (True, "fp8")],
+                         ids=["fresh", "stacked", "stacked_int8",
+                              "stacked_fp8"])
+def test_prefill_plain_window_softcap_matches_pallas(mask, stacked, kind):
+    """prefill_plain with a window and a softcap against prefill_pallas
+    in interpret mode: the fresh read (f32 K/V) and the stacked read of a
+    chunk at q_start > 0 (f32, int8 with its scales, fp8). Rows past
+    kv_len may see no key in their window (undefined: each side averages
+    another key set) and are left out."""
+    window, cap = _MASKS[mask]
+    rng = _rng(70 + len(mask) + 3 * stacked)
+    L, B, S, Hq, Hkv, D = 2, 2, 24, 4, 2, 64
+    T = 64 if stacked else S
+    q = (2.0 * rng.normal(size=(B, S, Hq, D))).astype(np.float32)
+    lead = (L, B) if stacked else (B,)
+    jk, jks, tk, tks = _kv_store(rng, lead + (Hkv, T, D), kind)
+    jv, jvs, tv, tvs = _kv_store(rng, lead + (Hkv, T, D), kind)
+    q_start = np.array([30, 7] if stacked else [0, 0], np.int32)
+    kv_len = np.array([54, 20] if stacked else [24, 15], np.int32)
+    want = jfa.prefill_pallas(
+        jnp.asarray(q), jk, jv, causal=True, kv_len=jnp.asarray(kv_len),
+        q_start=jnp.asarray(q_start), window=window, softcap=cap,
+        layer_index=jnp.int32(1) if stacked else None, k_scale=jks,
+        v_scale=jvs, interpret=True)
+    assert want is not None
+    got = dispatch.attention_prefill(
+        torch.from_numpy(q), tk, tv, kv_len=torch.from_numpy(kv_len),
+        q_start=torch.from_numpy(q_start),
+        layer_index=1 if stacked else None, k_scale=tks, v_scale=tvs,
+        window=window, softcap=cap)
+    valid = (q_start[:, None] + np.arange(S)[None, :]) < kv_len[:, None]
+    assert _rel(got.numpy()[valid], np.asarray(want)[valid]) < KERNEL_RTOL
+    # and the JAX jnp golden form, on the same decoded K/V, exactly
+    from turboinfer_tpu_torch.models.common import decode_kv
+    kf = decode_kv(tk[1] if stacked else tk, torch.float32,
+                   None if tks is None else tks[1])
+    vf = decode_kv(tv[1] if stacked else tv, torch.float32,
+                   None if tvs is None else tvs[1])
+    pos = q_start[:, None] + np.arange(S)[None, :]
+    ref = jops.attention_prefill_ref(
+        jnp.asarray(q), jnp.asarray(kf.numpy()), jnp.asarray(vf.numpy()),
+        positions=jnp.asarray(pos), kv_len=jnp.asarray(kv_len),
+        window=window, softcap=cap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("mask", list(_MASKS))
+@pytest.mark.parametrize("kind", [None, "int8", "fp8"],
+                         ids=["f32", "int8", "fp8"])
+def test_decode_plain_softcap_matches_pallas(mask, kind):
+    """decode_plain with a softcap (and a window) against decode_pallas
+    in interpret mode, over f32, int8 and fp8 caches; kv_len 1 and a
+    window start past 0."""
+    window, cap = _MASKS[mask]
+    rng = _rng(80 + len(mask))
+    L, B, Hq, Hkv, T, D = 2, 3, 8, 2, 128, 64
+    jk, jks, tk, tks = _kv_store(rng, (L, B, Hkv, T, D), kind)
+    jv, jvs, tv, tvs = _kv_store(rng, (L, B, Hkv, T, D), kind)
+    q = (2.0 * rng.normal(size=(B, Hq, D))).astype(np.float32)
+    kv_len = np.array([1, 70, 128], np.int32)
+    want = jda.decode_pallas(jnp.asarray(q), jk, jv, jnp.asarray(kv_len),
+                             layer_index=jnp.int32(1), window=window,
+                             softcap=cap, k_scale=jks, v_scale=jvs,
+                             interpret=True)
+    got = dispatch.attention_decode(torch.from_numpy(q), tk, tv,
+                                    torch.from_numpy(kv_len), layer_index=1,
+                                    window=window, k_scale=tks, v_scale=tvs,
+                                    softcap=cap)
+    assert _rel(got.numpy(), np.asarray(want)) < KERNEL_RTOL
+
+
+def test_decode_plain_softcap_sinks_match_fused_pallas():
+    """A softcap beside sinks and a window (decode_fused_pallas takes all
+    three): the sink logit enters the softmax uncapped."""
+    rng = _rng(90)
+    L, B, Hq, Hkv, D, T = 2, 3, 16, 2, 64, 256
+    q = (2.0 * rng.normal(size=(B, Hq, D))).astype(np.float32)
+    k = rng.normal(size=(L, B, Hkv, T, D)).astype(np.float32)
+    v = rng.normal(size=(L, B, Hkv, T, D)).astype(np.float32)
+    snk = rng.normal(scale=2.0, size=(Hq,)).astype(np.float32)
+    kv_len = np.array([1, 129, 256], np.int32)
+
+    def fused(c):
+        return jnp.asarray(c.transpose(0, 1, 3, 2, 4).reshape(L, B, T, Hkv * D))
+    want = jda.decode_fused_pallas(
+        jnp.asarray(q), fused(k), fused(v), jnp.asarray(kv_len),
+        layer_index=jnp.int32(1), window=100, softcap=3.0,
+        sinks=jnp.asarray(snk), interpret=True)
+    got = decode_attention.decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(kv_len), 1, window=100,
+        sinks=torch.from_numpy(snk), softcap=3.0)
+    assert _rel(got.numpy(), want) < KERNEL_RTOL
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        jops.attention_decode_fused_ref(
+            jnp.asarray(q), fused(k)[1], fused(v)[1], jnp.asarray(kv_len),
+            window=100, softcap=3.0, sinks=jnp.asarray(snk))),
+        rtol=1e-5, atol=1e-5)
+    for bad in (dict(softcap=0.0), dict(softcap=-1.0), dict(window=0)):
+        with pytest.raises(ValueError):
+            decode_attention.decode_attention(
+                torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                torch.from_numpy(kv_len), 1, **bad)
+
+
 def test_cpu_wrappers_never_launch():
     kernels.reset_launch_counts()
     x = torch.randn(3, 128)

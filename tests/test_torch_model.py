@@ -150,8 +150,12 @@ def test_chunked_prefill_matches_fresh():
 
 
 def test_unported_knobs_raise():
-    cfg = tconfig.tiny_config(dtype=torch.float32, sliding_window=8)
+    """Knobs of the NeoX/GPT-2 blocks stay refused by the llama body (the
+    window and softcap knobs are ported: tests/test_torch_knobs.py)."""
+    cfg = tconfig.tiny_config(dtype=torch.float32, alibi=True)
     with pytest.raises(NotImplementedError):
         tllama.check_supported(cfg)
     with pytest.raises(NotImplementedError):
-        tllama.check_supported(tconfig.tiny_config(attn_logit_softcap=30.0))
+        tllama.check_supported(tconfig.tiny_config(rotary_pct=0.5))
+    with pytest.raises(NotImplementedError):
+        tllama.check_supported(tconfig.tiny_config(parallel_residual=True))

@@ -108,6 +108,54 @@ def test_paged_plain_matches_pallas_full_tile(D, page):
     assert _rel(got.numpy()[valid], np.asarray(want)[valid]) < KERNEL_RTOL
 
 
+@pytest.mark.parametrize("kind", [None, "int8", "fp8"],
+                         ids=["f32", "int8", "fp8"])
+@pytest.mark.parametrize("G", [1, 5])
+@pytest.mark.parametrize("window,cap", [(21, 2.0), (None, 2.0), (21, None),
+                                        (600, 50.0)],
+                         ids=["w21_cap2", "cap2", "w21", "w600_cap50"])
+def test_paged_plain_window_softcap_matches_pallas(kind, G, window, cap):
+    """paged_plain with a window and a softcap against the Pallas paged
+    decode (G=1) and verify (G=5) kernels in interpret mode, over f32,
+    int8 (scale pages) and fp8 pools: a window of 21 keys (not a page
+    multiple) whose verify rows start their windows in different pages,
+    caps the scores pass by 2-3x, and a cap they stay below."""
+    from turboinfer_tpu_torch.models.common import encode_kv_scaled
+    rng = np.random.default_rng(G + 3 * len(str(window)) + int(cap or 0))
+    L, P, Hkv, page, D, B, max_pages, gh = 2, 12, 2, 16, 64, 3, 5, 2
+    lens = [G + 2, 2 * page + 3, max_pages * page]
+
+    def pool():
+        x = rng.normal(size=(L, P, Hkv, page, D)).astype(np.float32)
+        if kind is None:
+            return jnp.asarray(x), None, torch.from_numpy(x), None
+        q8, s8 = encode_kv_scaled(torch.from_numpy(x), {
+            "int8": torch.int8, "fp8": torch.uint8}[kind])
+        return (jnp.asarray(q8.numpy()), None if s8 is None else
+                jnp.asarray(s8.numpy()), q8, s8)
+    jk, jks, tk, tks = pool()
+    jv, jvs, tv, tvs = pool()
+    q = (2.0 * rng.normal(size=(B, G, Hkv * gh, D))).astype(np.float32)
+    table = _table(rng, B, P, max_pages, lens, page)
+    kv = np.asarray(lens, np.int32)
+    args = (jk, jv, jnp.asarray(table), jnp.asarray(kv))
+    kw = dict(layer_index=jnp.int32(1), window=window, softcap=cap,
+              k_scale=jks, v_scale=jvs, interpret=True)
+    if G == 1:
+        want = jpa.paged_decode_pallas(jnp.asarray(q[:, 0]), *args,
+                                       **kw)[:, None]
+        got = dispatch.attention_paged_decode(
+            torch.from_numpy(q[:, 0]), tk, tv, torch.from_numpy(table),
+            torch.from_numpy(kv), 1, tks, tvs, window=window,
+            softcap=cap)[:, None]
+    else:
+        want = jpa.paged_verify_pallas(jnp.asarray(q), *args, **kw)
+        got = dispatch.attention_paged_verify(
+            torch.from_numpy(q), tk, tv, torch.from_numpy(table),
+            torch.from_numpy(kv), 1, tks, tvs, window=window, softcap=cap)
+    assert _rel(got.numpy(), np.asarray(want)) < KERNEL_RTOL
+
+
 def test_dispatch_paged_decode_is_verify_at_one_token():
     rng = np.random.default_rng(3)
     kp = torch.from_numpy(rng.normal(size=(2, 6, 2, 8, 32)).astype(np.float32))

@@ -88,37 +88,33 @@ def prefill_rows(torch, smoke):
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--other", required=True)
-    ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--json", default=None)
-    ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
-    args = ap.parse_args(argv)
-    if args.child:
-        child(args.child)
-        return 0
-    import torch
-    if not torch.cuda.is_available():
-        print("encode_write_ab: no CUDA device", file=sys.stderr)
-        return 2
+def run_turns(script: str, other: str, rounds: int):
+    """`rounds` pairs of turns, this tree then `other`, each a fresh
+    process `script --other OTHER --child TREE` whose last stdout line is
+    a JSON list of rows -> (card line, {"this": [...], "other": [...]}),
+    or None when a turn failed (its output printed)."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"card: {smi}", flush=True)
-    trees = {"this": ROOT, "other": os.path.abspath(args.other)}
+    trees = {"this": ROOT, "other": os.path.abspath(other)}
     turns = {"this": [], "other": []}
-    for _ in range(args.rounds):
+    for _ in range(rounds):
         for label in ("this", "other"):
             out = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--other",
-                 args.other, "--child", trees[label]],
-                capture_output=True, text=True)
+                [sys.executable, os.path.abspath(script), "--other", other,
+                 "--child", trees[label]], capture_output=True, text=True)
             print(f"--- {label} ({trees[label]}), rc={out.returncode}")
             print(out.stdout[-20000:], out.stderr[-4000:], flush=True)
             if out.returncode != 0:
-                return 1
+                return None
             turns[label].append(json.loads(out.stdout.strip().splitlines()[-1]))
+    return smi, turns
+
+
+def summarize(turns):
+    """Per row of the turns: the mean kernel ms of each tree, their
+    ratio, the bound and each turn's numbers."""
     summary = []
     for i, row in enumerate(turns["this"][0]):
         this = statistics.mean(t[i]["ms"] for t in turns["this"])
@@ -132,10 +128,32 @@ def main(argv=None) -> int:
             host_us=[t[i].get("host_us") for t in turns["this"]],
             other_host_us=[t[i].get("host_us") for t in turns["other"]],
             yardstick_ms=row.get("yardstick_ms"),
+            library_ms=row.get("library_ms"),
             plain_ms=row["plain_ms"],
             each=[t[i]["ms"] for t in turns["this"]],
             other_each=[t[i]["ms"] for t in turns["other"]]))
-    result = {"card": smi, "rows": summary}
+    return summary
+
+
+def main(argv=None, child_fn=None, name="encode_write_ab") -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", required=True)
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--json", default=None)
+    ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child:
+        (child_fn or child)(args.child)
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        print(f"{name}: no CUDA device", file=sys.stderr)
+        return 2
+    got = run_turns(sys.argv[0], args.other, args.rounds)
+    if got is None:
+        return 1
+    smi, turns = got
+    result = {"card": smi, "rows": summarize(turns)}
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(result, turns=turns), f, indent=1)

@@ -211,3 +211,26 @@ def gptoss20b_config(**kw) -> ModelConfig:
                 architecture="gpt_oss", name="gpt-oss-20b")
     base.update(kw)
     return ModelConfig(**base)
+
+
+def gemma2_27b_config(**kw) -> ModelConfig:
+    """google/gemma-2-27b's published config.json as the JAX package's
+    loader maps it (loader/mapping.py, the HF branch): 46 layers, hidden
+    4608, 32 query and 16 kv heads of 128, FFN 36864 (GeGLU,
+    hidden_activation gelu_pytorch_tanh), vocab 256000, 8192 positions;
+    sliding_window 4096 on every even layer (pattern 2), attention and
+    final logit softcaps 50 and 30, query_pre_attn_scalar 144 (so
+    attn_scale = 144**-0.5, not head_dim**-0.5), (1 + w) norms, embeddings
+    times sqrt(hidden), sandwich norms and tied embeddings."""
+    base = dict(vocab_size=256000, hidden_size=4608, num_layers=46,
+                num_heads=32, num_kv_heads=16, head_dim=128,
+                intermediate_size=36864, rope_theta=10000.0,
+                rope_mode=RopeMode.HALF, rms_norm_eps=1e-6,
+                max_seq_len=8192, sliding_window=4096,
+                sliding_window_pattern=2, attn_logit_softcap=50.0,
+                final_logit_softcap=30.0, attn_scale=144.0 ** -0.5,
+                norm_offset=True, scale_embeddings=True, post_norms=True,
+                hidden_act="gelu", tie_embeddings=True,
+                architecture="gemma2", name="google/gemma-2-27b")
+    base.update(kw)
+    return ModelConfig(**base)

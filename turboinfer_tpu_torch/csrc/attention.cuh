@@ -40,6 +40,16 @@ __device__ __forceinline__ bool slice_of(const int* kv_len, int b, int s,
   return sl.t0 < kvl;
 }
 
+// A softcap (cap > 0; cap2 = 2 log2(e) / cap) over the n scores row[0..n),
+// lane by lane (lane, lane + 32, ...: the lanes then read their own
+// scores back, so no barrier). The kernels run it only in their instances
+// for calls with a softcap (a template flag), so an uncapped call runs
+// the code it ran before there was one.
+__device__ __forceinline__ void cap_scores(float* row, int n, float cap,
+                                           float cap2, int lane) {
+  for (int i = lane; i < n; i += 32) row[i] = ti::softcap(row[i], cap, cap2);
+}
+
 // Folds a sub-slice's (max, sum) (m, l) into the slice's running (M, L)
 // and returns the factors (a, c) of the running and the new unnormalised
 // outputs: O = a O + c o. The first fold (M = -inf) gives (0, 1).

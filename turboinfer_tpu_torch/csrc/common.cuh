@@ -16,6 +16,18 @@ namespace ti {
 
 constexpr float kNegInf = -1e30f;   // mask value of the JAX package (ops.NEG_INF)
 
+// Logit soft-capping, cap * tanh(x / cap), as 1 - 2 / (e^{2y} + 1) with
+// y = x / cap: one ex2.approx and one approximate division, within a few
+// f32 ulps of cap over the whole range (e^{2y} = inf gives cap exactly,
+// 0 gives -cap), where tanh.approx.f32's 2^-11 relative error would put
+// up to 0.025 on a score at cap 50. `two_log2e_cap` is 2 log2(e) / cap.
+__device__ __forceinline__ float softcap(float x, float cap,
+                                         float two_log2e_cap) {
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(x * two_log2e_cap));
+  return cap - __fdividef(2.f * cap, e + 1.f);
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)

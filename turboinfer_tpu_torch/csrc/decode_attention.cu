@@ -12,7 +12,13 @@
 // alignment; the port keeps this head-major layout and takes its
 // semantics here: an optional window (keys [lo, kv_len) only, lo =
 // max(kv_len - window, 0)) and optional per-head sink logits (softmax
-// over [scores, sink], the sink adding no value).
+// over [scores, sink], the sink adding no value). An optional softcap
+// (Gemma-2) turns each scaled score s (times the int8 key scale) into
+// cap * tanh(s / cap), as decode_pallas does before its mask; here only
+// live rows are scored, so nothing is masked after it (ti::softcap, a
+// few f32 ulps). The cap is a pass of its own over a sub-slice's scores
+// in shared memory, in the kernels' kCap instances only (a template
+// flag), so an uncapped call runs exactly the code it ran before.
 //
 // What bounds it on the H100: bytes, the 2 * (kv_len - lo) * D *
 // itemsize bytes of K and V (plus 8 bytes of scales per int8 row) each
@@ -200,6 +206,7 @@ struct Params {
   int Hq, Hkv, T, gh, R, S, nslices, window;
   long long qsb, qsh, csb, csh;
   float scale;
+  float softcap, cap2;   // softcap (0: none) and 2 log2(e) / softcap
 };
 
 // ---- one query head a kv head (gh = 1): the CUDA cores ----------------
@@ -221,7 +228,7 @@ struct RowLayout {
   __host__ __device__ static constexpr int total(int R) { return ml(R) + 16; }
 };
 
-template <typename KV, int D>
+template <typename KV, int D, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 decode_row_kernel(const KV* __restrict__ kc, const KV* __restrict__ vc,
                   Params p) {
@@ -278,8 +285,9 @@ decode_row_kernel(const KV* __restrict__ kc, const KV* __restrict__ vc,
     }
     __syncthreads();
 
-    // Max, exp and sum, one warp, while V may still be in flight.
+    // Softcap, max, exp and sum, one warp, while V may still be in flight.
     if (warp == 0) {
+      if constexpr (kCap) cap_scores(sc, sl.n, p.softcap, p.cap2, lane);
       float mx = ti::kNegInf;
       for (int i = lane; i < sl.n; i += 32) mx = fmaxf(mx, sc[i]);
       mx = ti::warp_max(mx);
@@ -368,7 +376,7 @@ struct GqaLayout {
   }
 };
 
-template <typename KV, int D>
+template <typename KV, int D, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 decode_gqa_kernel(const KV* __restrict__ kc, const KV* __restrict__ vc,
                   Params p) {
@@ -458,16 +466,18 @@ decode_gqa_kernel(const KV* __restrict__ kc, const KV* __restrict__ vc,
     __syncthreads();
     if constexpr (L::k8) widen<KV, D>(sV, vb, R);   // over K's bf16 rows
 
-    // Max, exp and sum per head, one warp a head; the probabilities go to
-    // sp[h][t] as bf16, int8 with the value row's scale folded in (the sum
-    // takes them unscaled); rows past n and heads past gh are zeros.
+    // Softcap, max, exp and sum per head, one warp a head; the
+    // probabilities go to sp[h][t] as bf16, int8 with the value row's
+    // scale folded in (the sum takes them unscaled); rows past n and heads
+    // past gh are zeros.
     for (int h = warp; h < kHeads; h += kWarps) {
-      const float* row = sc + h * (R + 4);
+      float* row = sc + h * (R + 4);
       __nv_bfloat16* prow = sp + h * (R + 8);
       if (h >= gh) {
         for (int i = lane; i < R; i += 32) prow[i] = __float2bfloat16(0.f);
         continue;
       }
+      if constexpr (kCap) cap_scores(row, sl.n, p.softcap, p.cap2, lane);
       float mx = ti::kNegInf;
       for (int i = lane; i < sl.n; i += 32) mx = fmaxf(mx, row[i]);
       mx = ti::warp_max(mx);
@@ -538,15 +548,15 @@ decode_gqa_kernel(const KV* __restrict__ kc, const KV* __restrict__ vc,
                sl.nlive, p.Hq);
 }
 
-template <typename KV, int D>
-int launch_d(const void* kc, const void* vc, const Params& p, int B,
+template <typename KV, int D, bool kCap>
+int launch_c(const void* kc, const void* vc, const Params& p, int B,
              cudaStream_t stream) {
   const dim3 grid(p.nslices, p.Hkv, B);
   const bool rows = p.gh == 1;
   const int smem = rows ? RowLayout<KV, D>::total(p.R)
                         : GqaLayout<KV, D>::total(p.R);
-  auto rk = decode_row_kernel<KV, D>;
-  auto gk = decode_gqa_kernel<KV, D>;
+  auto rk = decode_row_kernel<KV, D, kCap>;
+  auto gk = decode_gqa_kernel<KV, D, kCap>;
   constexpr int kSmemMax = 227 * 1024;
   static const int allowed = ti::allow_smem(rk, kSmemMax) |
                              ti::allow_smem(gk, kSmemMax);
@@ -559,6 +569,13 @@ int launch_d(const void* kc, const void* vc, const Params& p, int B,
     gk<<<grid, kThreads, smem, stream>>>(static_cast<const KV*>(kc),
                                           static_cast<const KV*>(vc), p);
   return 0;
+}
+
+template <typename KV, int D>
+int launch_d(const void* kc, const void* vc, const Params& p, int B,
+             cudaStream_t stream) {
+  return p.softcap > 0.f ? launch_c<KV, D, true>(kc, vc, p, B, stream)
+                         : launch_c<KV, D, false>(kc, vc, p, B, stream);
 }
 
 template <typename KV>
@@ -621,16 +638,17 @@ long long ti_decode_workspace(int B, int Hq, int Hkv, int T, int D,
 // window are masked, 0 for none; work: ti_decode_workspace(B, Hq, Hkv,
 // T, D, window) f32 elements; counters: B * Hkv int32 zeros, left
 // zeros. strides = {qsb, qsh, csb, csh}. D in {32, 64, 128}; Hq / Hkv
-// <= 8.
+// <= 8. softcap: scores s become softcap * tanh(s / softcap), 0 for none.
 int ti_decode_attention(const void* q, const void* k_cache,
                         const void* v_cache, const void* k_scale,
                         const void* v_scale, void* out, void* work,
                         void* counters, const void* kv_len, const void* sinks,
                         int B, int Hq, int Hkv, int T, int D, int kv_dtype,
                         int window, const long long* strides, float scale,
-                        void* stream) {
+                        float softcap, void* stream) {
   const int gh = Hq / Hkv;
-  if (gh > 8 || Hq % Hkv || window < 0 || kv_dtype < 0 || kv_dtype > 2 ||
+  if (gh > 8 || Hq % Hkv || window < 0 || !(softcap >= 0.f) ||
+      kv_dtype < 0 || kv_dtype > 2 ||
       (kv_dtype == 1) != (k_scale != nullptr && v_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Plan pl = plan_of(Hq, Hkv, T, window);
@@ -644,7 +662,8 @@ int ti_decode_attention(const void* q, const void* k_cache,
            static_cast<const int*>(kv_len),
            static_cast<__nv_bfloat16*>(out),
            Hq, Hkv, T, gh, pl.rows, pl.S, pl.nslices, window,
-           strides[0], strides[1], strides[2], strides[3], scale};
+           strides[0], strides[1], strides[2], strides[3], scale,
+           softcap, softcap > 0.f ? 2.8853900817779268f / softcap : 0.f};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int bad =
       kv_dtype == 0   ? launch_kv<__nv_bfloat16>(k_cache, v_cache, p, B, D, st)

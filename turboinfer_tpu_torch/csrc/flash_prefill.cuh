@@ -13,7 +13,11 @@
 // cache (a pointer offset). Query s of sequence b sits at position
 // q_start[b] + s; keys at t >= kv_len[b] or t > position are masked with
 // -1e30 and the final denominator is clamped to 1e-30, as in the JAX
-// kernel, so padded query rows come out finite.
+// kernel, so padded query rows come out finite. With a window (Mistral,
+// Gemma-2's local layers) keys t <= position - window are masked too, and
+// with a softcap (Gemma-2) the scaled scores become cap * tanh(s / cap)
+// before the mask, in the JAX kernel's order: the int8 key scale, the
+// softcap, the mask.
 //
 // int8 and fp8 caches: both decodes are exact in bf16: fp8 bits become
 // their e4m3 values (0x7F/0xFF as +-480, as e4m3_to_bf16 reads them),
@@ -62,14 +66,25 @@
 //    them (a shared counter), so no warp waits for another and no
 //    producer warp is needed: a third warpgroup would cap every thread at
 //    168 registers, and S (64), O (up to 64) and P (32) need more.
-//  * Masks and scheduling: only tiles that cross a row's diagonal or
-//    kv_len pay for the mask; tiles past the block's last visible key are
-//    never loaded. Blocks run in supergroups of (b, kv head) units
-//    whose K/V fit in 16 MB of L2 together, so the query tiles of a head
-//    read its K/V from L2 after the first; inside a supergroup, late
-//    (long) query tiles first, so the short ones fill the last wave.
-//    Every wgmma group is retired before any register it touches is
-//    written (no serialized wgmmas).
+//  * Masks and scheduling: only tiles that cross a row's diagonal, its
+//    window's start or kv_len pay for the mask; tiles past the block's
+//    last visible key, and with a window the tiles before the one that
+//    holds its earliest position's first visible key, are never loaded.
+//    A row whose first tile is wholly before its window (a block spans
+//    2 x P positions) sees only -1e30 there: its running max stays
+//    -1e30, finite, so the next tile's rescale exp2(-1e30 - m) is 0 and
+//    the masked tile leaves nothing behind (no -inf - -inf). Blocks run
+//    in supergroups of (b, kv head) units whose K/V fit in 16 MB of L2
+//    together, so the query tiles of a head read its K/V from L2 after
+//    the first; inside a supergroup, late (long) query tiles first, so
+//    the short ones fill the last wave. Every wgmma group is retired
+//    before any register it touches is written (no serialized wgmmas).
+//  * Softcap: a template flag (kCap), so the capped instances carry the
+//    pass over the S registers and the others nothing, and no runtime
+//    branch sits around a wgmma. cap * tanh(y) is computed as cap -
+//    2 cap / (e^{2y} + 1) (ex2.approx and an approximate division, a few
+//    ulps), already in base 2: the scale folds 2 log2(e) / cap, the
+//    constants cap log2(e).
 //  * Epilogue: O / max(l, 1e-30) as bf16 into the warpgroup's Q tile
 //    (swizzled), then a TMA store of the same (D, G, P) box, which writes
 //    no position past S.
@@ -126,7 +141,10 @@ struct Params {
   const int* q_start;
   long long ssb, ssh;
   int B, S, T, Hkv, gh, G, chunks, P, qtiles, hgroup, kv_swap;
-  float scale_log2;       // softmax scale times log2(e)
+  int window;             // keys t <= position - window masked; 0: none
+  float scale_log2;       // softmax scale times log2(e); with a softcap
+                          // scale * 2 log2(e) / cap
+  float cap_log2;         // softcap: cap * log2(e)
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -213,7 +231,7 @@ __device__ __forceinline__ void decode_stage(const uint8_t* raw,
   }
 }
 
-template <int D, typename KV>
+template <int D, typename KV, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_prefill_kernel(const __grid_constant__ CUtensorMap tmq,
                      const __grid_constant__ CUtensorMap tmk,
@@ -253,10 +271,12 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tmq,
   const int used = p.G * p.P;               // rows of a tile with a query
   const int start = p.q_start[b];
   const int kv_lim = min(p.kv_len[b], p.T);
-  // keys any query of the block sees: t < kv_len and t <= position
+  // keys any query of the block sees: t < kv_len and t <= position, and
+  // with a window t > position - window of its earliest position
   const int kv_end =
       max(0, min(kv_lim, start + min(pos0 + kWG * p.P, p.S)));
-  const int ntiles = (kv_end + kBN - 1) / kBN;
+  const int j0 = p.window ? max(0, start + pos0 - p.window + 1) / kBN : 0;
+  const int ntiles = max(0, (kv_end + kBN - 1) / kBN - j0);
 
   if (tid == 0) {
     for (int s = 0; s < L::kStages; ++s) {
@@ -277,11 +297,11 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tmq,
   fence_proxy_async();
   __syncthreads();
 
-  // Stage of K/V tile j, issued by one thread.
+  // Stage of the block's K/V tile j (tile j0 + j), issued by one thread.
   auto fill = [&](int j) {
     const int s = j % L::kStages;
     const uint32_t st = base + L::kStageOff + s * L::kFill;
-    const int t0 = j * kBN;
+    const int t0 = (j0 + j) * kBN;
     const int c1 = p.kv_swap ? hk : t0, c2 = p.kv_swap ? t0 : hk;
     fence_proxy_async();
     mbar_expect_tx(full(s), L::kFill);
@@ -309,9 +329,14 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tmq,
 
   // This thread's rows of the warpgroup's tile: r0 and r0 + 8.
   const int r0 = 16 * wl + g8;
-  int qpos[2];
+  int qpos[2], qlo[2];   // positions; first visible keys (window)
 #pragma unroll
-  for (int h = 0; h < 2; ++h) qpos[h] = start + pw + (r0 + 8 * h) / p.G;
+  for (int h = 0; h < 2; ++h) {
+    qpos[h] = start + pw + (r0 + 8 * h) / p.G;
+    qlo[h] = p.window ? qpos[h] - p.window + 1 : -(1 << 30);
+  }
+  // the first key every row of the warpgroup sees (window)
+  const int wg_lo = p.window ? start + pw + p.P - p.window : -(1 << 30);
   const uint32_t qs = base + wg * L::kQ;
 
   float o[D / 2];
@@ -322,7 +347,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tmq,
 
   for (int j = 0; j < ntiles; ++j) {
     const int s = j % L::kStages;
-    const int kt = j * kBN;
+    const int kt = (j0 + j) * kBN;
     mbar_wait(full(s), (j / L::kStages) & 1);
     uint32_t ks;
     const float* scl = nullptr;   // int8: the tile's key, then value scales
@@ -382,11 +407,19 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tmq,
         sc[4 * c + 2 * h + 1] *= f.y;
       }
     }
-    if (kt + kBN > kv_lim || kt + kBN - 1 > start + pw) {
+    if constexpr (kCap) {
+      // cap log2(e) tanh(y) with sc = 2 log2(e) y: c - 2 c / (2^sc + 1)
+      const float c1 = p.cap_log2, c2 = 2.f * p.cap_log2;
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i)
+        sc[i] = c1 - __fdividef(c2, ex2(sc[i]) + 1.f);
+    }
+    if (kt + kBN > kv_lim || kt + kBN - 1 > start + pw || kt < wg_lo) {
 #pragma unroll
       for (int i = 0; i < kBN / 2; ++i) {
         const int t = kt + 8 * (i >> 2) + 2 * tig + (i & 1);
-        if (t >= kv_lim || t > qpos[(i >> 1) & 1]) sc[i] = ti::kNegInf;
+        const int h = (i >> 1) & 1;
+        if (t >= kv_lim || t > qpos[h] || t < qlo[h]) sc[i] = ti::kNegInf;
       }
     }
     float mx[2] = {m[0], m[1]};
@@ -495,6 +528,8 @@ struct Call {
   int B, S, Hq, Hkv, T, D;
   const long long* st;
   float scale;
+  int window;     // 0: none
+  float softcap;  // 0: none
   cudaStream_t stream;
 };
 
@@ -505,10 +540,10 @@ inline int heads_a_block(int gh) {
   return G;
 }
 
-template <int D, typename KV>
+template <int D, typename KV, bool kCap>
 int launch(const Call& c) {
   using L = Layout<D, KV>;
-  auto kernel = flash_prefill_kernel<D, KV>;
+  auto kernel = flash_prefill_kernel<D, KV, kCap>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -535,7 +570,9 @@ int launch(const Call& c) {
   const long long kv_bytes = 2LL * c.T * D * sizeof(KV) + 1;
   p.hgroup = static_cast<int>(
       std::max(1LL, std::min(per, (16LL << 20) / kv_bytes)));
-  p.scale_log2 = c.scale * kLog2e;
+  p.window = c.window;
+  p.scale_log2 = kCap ? c.scale * 2.f * kLog2e / c.softcap : c.scale * kLog2e;
+  p.cap_log2 = c.softcap * kLog2e;
   // the fresh view's T stride exceeds its head stride: heads listed first
   p.kv_swap = st[4] < st[5];
   if ((st[7] < st[8]) != (p.kv_swap != 0))
@@ -574,19 +611,25 @@ int launch(const Call& c) {
   return ti::launch_status();
 }
 
-// Every head dim of one K/V storage type; instantiated once per type.
-template <typename KV>
-int run(const Call& c) {
+// Every head dim of one K/V storage type, with and without a softcap;
+// instantiated once per type.
+template <typename KV, bool kCap>
+int run_d(const Call& c) {
   switch (c.D) {
     case 32:
-      return launch<32, KV>(c);
+      return launch<32, KV, kCap>(c);
     case 64:
-      return launch<64, KV>(c);
+      return launch<64, KV, kCap>(c);
     case 128:
-      return launch<128, KV>(c);
+      return launch<128, KV, kCap>(c);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <typename KV>
+int run(const Call& c) {
+  return c.softcap > 0.f ? run_d<KV, true>(c) : run_d<KV, false>(c);
 }
 
 }  // namespace flash

@@ -41,13 +41,16 @@ SIGNATURES = {
     "ti_qmm_grouped": ([_VP] * 8 + [_I] * 7 + [_VP], _I),
     "ti_a8_quantize_rows": ([_VP] * 3 + [_I] * 2 + [_VP], _I),
     "ti_qmm_a8": ([_VP] * 5 + [_I] * 4 + [_VP], _I),
-    "ti_flash_prefill": ([_VP] * 8 + [_I] * 7 + [_LLP, _F, _VP], _I),
+    "ti_flash_prefill": ([_VP] * 8 + [_I] * 7 + [_LLP, _F, _I, _F, _VP],
+                         _I),
     "ti_cache_write_fresh": ([_VP] * 4 + [_I] * 5 + [_LLP, _VP], _I),
     "ti_kv_encode_write": ([_VP] * 7 + [_I] * 4 + [_LL, _LL, _LLP, _VP], _I),
     "ti_decode_workspace": ([_I] * 6, _LL),
-    "ti_decode_attention": ([_VP] * 10 + [_I] * 7 + [_LLP, _F, _VP], _I),
+    "ti_decode_attention": ([_VP] * 10 + [_I] * 7 + [_LLP, _F, _F, _VP],
+                            _I),
     "ti_paged_workspace": ([_I] * 5, _LL),
-    "ti_paged_attention": ([_VP] * 10 + [_I] * 10 + [_LLP, _F, _VP], _I),
+    "ti_paged_attention": ([_VP] * 10 + [_I] * 10
+                           + [_LLP, _F, _I, _F, _VP], _I),
 }
 
 _lock = threading.Lock()

@@ -49,26 +49,29 @@ def qmatmul_grouped(x: torch.Tensor, qt: QTensor,
 
 
 def attention_prefill(q, k, v, *, kv_len, q_start, layer_index=None,
-                      k_scale=None, v_scale=None):
+                      k_scale=None, v_scale=None, window=None, softcap=None):
     """q: [B, S, Hq, D]; k/v: [B, Hkv, T, D] views, or the stacked
     [L, B, Hkv, T, D] cache with `layer_index` (read in place), int8
     with its scale planes k_scale/v_scale ([..., Hkv, T] f32) or fp8
-    (uint8 e4m3 bits) too."""
+    (uint8 e4m3 bits) too. window: a query at p sees keys > p - window;
+    softcap: cap * tanh(s / cap) on the scaled scores."""
     from turboinfer_tpu_torch.kernels import flash_attention
     if layer_index is not None:
         k, v = k[layer_index], v[layer_index]
         if k_scale is not None:
             k_scale, v_scale = k_scale[layer_index], v_scale[layer_index]
     return flash_attention.flash_prefill(q, k, v, kv_len, q_start, k_scale,
-                                         v_scale)
+                                         v_scale, window, softcap)
 
 
 def attention_decode(q, k_cache, v_cache, kv_len, layer_index=None,
-                     window=None, sinks=None, k_scale=None, v_scale=None):
+                     window=None, sinks=None, k_scale=None, v_scale=None,
+                     softcap=None):
     """q: [B, Hq, D]; caches stacked [L, B, Hkv, T, D] with
     `layer_index`, or one layer [B, Hkv, T, D]. window: the last
     `window` keys only; sinks: [Hq] per-head sink logits; k_scale/
-    v_scale: an int8 cache's scale planes ([..., Hkv, T] f32)."""
+    v_scale: an int8 cache's scale planes ([..., Hkv, T] f32); softcap:
+    cap * tanh(s / cap) on the scaled scores."""
     from turboinfer_tpu_torch.kernels import decode_attention
     if layer_index is None:
         k_cache, v_cache, layer_index = k_cache[None], v_cache[None], 0
@@ -76,28 +79,33 @@ def attention_decode(q, k_cache, v_cache, kv_len, layer_index=None,
             k_scale, v_scale = k_scale[None], v_scale[None]
     return decode_attention.decode_attention(q, k_cache, v_cache, kv_len,
                                              layer_index, window, sinks,
-                                             k_scale, v_scale)
+                                             k_scale, v_scale, softcap)
 
 
 def attention_paged_decode(q, k_pages, v_pages, block_table, kv_len,
-                           layer_index, k_scale=None, v_scale=None):
+                           layer_index, k_scale=None, v_scale=None,
+                           window=None, softcap=None):
     """q: [B, Hq, D]; pools stacked [L, P, Hkv, page, D] read at
     `layer_index` through block_table [B, max_pages] -> [B, Hq, D];
-    k_scale/v_scale: an int8 pool's scale pages [L, P, Hkv, page]."""
+    k_scale/v_scale: an int8 pool's scale pages [L, P, Hkv, page];
+    window and softcap as in attention_decode."""
     from turboinfer_tpu_torch.kernels import paged_attention
     return paged_attention.paged_attention(q[:, None], k_pages, v_pages,
                                            block_table, kv_len, layer_index,
-                                           k_scale, v_scale)[:, 0]
+                                           k_scale, v_scale, window,
+                                           softcap)[:, 0]
 
 
 def attention_paged_verify(q, k_pages, v_pages, block_table, kv_len,
-                           layer_index, k_scale=None, v_scale=None):
+                           layer_index, k_scale=None, v_scale=None,
+                           window=None, softcap=None):
     """q: [B, G, Hq, D], the G chunk tokens already in their pages and
-    counted in kv_len (query g at kv_len - G + g) -> [B, G, Hq, D]."""
+    counted in kv_len (query g at kv_len - G + g) -> [B, G, Hq, D];
+    window and softcap as in attention_prefill."""
     from turboinfer_tpu_torch.kernels import paged_attention
     return paged_attention.paged_attention(q, k_pages, v_pages, block_table,
                                            kv_len, layer_index, k_scale,
-                                           v_scale)
+                                           v_scale, window, softcap)
 
 
 def prepare_params(params: Any) -> Any:

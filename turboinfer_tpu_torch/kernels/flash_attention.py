@@ -8,7 +8,9 @@ by strides, a stacked-cache read passes layer li of the cache; neither
 is copied. A cache read may be int8 with its f32 scale planes
 k_scale/v_scale [B, Hkv, T] (layer li of [L, B, Hkv, T]) or fp8 (uint8
 e4m3 bits); the kernel decodes each K/V tile to bf16 in shared memory.
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
+Optionally a query at position p sees only the keys > p - `window`
+(Mistral, Gemma-2's local layers), and the scores are soft-capped to
+`softcap` * tanh(s / softcap) before the mask (Gemma-2). On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs prefill_plain.
 """
 
@@ -21,7 +23,8 @@ import torch
 
 from turboinfer_tpu_torch.kernels import _build, ops
 from turboinfer_tpu_torch.kernels.decode_attention import (KV_DTYPES,
-                                                           check_scales)
+                                                           check_scales,
+                                                           window_cap)
 from turboinfer_tpu_torch.utils.errors import KernelError
 
 HEAD_DIMS = (32, 64, 128)
@@ -30,26 +33,35 @@ HEAD_DIMS = (32, 64, 128)
 def prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   kv_len: torch.Tensor, q_start: torch.Tensor,
                   k_scale: Optional[torch.Tensor] = None,
-                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  v_scale: Optional[torch.Tensor] = None,
+                  window: Optional[int] = None,
+                  softcap: Optional[float] = None) -> torch.Tensor:
     """Plain PyTorch version. q: [B, S, Hq, D]; k/v: [B, Hkv, T, D],
-    decoded to q.dtype first (models/common.decode_kv); query s of
-    sequence b at position q_start[b] + s."""
+    decoded to f32 values first (models/common.decode_kv: int8 codes
+    times their scales, as the kernel's f32 scores take them, not
+    rounded to q.dtype), all in f32, out in q.dtype; query s of sequence
+    b at position q_start[b] + s."""
     from turboinfer_tpu_torch.models.common import decode_kv
     S = q.shape[1]
     positions = q_start[:, None] + torch.arange(S, device=q.device)[None, :]
-    return ops.attention_prefill_ref(q, decode_kv(k, q.dtype, k_scale),
-                                     decode_kv(v, q.dtype, v_scale),
-                                     causal=True, positions=positions,
-                                     kv_len=kv_len)
+    f32 = torch.float32
+    return ops.attention_prefill_ref(
+        q.to(f32), decode_kv(k, f32, k_scale), decode_kv(v, f32, v_scale),
+        causal=True, positions=positions, kv_len=kv_len, window=window,
+        softcap=softcap).to(q.dtype)
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   kv_len: torch.Tensor, q_start: torch.Tensor,
                   k_scale: Optional[torch.Tensor] = None,
-                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  v_scale: Optional[torch.Tensor] = None,
+                  window: Optional[int] = None,
+                  softcap: Optional[float] = None) -> torch.Tensor:
     """Causal attention -> [B, S, Hq, D] in q.dtype (see prefill_plain)."""
+    win, cap = window_cap(window, softcap, "flash_prefill")
     if q.device.type == "cpu":
-        return prefill_plain(q, k, v, kv_len, q_start, k_scale, v_scale)
+        return prefill_plain(q, k, v, kv_len, q_start, k_scale, v_scale,
+                             window, softcap)
     B, S, Hq, D = q.shape
     _, Hkv, T, _ = k.shape
     if q.dtype != torch.bfloat16 or k.dtype not in KV_DTYPES \
@@ -84,7 +96,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k_scale.data_ptr() if int8 else None,
         v_scale.data_ptr() if int8 else None, o.data_ptr(),
         kv_len.data_ptr(), q_start.data_ptr(), B, S, Hq, Hkv, T, D,
-        KV_DTYPES[k.dtype], strides, 1.0 / math.sqrt(D),
+        KV_DTYPES[k.dtype], strides, 1.0 / math.sqrt(D), win, cap,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "flash_prefill")
     flash_prefill.launches += 1

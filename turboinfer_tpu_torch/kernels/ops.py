@@ -49,6 +49,7 @@ def glu(gate: torch.Tensor, up: torch.Tensor, act: str = "silu"
 
 
 def apply_softcap(s: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """Logit soft-capping (Gemma-2): cap * tanh(s / cap)."""
     if cap is None:
         return s
     return cap * torch.tanh(s / cap)
@@ -231,22 +232,32 @@ def _repeat_kv(k: torch.Tensor, num_q_heads: int) -> torch.Tensor:
 def attention_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           positions: Optional[torch.Tensor] = None,
-                          kv_len: Optional[torch.Tensor] = None
+                          kv_len: Optional[torch.Tensor] = None,
+                          window: Optional[int] = None,
+                          softcap: Optional[float] = None
                           ) -> torch.Tensor:
     """Full attention. q: [B, S, Hq, D], k/v: [B, Hkv, T, D] -> [B, S, Hq, D].
-    Query s sits at positions[b, s] (default s); keys >= kv_len masked."""
+    Query s sits at positions[b, s] (default s); keys >= kv_len masked.
+    softcap: cap * tanh(s / cap) on the scaled scores, before the mask;
+    window (causal only): a query at p sees keys > p - window."""
     B, S, Hq, D = q.shape
     T = k.shape[2]
     k = _repeat_kv(k, Hq).to(torch.float32)
     v = _repeat_kv(v, Hq).to(torch.float32)
     qf = q.to(torch.float32) * (1.0 / math.sqrt(D))
-    scores = torch.einsum("bshd,bhtd->bhst", qf, k)
+    scores = apply_softcap(torch.einsum("bshd,bhtd->bhst", qf, k), softcap)
     kpos = torch.arange(T, device=q.device)
     mask = None
+    if window is not None and not causal:
+        raise NotImplementedError(
+            "sliding_window attention requires causal=True")
     if causal:
         qpos = (torch.arange(S, device=q.device)[None, :].expand(B, S)
                 if positions is None else positions)
         mask = qpos[:, None, :, None] >= kpos[None, None, None, :]
+        if window is not None:
+            mask = mask & (kpos[None, None, None, :]
+                           > qpos[:, None, :, None] - window)
     if kv_len is not None:
         valid = kpos[None, None, None, :] < kv_len[:, None, None, None]
         mask = valid if mask is None else (mask & valid)
@@ -259,19 +270,21 @@ def attention_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, kv_len: torch.Tensor,
                          window: Optional[int] = None,
-                         sinks: Optional[torch.Tensor] = None
+                         sinks: Optional[torch.Tensor] = None,
+                         softcap: Optional[float] = None
                          ) -> torch.Tensor:
     """Single-token attention. q: [B, Hq, D]; k/v: [B, Hkv, T, D];
     kv_len: [B] valid slots (the current token included). window: keys
     [kv_len - window, kv_len) only. sinks: [Hq] per-head sink logits
     (GPT-OSS): the softmax runs over [scores, sink] and the sink adds no
-    value (attention_decode_fused_ref of the JAX package, head-major)."""
+    value (attention_decode_fused_ref of the JAX package, head-major).
+    softcap: cap * tanh(s / cap) on the scaled scores, before the mask."""
     B, Hq, D = q.shape
     T = k_cache.shape[2]
     k = _repeat_kv(k_cache, Hq).to(torch.float32)
     v = _repeat_kv(v_cache, Hq).to(torch.float32)
     qf = q.to(torch.float32) * (1.0 / math.sqrt(D))
-    scores = torch.einsum("bhd,bhtd->bht", qf, k)
+    scores = apply_softcap(torch.einsum("bhd,bhtd->bht", qf, k), softcap)
     t = torch.arange(T, device=q.device)[None, None, :]
     valid = t < kv_len[:, None, None]
     if window is not None:
@@ -303,13 +316,14 @@ def attention_paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
                                block_table: torch.Tensor,
                                kv_len: torch.Tensor,
                                window: Optional[int] = None,
-                               sinks: Optional[torch.Tensor] = None
+                               sinks: Optional[torch.Tensor] = None,
+                               softcap: Optional[float] = None
                                ) -> torch.Tensor:
     """Single-token attention over ONE layer's paged cache: gather the
-    sequence's pages, then attention_decode_ref (window and sinks as
-    there). q: [B, Hq, D]; k/v_pages: [P, Hkv, page, D]; block_table:
-    [B, max_pages] (-1 = unassigned); kv_len: [B] (the current token
-    included). An fp8 pool (uint8 e4m3 bits) is decoded after the gather
+    sequence's pages, then attention_decode_ref (window, sinks and
+    softcap as there). q: [B, Hq, D]; k/v_pages: [P, Hkv, page, D];
+    block_table: [B, max_pages] (-1 = unassigned); kv_len: [B] (the
+    current token included). An fp8 pool (uint8 e4m3 bits) is decoded after the gather
     (e4m3_to_float); an int8 pool needs scales and raises."""
     if k_pages.dtype == torch.int8:
         raise ValueError("attention_paged_decode_ref takes no int8 pool "
@@ -320,21 +334,26 @@ def attention_paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
         return e4m3_to_float(g, q.dtype) if g.dtype == torch.uint8 \
             else g.to(q.dtype)
     return attention_decode_ref(q, gather(k_pages), gather(v_pages), kv_len,
-                                window=window, sinks=sinks)
+                                window=window, sinks=sinks, softcap=softcap)
 
 
 def attention_paged_verify_ref(q: torch.Tensor, k_pages: torch.Tensor,
                                v_pages: torch.Tensor,
                                block_table: torch.Tensor,
-                               kv_len: torch.Tensor) -> torch.Tensor:
+                               kv_len: torch.Tensor,
+                               window: Optional[int] = None,
+                               softcap: Optional[float] = None
+                               ) -> torch.Tensor:
     """Multi-query paged attention (speculative verify). q: [B, G, Hq, D],
     the G chunk tokens already written into their pages; kv_len [B]
     includes them, so query g sits at kv_len - G + g (causal among the
-    chunk). Gathers the pages, then attention_prefill_ref."""
+    chunk). Gathers the pages, then attention_prefill_ref (window and
+    softcap as there)."""
     G = q.shape[1]
     k = _gather_pages(k_pages, block_table).to(q.dtype)
     v = _gather_pages(v_pages, block_table).to(q.dtype)
     positions = (kv_len - G)[:, None] + torch.arange(
         G, device=q.device)[None, :]
     return attention_prefill_ref(q, k, v, causal=True, positions=positions,
-                                 kv_len=kv_len)
+                                 kv_len=kv_len, window=window,
+                                 softcap=softcap)

@@ -1,4 +1,6 @@
-"""Paged decode and verify attention: the wrapper of csrc/paged_attention.cu.
+"""Paged decode and verify attention: the wrapper of the kernels in
+csrc/paged_attention.cuh (C interface in paged_attention.cu; the int8 and
+fp8 instances in paged_attention_int8.cu and paged_attention_fp8.cu).
 
 Counterpart of turboinfer_tpu/kernels/pallas/paged_attention.py
 paged_decode_pallas and paged_verify_pallas (one Pallas body,
@@ -7,7 +9,9 @@ _paged_decode, at g_tokens = 1 and G): the G query tokens q
 pool [L, P, Hkv, page, D] through the block table [B, max_pages], read
 in place through a pointer offset. The pool is bf16, int8 with its f32
 scale pages k_scale/v_scale [L, P, Hkv, page], or fp8 (uint8 e4m3
-bits). Query g sits at kv_len - G + g and sees keys at or before it.
+bits). Query g sits at kv_len - G + g and sees keys at or before it,
+optionally only those > its position - `window`; the scores may be
+soft-capped to `softcap` * tanh(s / softcap) before the mask.
 Table ids are clamped to [0, P-1] and kv_len to at least 1, as the JAX
 kernel clamps them.
 
@@ -25,7 +29,8 @@ import torch
 
 from turboinfer_tpu_torch.kernels import _build, ops
 from turboinfer_tpu_torch.kernels.decode_attention import (KV_DTYPES,
-                                                           check_scales)
+                                                           check_scales,
+                                                           window_cap)
 from turboinfer_tpu_torch.utils.errors import KernelError
 
 HEAD_DIMS = (32, 64, 128)
@@ -38,21 +43,29 @@ def paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
                 v_pages: torch.Tensor, table: torch.Tensor,
                 kv_len: torch.Tensor, layer_index: int, g_tokens: int,
                 k_scale: Optional[torch.Tensor] = None,
-                v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                v_scale: Optional[torch.Tensor] = None,
+                window: Optional[int] = None,
+                softcap: Optional[float] = None) -> torch.Tensor:
     """Plain PyTorch version on the gathered pages, the layer's pool
-    decoded to q.dtype first (models/common.decode_kv). q: [B, G, Hq, D]
-    with G = g_tokens -> [B, G, Hq, D]."""
+    decoded to f32 values first (models/common.decode_kv: int8 codes
+    times their scales, not rounded to q.dtype, as the kernel takes
+    them), in f32, out in q.dtype. q: [B, G, Hq, D] with G = g_tokens
+    -> [B, G, Hq, D]."""
     from turboinfer_tpu_torch.models.common import decode_kv
-    li = layer_index
-    kp = decode_kv(k_pages[li], q.dtype, None if k_scale is None
+    li, f32 = layer_index, torch.float32
+    kp = decode_kv(k_pages[li], f32, None if k_scale is None
                    else k_scale[li])
-    vp = decode_kv(v_pages[li], q.dtype, None if v_scale is None
+    vp = decode_kv(v_pages[li], f32, None if v_scale is None
                    else v_scale[li])
     kv = kv_len.clamp(min=1)
     if g_tokens == 1:
-        return ops.attention_paged_decode_ref(q[:, 0], kp, vp, table,
-                                              kv)[:, None]
-    return ops.attention_paged_verify_ref(q, kp, vp, table, kv)
+        out = ops.attention_paged_decode_ref(q[:, 0].to(f32), kp, vp, table,
+                                             kv, window=window,
+                                             softcap=softcap)[:, None]
+    else:
+        out = ops.attention_paged_verify_ref(q.to(f32), kp, vp, table, kv,
+                                             window=window, softcap=softcap)
+    return out.to(q.dtype)
 
 
 def _check(q, k_pages, v_pages, table, layer_index, k_scale,
@@ -82,11 +95,14 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, table: torch.Tensor,
                     kv_len: torch.Tensor, layer_index: int,
                     k_scale: Optional[torch.Tensor] = None,
-                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    v_scale: Optional[torch.Tensor] = None,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
     """q [B, G, Hq, D] -> [B, G, Hq, D] in q.dtype (see paged_plain)."""
+    win, cap = window_cap(window, softcap, "paged_attention")
     if q.device.type == "cpu":
         return paged_plain(q, k_pages, v_pages, table, kv_len, layer_index,
-                           q.shape[1], k_scale, v_scale)
+                           q.shape[1], k_scale, v_scale, window, softcap)
     _check(q, k_pages, v_pages, table, layer_index, k_scale, v_scale)
     B, G, Hq, D = q.shape
     _, P, Hkv, page, _ = k_pages.shape
@@ -116,7 +132,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         work.data_ptr(), _build.counters(q.device, B * Hkv).data_ptr(),
         table.data_ptr(), kv_len.data_ptr(), B, Hkv, R, gh, G, P, page,
         max_pages, D, KV_DTYPES[k_pages.dtype], strides, 1.0 / math.sqrt(D),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        win, cap, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "paged_attention")
     paged_attention.launches += 1
     return out.reshape(B, Hkv, G, gh, D).transpose(1, 2).reshape(B, G, Hq, D)

@@ -1,9 +1,17 @@
 """Random-weight quantized LLaMA-class or MoE model built directly in the
 packed format on the device (counterpart of
 turboinfer_tpu/loader/synthetic.py create_synthetic_quantized_model): a
-7B or Mixtral fixture never exists in fp. Values are random (uniform
-bytes, scales 0.01; a bf16 router for MoE); use it to measure speed, not
-accuracy.
+7B, Mixtral or Gemma-2-27B fixture never exists in fp. Values are random
+(uniform bytes, scales 0.01; a bf16 router for MoE); use it to measure
+speed, not accuracy. Each stacked weight is drawn in place into its
+packed storage (randint writes the uint8/int8 tensor itself), so no
+layer ever has a bf16 or f32 copy; the transient peak is the f32 draw of
+the embedding table. The llama-family knobs add their slots after the
+head: q/k/v biases (attn_bias, N(0, 0.02^2) bf16), q/k norms
+(qk_norm, [L, D]) and sandwich norms (post_norms, [L, H]); every norm is
+ones, or zeros under norm_offset (Gemma's w - 1), as the JAX package's
+init_params makes them. A tied model keeps its own quantized lm_head,
+as quant/quantizer.py makes one from the tied table.
 """
 
 from __future__ import annotations
@@ -58,12 +66,14 @@ def create_synthetic_quantized_model(config: ModelConfig, bits: int = 4,
                        bits=bits, group_size=G, shape=(K, N))
 
     def ones(*shape):
-        return torch.ones(shape, dtype=torch.bfloat16, device=dev)
+        # Gemma stores norm weights as w - 1
+        return (torch.zeros if c.norm_offset else torch.ones)(
+            shape, dtype=torch.bfloat16, device=dev)
 
     # draw order: embedding, attention, FFN (router and experts for
     # MoE), head
-    embed = (torch.randn((V, H), generator=gen, device=dev) * 0.02
-             ).to(torch.bfloat16)
+    embed = torch.randn((V, H), generator=gen, device=dev).mul_(0.02).to(
+        torch.bfloat16)                 # one f32 temporary, scaled in place
     layers = {"attn_norm": ones(L, H), "ffn_norm": ones(L, H),
               "wq": rq(H, QD), "wk": rq(H, KVD), "wv": rq(H, KVD),
               "wo": rq(QD, H)}
@@ -84,4 +94,12 @@ def create_synthetic_quantized_model(config: ModelConfig, bits: int = 4,
         layers.update(w_gate=rq(H, F), w_up=rq(H, F), w_down=rq(F, H))
     params = {"embed": embed, "layers": layers, "final_norm": ones(H),
               "lm_head": rq(H, V, lead=())}
+    if c.attn_bias:
+        for name, n in (("b_q", QD), ("b_k", KVD), ("b_v", KVD)):
+            layers[name] = (0.02 * torch.randn((L, n), generator=gen,
+                                               device=dev)).to(torch.bfloat16)
+    if c.qk_norm:
+        layers.update(q_norm=ones(L, c.head_dim_), k_norm=ones(L, c.head_dim_))
+    if c.post_norms:
+        layers.update(post_attn_norm=ones(L, H), post_ffn_norm=ones(L, H))
     return ModelData(params=params, config=config)

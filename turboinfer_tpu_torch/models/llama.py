@@ -13,9 +13,24 @@ either a tensor or a QTensor:
 A Python loop over layers replaces lax.scan; the kernels read layer li
 of the stacked weights and cache through pointer offsets, never copies.
 The forwards take an `ffn_fn(config, h, layers, li)` hook, as the JAX
-package's paged forwards do: the default is the dense SwiGLU block
+package's paged forwards do: the default is the dense GLU block
 (dense_ffn), and models/moe.py passes its routed experts through the
 same attention body.
+
+The llama-family knobs of the JAX model, so Mistral, Qwen2/2.5, Qwen3,
+Phi-3, Gemma, Gemma-2, Gemma-3 and Granite run through this body: q/k/v
+biases ("b_q"/"b_k"/"b_v" [L, Hq*D | Hkv*D], attn_bias), q/k RMSNorm
+before RoPE ("q_norm"/"k_norm" [L, D] per head, or [L, Hq*D] over the
+whole projection; qk_norm), (1 + w) norms (norm_offset), embeddings
+times sqrt(H) rounded to the model dtype (scale_embeddings), sandwich
+norms ("post_attn_norm"/"post_ffn_norm" [L, H]; post_norms), Granite's
+embedding, residual and logits multipliers, an attention scale folded
+into q in f32 (attn_scale; the kernels keep 1/sqrt(D)), a sliding window
+on every layer or, with sliding_window_pattern p, on every layer li with
+(li + 1) % p != 0, a second RoPE base for those local layers
+(rope_local_theta, without rope_scaling), and the attention and final
+logit softcaps. Each layer's window and RoPE table are picked by a
+Python `if` in the layer loop.
 
 Caches and page pools store the model dtype, bf16, int8 (with f32 scale
 planes) or fp8 (uint8 e4m3 bits). A compressed cache is written by the
@@ -27,7 +42,7 @@ model's prefill does whenever the cache is compressed.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,28 +56,101 @@ from turboinfer_tpu_torch.utils.device import resolve_device
 # and the schedulers check this flag, as the JAX package's do).
 SUPPORTS_INT8_KV = True
 
-# ModelConfig knobs whose layer features are not ported yet, with the
-# value that means "off".
-_UNPORTED = (("sliding_window", None), ("attn_logit_softcap", None),
-             ("final_logit_softcap", None), ("norm_offset", False),
-             ("scale_embeddings", False), ("embedding_multiplier", None),
-             ("residual_multiplier", None), ("logits_scaling", None),
-             ("attn_bias", False), ("qk_norm", False), ("post_norms", False),
-             ("attn_scale", None), ("rope_local_theta", None),
-             ("parallel_residual", False), ("alibi", False),
+# ModelConfig knobs of other families this body does not compute, with
+# the value that means "off" (the NeoX/GPT-2 blocks, MoE, MLA).
+_UNPORTED = (("parallel_residual", False), ("alibi", False),
              ("rotary_pct", 1.0), ("num_experts", 0), ("kv_lora_rank", None))
+# the JAX registry's names for this body (turboinfer_tpu/models/registry.py)
+ARCHITECTURES = ("llama", "mistral", "qwen2", "qwen3", "phi3", "gemma",
+                 "gemma2", "gemma3", "granite")
 
 
 def check_supported(config: ModelConfig) -> None:
-    """Raise NotImplementedError for a config knob this slice lacks."""
+    """Raise NotImplementedError for a config this body does not run."""
     for name, off in _UNPORTED:
         if getattr(config, name) != off:
             raise NotImplementedError(
                 f"ModelConfig.{name}={getattr(config, name)!r} is not ported "
                 "to the PyTorch package yet")
-    if config.architecture != "llama":
+    if config.architecture not in ARCHITECTURES:
         raise NotImplementedError(
             f"architecture {config.architecture!r} is not ported yet")
+
+
+def _alternating(config: ModelConfig) -> bool:
+    p = config.sliding_window_pattern
+    return bool(p and p > 1 and config.sliding_window)
+
+
+def _is_global(config: ModelConfig, li: int) -> bool:
+    """Layer li attends every key: no window, or the pattern's global
+    layer ((li + 1) % sliding_window_pattern == 0)."""
+    if not config.sliding_window:
+        return True
+    return _alternating(config) and (li + 1) % \
+        config.sliding_window_pattern == 0
+
+
+def layer_window(config: ModelConfig, li: int) -> Optional[int]:
+    """The key window of layer li: sliding_window, but None on the
+    global layers."""
+    return None if _is_global(config, li) else config.sliding_window
+
+
+class Rope(NamedTuple):
+    """A forward's RoPE tables (ops.rope_tables): the global ones and,
+    with rope_local_theta on an alternating config, the local layers'
+    (rope_local_theta, no rope_scaling), else None."""
+    glob: Tuple[torch.Tensor, torch.Tensor]
+    local: Optional[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def rope_for(config: ModelConfig, positions: torch.Tensor) -> Rope:
+    D = config.head_dim_
+    glob = ops.rope_tables(positions, D, config.rope_theta, config.rope_mode,
+                           config.rope_scaling)
+    local = None
+    if _alternating(config) and config.rope_local_theta is not None:
+        local = ops.rope_tables(positions, D, config.rope_local_theta,
+                                config.rope_mode)
+    return Rope(glob, local)
+
+
+def _as_dtype(v: float, dtype) -> float:
+    """v rounded to dtype, as a Python float (what jnp.asarray(v, dtype)
+    multiplies by; a bf16 product of two bf16 values is exact in f32)."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
+def norm(config: ModelConfig, x: torch.Tensor, w: torch.Tensor
+         ) -> torch.Tensor:
+    """RMSNorm with the config's eps, and 1 + w under norm_offset."""
+    return ops.rms_norm(x, w, config.rms_norm_eps,
+                        1.0 if config.norm_offset else 0.0)
+
+
+def embed(config: ModelConfig, params: Dict[str, Any],
+          tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding, times sqrt(H) (scale_embeddings) and Granite's
+    embedding_multiplier, each rounded to the model dtype first."""
+    x = ops.embed_lookup(params["embed"], tokens, config.dtype)
+    if config.scale_embeddings:
+        x = x * _as_dtype(config.hidden_size ** 0.5, config.dtype)
+    if config.embedding_multiplier:
+        x = x * _as_dtype(config.embedding_multiplier, config.dtype)
+    return x
+
+
+def head(config: ModelConfig, params: Dict[str, Any],
+         x: torch.Tensor) -> torch.Tensor:
+    """Final norm, lm_head, f32 logits, the final softcap, then Granite's
+    logits_scaling."""
+    x = norm(config, x, params["final_norm"])
+    logits = ops.apply_softcap(ops.qmatmul(x, params["lm_head"]).to(
+        torch.float32), config.final_logit_softcap)
+    if config.logits_scaling:
+        logits = logits / config.logits_scaling
+    return logits
 
 
 def init_cache(config: ModelConfig, batch_size: int, max_seq=None,
@@ -73,7 +161,9 @@ def init_cache(config: ModelConfig, batch_size: int, max_seq=None,
 
 def init_params(config: ModelConfig, seed: int = 0, device="cuda",
                 dtype=None) -> Dict[str, Any]:
-    """Random fp parameters (N(0, 1/fan_in)), unit norms."""
+    """Random fp parameters (N(0, 1/fan_in)), unit norms (zeros under
+    norm_offset), and the slots of the config's knobs: q/k/v biases
+    N(0, 0.02^2), q/k and post norms, as the JAX package's init_params."""
     dev = resolve_device(device)
     dtype = dtype or config.dtype
     H, V, L = config.hidden_size, config.vocab_size, config.num_layers
@@ -97,21 +187,45 @@ def init_params(config: ModelConfig, seed: int = 0, device="cuda",
         "final_norm": torch.ones((H,), dtype=dtype, device=dev),
         "lm_head": w((H, V), H),
     }
+    layers = params["layers"]
+    if config.attn_bias:
+        for name, n in (("b_q", QD), ("b_k", KVD), ("b_v", KVD)):
+            layers[name] = (0.02 * torch.randn((L, n), generator=gen,
+                                               device=dev)).to(dtype)
+    ones = dict(dtype=dtype, device=dev)
+    if config.qk_norm:
+        layers["q_norm"] = torch.ones((L, config.head_dim_), **ones)
+        layers["k_norm"] = torch.ones((L, config.head_dim_), **ones)
+    if config.post_norms:
+        layers["post_attn_norm"] = torch.ones((L, H), **ones)
+        layers["post_ffn_norm"] = torch.ones((L, H), **ones)
+    if config.norm_offset:
+        # Gemma stores norm weights as w - 1
+        for name in ("attn_norm", "ffn_norm", "q_norm", "k_norm",
+                     "post_attn_norm", "post_ffn_norm"):
+            if name in layers:
+                layers[name] = torch.zeros_like(layers[name])
+        params["final_norm"] = torch.zeros_like(params["final_norm"])
     if config.tie_embeddings:
         params["lm_head"] = params["embed"].T
     return params
 
 
-def qkv_proj(h, lw, li, B, S, Hq, Hkv, D):
-    """q/k/v projections: one fused product when "wqkv" is present,
-    plus the q/k/v biases when their slots ("b_qkv", or "b_q"/"b_k"/
-    "b_v") are present. Returns qk [B, S, Hq + Hkv, D] (q heads, then k
-    heads; RoPE treats them in one pass) and v [B, S, Hkv, D]."""
+def qkv_proj(config: ModelConfig, h: torch.Tensor, lw: Dict[str, Any],
+             li: int):
+    """q/k/v projections of h [B, S, H]: one fused product when "wqkv"
+    is present, plus the q/k/v biases when their slots ("b_qkv", or
+    "b_q"/"b_k"/"b_v") are present, then under config.qk_norm the q/k
+    RMSNorm: over the whole projection when "q_norm" is Hq*D wide
+    (OLMoE), else per head. Returns qk [B, S, Hq + Hkv, D] (q heads,
+    then k heads; RoPE treats them in one pass) and v [B, S, Hkv, D]."""
+    B, S, _ = h.shape
+    Hq, Hkv, D = config.num_heads, config.kv_heads, config.head_dim_
     if "wqkv" in lw:
         qkv = ops.qmatmul(h, lw["wqkv"], li)
         if "b_qkv" in lw:
             qkv = qkv + lw["b_qkv"][li].to(qkv.dtype)
-        qk = qkv[..., : (Hq + Hkv) * D]
+        q, k = qkv[..., : Hq * D], qkv[..., Hq * D: (Hq + Hkv) * D]
         v = qkv[..., (Hq + Hkv) * D:]
     else:
         q = ops.qmatmul(h, lw["wq"], li)
@@ -121,8 +235,15 @@ def qkv_proj(h, lw, li, B, S, Hq, Hkv, D):
             q = q + lw["b_q"][li].to(q.dtype)
             k = k + lw["b_k"][li].to(k.dtype)
             v = v + lw["b_v"][li].to(v.dtype)
-        qk = torch.cat([q, k], dim=-1)
-    return qk.reshape(B, S, Hq + Hkv, D), v.reshape(B, S, Hkv, D)
+    q, k = q.reshape(B, S, Hq, D), k.reshape(B, S, Hkv, D)
+    if config.qk_norm and "q_norm" in lw:
+        qw, kw = lw["q_norm"][li], lw["k_norm"][li]
+        if qw.shape[-1] == Hq * D:
+            q = norm(config, q.reshape(B, S, Hq * D), qw).reshape(q.shape)
+            k = norm(config, k.reshape(B, S, Hkv * D), kw).reshape(k.shape)
+        else:
+            q, k = norm(config, q, qw), norm(config, k, kw)
+    return torch.cat([q, k], dim=2), v.reshape(B, S, Hkv, D)
 
 
 def gate_up_proj(h, lw, li):
@@ -135,16 +256,23 @@ def gate_up_proj(h, lw, li):
 
 
 def _attn_inputs(config: ModelConfig, x: torch.Tensor, lw: Dict[str, Any],
-                 li: int, rope):
-    """RMSNorm, the q/k/v projections and RoPE of layer li -> q
-    [B, S, Hq, D] and k, v [B, S, Hkv, D] in the model dtype (the cache
-    write encodes them)."""
-    B, S, _ = x.shape
-    Hq, Hkv, D = config.num_heads, config.kv_heads, config.head_dim_
-    h = ops.rms_norm(x, lw["attn_norm"][li], config.rms_norm_eps)
-    qk, v = qkv_proj(h, lw, li, B, S, Hq, Hkv, D)
-    qk = ops.apply_rope(qk, None, mode=config.rope_mode, tables=rope)
-    return qk[:, :, :Hq], qk[:, :, Hq:], v
+                 li: int, rope: Rope):
+    """RMSNorm, the q/k/v projections (with the q/k norms) and RoPE of
+    layer li (its local table on a local layer), then attn_scale folded
+    into q in f32 -> q [B, S, Hq, D] and k, v [B, S, Hkv, D] in the model
+    dtype (the cache write encodes them)."""
+    Hq, D = config.num_heads, config.head_dim_
+    h = norm(config, x, lw["attn_norm"][li])
+    qk, v = qkv_proj(config, h, lw, li)
+    tables = rope.glob if rope.local is None or _is_global(config, li) \
+        else rope.local
+    qk = ops.apply_rope(qk, None, mode=config.rope_mode, tables=tables)
+    q = qk[:, :, :Hq]
+    if config.attn_scale is not None:
+        # the kernels scale scores by D**-0.5: fold the override into q
+        q = (q.to(torch.float32) * (config.attn_scale * float(D) ** 0.5)
+             ).to(q.dtype)
+    return q, qk[:, :, Hq:], v
 
 
 def encode_write(k_store: torch.Tensor, v_store: torch.Tensor, k_scale,
@@ -168,15 +296,29 @@ def dense_ffn(config: ModelConfig, h: torch.Tensor, lw: Dict[str, Any],
     return ops.qmatmul(g, lw["w_down"], li)
 
 
+def _branch(config: ModelConfig, y: torch.Tensor, lw: Dict[str, Any],
+            post: str, li: int) -> torch.Tensor:
+    """A sublayer's output on its way into the residual: its post norm
+    (post_norms) and Granite's residual_multiplier."""
+    if config.post_norms:
+        y = norm(config, y, lw[post][li])
+    if config.residual_multiplier:
+        y = y * _as_dtype(config.residual_multiplier, y.dtype)
+    return y
+
+
 def _attn_out_ffn(config: ModelConfig, x: torch.Tensor, attn: torch.Tensor,
                   lw: Dict[str, Any], li: int, ffn_fn) -> torch.Tensor:
     """Output projection and residual, then RMSNorm -> ffn_fn ->
-    residual, of layer li. attn: [B, S, Hq, D]."""
+    residual, of layer li (each branch through _branch). attn:
+    [B, S, Hq, D]."""
     B, S, _ = x.shape
     attn = attn.reshape(B, S, -1).to(x.dtype)
-    x = x + ops.qmatmul(attn, lw["wo"], li)
-    h = ops.rms_norm(x, lw["ffn_norm"][li], config.rms_norm_eps)
-    return x + ffn_fn(config, h, lw, li)
+    x = x + _branch(config, ops.qmatmul(attn, lw["wo"], li), lw,
+                    "post_attn_norm", li)
+    h = norm(config, x, lw["ffn_norm"][li])
+    return x + _branch(config, ffn_fn(config, h, lw, li), lw,
+                       "post_ffn_norm", li)
 
 
 def _layer_forward(config: ModelConfig, x: torch.Tensor, lw: Dict[str, Any],
@@ -185,25 +327,30 @@ def _layer_forward(config: ModelConfig, x: torch.Tensor, lw: Dict[str, Any],
                    slots, ffn_fn) -> torch.Tensor:
     """One decoder block (RMSNorm -> GQA attention -> residual -> RMSNorm
     -> ffn_fn -> residual) over the stacked cache, which it updates in
-    place at layer li. rope: the forward's RoPE tables; slots: for a
+    place at layer li. rope: the forward's Rope; slots: for a
     compressed cache, the layer-0 row of every new token (forward's
     cache_rows); else (rows, positions) of a decode step's cache writes,
-    or the host list of a chunked prefill's row starts."""
+    or the host list of a chunked prefill's row starts. The layer's
+    window and the attention softcap go to every attention kernel."""
     S = x.shape[1]
     T = cache.max_seq
     q, k, v = _attn_inputs(config, x, lw, li, rope)
+    mask = dict(window=layer_window(config, li),
+                softcap=config.attn_logit_softcap)
     if cache.k.dtype in COMPRESSED_KV:
         encode_write(cache.k, cache.v, cache.k_scale, cache.v_scale, k, v,
                      slots, li)
         if S == 1:
             attn = dispatch.attention_decode(
                 q[:, 0], cache.k, cache.v, kv_len, layer_index=li,
-                k_scale=cache.k_scale, v_scale=cache.v_scale)[:, None]
+                k_scale=cache.k_scale, v_scale=cache.v_scale,
+                **mask)[:, None]
         else:
             # fresh or chunked: attend the quantized K/V in the cache
             attn = dispatch.attention_prefill(
                 q, cache.k, cache.v, kv_len=kv_len, q_start=start,
-                layer_index=li, k_scale=cache.k_scale, v_scale=cache.v_scale)
+                layer_index=li, k_scale=cache.k_scale, v_scale=cache.v_scale,
+                **mask)
         return _attn_out_ffn(config, x, attn, lw, li, ffn_fn)
     k, v = k.to(cache.k.dtype), v.to(cache.k.dtype)
     if S == 1:
@@ -211,14 +358,14 @@ def _layer_forward(config: ModelConfig, x: torch.Tensor, lw: Dict[str, Any],
         cache.k[li, rows, :, pos] = k[:, 0]
         cache.v[li, rows, :, pos] = v[:, 0]
         attn = dispatch.attention_decode(q[:, 0], cache.k, cache.v, kv_len,
-                                         layer_index=li)[:, None]
+                                         layer_index=li, **mask)[:, None]
     elif fresh_prefill:
         # Cold prefill (cache.length == 0): write the slab at T offset 0
         # and attend the just-computed K/V, transposed by strides.
         cache_write.cache_write_fresh(cache.k, cache.v, k, v, li)
         attn = dispatch.attention_prefill(q, k.transpose(1, 2),
                                           v.transpose(1, 2), kv_len=kv_len,
-                                          q_start=start)
+                                          q_start=start, **mask)
     else:
         # Chunked prefill: per-row writes at start[b], then attend the
         # stacked cache's layer li in place.
@@ -227,7 +374,8 @@ def _layer_forward(config: ModelConfig, x: torch.Tensor, lw: Dict[str, Any],
             cache.k[li, b, :, s0:s0 + n] = k[b, :n].transpose(0, 1)
             cache.v[li, b, :, s0:s0 + n] = v[b, :n].transpose(0, 1)
         attn = dispatch.attention_prefill(q, cache.k, cache.v, kv_len=kv_len,
-                                          q_start=start, layer_index=li)
+                                          q_start=start, layer_index=li,
+                                          **mask)
     return _attn_out_ffn(config, x, attn, lw, li, ffn_fn)
 
 
@@ -285,9 +433,8 @@ def forward(params: Dict[str, Any], config: ModelConfig, tokens: torch.Tensor,
         seq_lens = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
     kv_len = (start + seq_lens).to(torch.int32)
 
-    x = ops.embed_lookup(params["embed"], tokens, config.dtype)
-    rope = ops.rope_tables(positions, config.head_dim_, config.rope_theta,
-                           config.rope_mode, config.rope_scaling)
+    x = embed(config, params, tokens)
+    rope = rope_for(config, positions)
     # Decode writes one token per row at start[b]; JAX's
     # dynamic_update_slice clamps the offset into the cache, and so does
     # this indexed write. A chunked prefill reads the row starts once.
@@ -304,9 +451,7 @@ def forward(params: Dict[str, Any], config: ModelConfig, tokens: torch.Tensor,
                      fresh_prefill, slots)
     if logit_idx is not None:
         x = x[torch.arange(B, device=x.device), logit_idx.long()][:, None]
-    x = ops.rms_norm(x, params["final_norm"], config.rms_norm_eps)
-    logits = ops.qmatmul(x, params["lm_head"]).to(torch.float32)
-    return logits, cache._replace(length=kv_len)
+    return head(config, params, x), cache._replace(length=kv_len)
 
 
 def forward_paged_decode(params: Dict[str, Any], config: ModelConfig,
@@ -376,12 +521,13 @@ def forward_paged_verify(params: Dict[str, Any], config: ModelConfig,
     compressed = k_pages.dtype in COMPRESSED_KV
     rows = pid * (Hkv * page) + poff if compressed else None
 
-    x = ops.embed_lookup(params["embed"], tokens, config.dtype)
-    rope = ops.rope_tables(positions, config.head_dim_, config.rope_theta,
-                           config.rope_mode, config.rope_scaling)
+    x = embed(config, params, tokens)
+    rope = rope_for(config, positions)
     layers = params["layers"]
     for li in range(config.num_layers):
         q, k, v = _attn_inputs(config, x, layers, li, rope)
+        mask = dict(window=layer_window(config, li),
+                    softcap=config.attn_logit_softcap)
         if compressed:
             encode_write(k_pages, v_pages, k_scale_pages, v_scale_pages, k,
                          v, rows, li)
@@ -393,14 +539,13 @@ def forward_paged_verify(params: Dict[str, Any], config: ModelConfig,
         if G == 1:
             attn = dispatch.attention_paged_decode(
                 q[:, 0], k_pages, v_pages, block_table, kv_len, li,
-                k_scale_pages, v_scale_pages)[:, None]
+                k_scale_pages, v_scale_pages, **mask)[:, None]
         else:
             attn = dispatch.attention_paged_verify(
                 q, k_pages, v_pages, block_table, kv_len, li, k_scale_pages,
-                v_scale_pages)
+                v_scale_pages, **mask)
         x = _attn_out_ffn(config, x, attn, layers, li, ffn_fn)
-    x = ops.rms_norm(x, params["final_norm"], config.rms_norm_eps)
-    logits = ops.qmatmul(x, params["lm_head"]).to(torch.float32)
+    logits = head(config, params, x)
     if k_scale_pages is not None:
         return logits, k_pages, v_pages, k_scale_pages, v_scale_pages
     return logits, k_pages, v_pages

@@ -39,6 +39,17 @@ from turboinfer_tpu_torch.utils.device import resolve_device
 from turboinfer_tpu_torch.utils.errors import ConfigError
 
 ARCHITECTURES = ("mixtral", "moe")
+# ModelConfig knobs this family's forward is not held to against the JAX
+# package, with the value that means "off" (the llama body computes
+# most of them; the MoE variants that use them are not ported yet).
+_UNPORTED = (("sliding_window", None), ("attn_logit_softcap", None),
+             ("final_logit_softcap", None), ("norm_offset", False),
+             ("scale_embeddings", False), ("embedding_multiplier", None),
+             ("residual_multiplier", None), ("logits_scaling", None),
+             ("attn_bias", False), ("qk_norm", False), ("post_norms", False),
+             ("attn_scale", None), ("rope_local_theta", None),
+             ("parallel_residual", False), ("alibi", False),
+             ("rotary_pct", 1.0), ("kv_lora_rank", None))
 # llama's attention body threads the int8 scales and reads fp8 caches
 SUPPORTS_INT8_KV = True
 
@@ -56,8 +67,8 @@ def check_supported(config: ModelConfig) -> None:
     if config.shared_expert_size:
         raise NotImplementedError("the shared expert (Qwen2-MoE) is not "
                                   "ported to the PyTorch package yet")
-    for name, off in llama._UNPORTED:
-        if name != "num_experts" and getattr(config, name) != off:
+    for name, off in _UNPORTED:
+        if getattr(config, name) != off:
             raise NotImplementedError(
                 f"ModelConfig.{name}={getattr(config, name)!r} is not ported "
                 "to the PyTorch package yet")
