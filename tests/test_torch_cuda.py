@@ -243,7 +243,7 @@ def test_cuda_qmm_refuses_mismatched_weights():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D,Hq,Hkv", [(32, 4, 4), (64, 8, 2), (128, 2, 1),
-                                      (128, 32, 8)])
+                                      (128, 32, 8), (256, 2, 1), (256, 16, 8)])
 def test_cuda_attention_kernels_match_plain(D, Hq, Hkv):
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(D)
@@ -315,7 +315,8 @@ def test_cuda_decode_refuses_sinks_not_f32():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,Hq,Hkv", [(32, 4, 4), (64, 8, 2), (128, 2, 1)])
+@pytest.mark.parametrize("D,Hq,Hkv", [(32, 4, 4), (64, 8, 2), (128, 2, 1),
+                                      (256, 4, 2)])
 def test_cuda_flash_prefill_stacked_chunk_matches_plain(D, Hq, Hkv):
     """A chunked-prefill read: layer li of the stacked [L, B, Hkv, T, D]
     cache, queries at q_start > 0, keys masked at kv_len < T."""
@@ -343,7 +344,10 @@ def test_cuda_flash_prefill_stacked_chunk_matches_plain(D, Hq, Hkv):
                                              (128, 8, 8, 256, 5),
                                              (64, 8, 2, 16, 3),
                                              (32, 4, 4, 8, 2),
-                                             (64, 16, 2, 8, 16)])
+                                             (64, 16, 2, 8, 16),
+                                             (256, 16, 8, 256, 1),
+                                             (256, 16, 8, 256, 5),
+                                             (256, 16, 16, 16, 5)])
 def test_cuda_paged_attention_matches_plain(D, Hq, Hkv, page, G):
     """Layer 1 of a stacked pool through a shuffled table with shared
     pages and -1 past each row's need; rows whose query sees no key
@@ -409,7 +413,10 @@ def _compressed(gen, shape, kind):
 @pytest.mark.parametrize("D,Hkv,layout", [(128, 32, "decode"),
                                           (128, 8, "prefill"),
                                           (64, 8, "paged"),
-                                          (32, 4, "prefill")])
+                                          (32, 4, "prefill"),
+                                          (256, 8, "decode"),
+                                          (256, 8, "prefill"),
+                                          (256, 8, "paged")])
 def test_cuda_kv_encode_write_is_byte_exact(kind, D, Hkv, layout):
     """The encode-and-write kernel against encode_kv_scaled plus an
     indexed assignment, byte for byte, at the three addressings: a
@@ -507,7 +514,7 @@ def _encode_rows_both_ways(x, kind, Hkv=2):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 def test_cuda_kv_encode_write_fp8_every_bf16_pattern(D):
     """All 65536 bf16 bit patterns (subnormals, +-448..464 and past it,
     inf and NaN of both signs) through the hardware e4m3 conversion and
@@ -522,7 +529,7 @@ def test_cuda_kv_encode_write_fp8_every_bf16_pattern(D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 def test_cuda_kv_encode_write_int8_tie_rows(D):
     """int8 rows built on rounding ties (_tie_rows): the codes, taken from
     x * (1 / scale) with a division only near a .5 tie, equal the plain
@@ -587,7 +594,10 @@ def test_cuda_kv_encode_write_refuses_misaligned_rows():
 @pytest.mark.parametrize("kind", list(KINDS))
 @pytest.mark.parametrize("D,Hq,Hkv,window", [(128, 32, 32, None),
                                              (128, 32, 8, None),
-                                             (64, 16, 2, 100), (32, 4, 4, None)])
+                                             (64, 16, 2, 100),
+                                             (32, 4, 4, None),
+                                             (256, 16, 8, None),
+                                             (256, 16, 16, 100)])
 def test_cuda_decode_compressed_matches_plain(kind, D, Hq, Hkv, window):
     """The decode kernel's int8 (scaled) and fp8 reads of layer 1 against
     decode_plain on the dequantized layer, kv_len across slices."""
@@ -607,7 +617,8 @@ def test_cuda_decode_compressed_matches_plain(kind, D, Hq, Hkv, window):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", list(KINDS))
-@pytest.mark.parametrize("D,Hq,Hkv", [(32, 4, 4), (64, 8, 2), (128, 32, 8)])
+@pytest.mark.parametrize("D,Hq,Hkv", [(32, 4, 4), (64, 8, 2), (128, 32, 8),
+                                      (256, 16, 8)])
 def test_cuda_flash_prefill_stacked_compressed_matches_plain(kind, D, Hq, Hkv):
     """The stacked read of an int8 (scale planes of layer li) or fp8
     cache at q_start > 0 against prefill_plain on the dequantized layer."""
@@ -633,7 +644,7 @@ GQA_GROUPS = [(4, 4), (4, 2), (8, 2), (16, 2), (6, 2)]   # gh 1, 2, 4, 8, 3
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", [None, *KINDS], ids=["bf16", *KINDS])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("Hq,Hkv", GQA_GROUPS)
 def test_cuda_flash_prefill_gqa_stacked_matches_plain(kind, D, Hq, Hkv):
     """The stacked read with a query head group packed into each tile's
@@ -669,7 +680,7 @@ def test_cuda_flash_prefill_gqa_stacked_matches_plain(kind, D, Hq, Hkv):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("Hq,Hkv", GQA_GROUPS)
 @pytest.mark.parametrize("B,S,fill", [(2, 80, [77, 80]), (1, 200, [200]),
                                       (1, 1024, [1000])],
@@ -729,7 +740,10 @@ def test_cuda_flash_prefill_wide_group(kind):
 @pytest.mark.parametrize("D,Hq,Hkv,page,G", [(128, 32, 32, 256, 1),
                                              (128, 32, 8, 256, 5),
                                              (64, 8, 2, 16, 3),
-                                             (32, 4, 4, 8, 2)])
+                                             (32, 4, 4, 8, 2),
+                                             (256, 16, 8, 256, 1),
+                                             (256, 16, 8, 256, 5),
+                                             (256, 16, 16, 16, 5)])
 def test_cuda_paged_compressed_matches_plain(kind, D, Hq, Hkv, page, G):
     """Paged decode (G=1) and verify over int8 pages with scale pages
     (looked up through the same clamped table entry) and fp8 pages."""
@@ -973,7 +987,7 @@ DECODE_GROUPS = [(4, 4), (4, 2), (8, 2), (16, 2), (6, 2)]
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", [None, *KINDS], ids=["bf16", *KINDS])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("Hq,Hkv", DECODE_GROUPS)
 @pytest.mark.parametrize("B", [1, 16])
 def test_cuda_decode_slices_match_plain(kind, D, Hq, Hkv, B):
@@ -1015,17 +1029,19 @@ def test_cuda_decode_slices_match_plain(kind, D, Hq, Hkv, B):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", [None, "int8"], ids=["bf16", "int8"])
 @pytest.mark.parametrize("Hq,Hkv", [(16, 2), (2, 2)], ids=["gqa", "lone"])
-def test_cuda_decode_long_context_matches_plain(kind, Hq, Hkv):
-    """T = 40000: 313 sub-slices of 128 rows (a GQA group) or 625 of 64
-    (a lone head), past the 64 slices a kv head takes, so each block
-    reads 5 or 10 sub-slices in turn and the last block merges 63 slices
-    in two chunks of 32; kv_len T, mid-slice, 1 and in the second slice;
-    a window of 19200 rows; sinks; repeat calls bit-identical. One
-    sub-slice (a window of 64 rows) needs no scratch."""
+@pytest.mark.parametrize("D", [64, 256])
+def test_cuda_decode_long_context_matches_plain(kind, Hq, Hkv, D):
+    """T = 40000: 313 sub-slices of 128 rows (a GQA group; 625 of 64 at
+    D = 256) or 625 of 64 (a lone head), past the 64 slices a kv head
+    takes, so each block reads 5 or 10 sub-slices in turn and the last
+    block merges 63 slices in two chunks of 32; kv_len T, mid-slice, 1
+    and in the second slice; a window of 19200 rows; sinks; repeat calls
+    bit-identical. One sub-slice (a window of 64 rows) needs no
+    scratch."""
     _need_cuda()
     from turboinfer_tpu_torch.kernels import _build
-    gen = torch.Generator(device="cuda").manual_seed(Hq + 40000)
-    L, B, T, D = 1, 4, 40000, 64
+    gen = torch.Generator(device="cuda").manual_seed(Hq + (D - 64) + 40000)
+    L, B, T = 1, 4, 40000
     shape = (L, B, Hkv, T, D)
     if kind is None:
         kc = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -1204,7 +1220,7 @@ def _paged_check(q, kp, vp, table, kv_len, li, ks, vs):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", [None, *KINDS], ids=["bf16", *KINDS])
 @pytest.mark.parametrize("G,Hq,Hkv", PAGED_ROWS, ids=PAGED_ROW_IDS)
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("page", [8, 16, 256])
 def test_cuda_paged_rows_match_plain(kind, G, Hq, Hkv, D, page):
     """Sub-slices of 128 (or 64) keys that cross 8- and 16-token pages,
@@ -1267,6 +1283,45 @@ def test_cuda_paged_long_context_matches_plain(kind, G, Hq, Hkv):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", [None, *KINDS], ids=["bf16", *KINDS])
+@pytest.mark.parametrize("G,Hq,Hkv", [(1, 2, 2), (5, 8, 2), (8, 16, 2)],
+                         ids=["R1", "R20", "R64"])
+def test_cuda_paged_long_context_head_dim_256(kind, G, Hq, Hkv):
+    """D = 256 over a capacity of 157 pages of 256 (40192 rows): 628
+    sub-slices of 64 keys, 10 a block; at R = 64 the two row chunks keep
+    their running outputs in shared memory between sub-slices. R = 128
+    would keep 132 KB of them beside the tiles and is refused, not run
+    another way."""
+    _need_cuda()
+    from turboinfer_tpu_torch.kernels import _build
+    from turboinfer_tpu_torch.utils.errors import KernelError
+    gen = torch.Generator(device="cuda").manual_seed(G + Hq + 256)
+    B, page, max_pages, D = 4, 256, 157, 256
+    P = B * max_pages + 1
+    kp, vp, ks, vs = _paged_pools(gen, (1, P, Hkv, page, D), kind)
+    q = torch.randn((B, G, Hq, D), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    table = torch.randperm(P, generator=gen, device="cuda")[:B * max_pages]
+    table = table.reshape(B, max_pages).int()
+    kv_len = torch.tensor([max_pages * page, 33333, 1, 1000],
+                          dtype=torch.int32, device="cuda")
+    _paged_check(q, kp, vp, table, kv_len, 0, ks, vs)
+    R = G * Hq // Hkv
+    lib = _build.library()
+    assert lib.ti_paged_workspace(B, Hkv, R, max_pages * page, D) == \
+        B * Hkv * R * 63 * (D + 2)
+    assert lib.ti_paged_workspace(B, Hkv, R, 64, D) == 0
+    if G == 8:
+        wide = torch.zeros((B, 16, Hq, D), dtype=torch.bfloat16,
+                           device="cuda")
+        with pytest.raises(KernelError):
+            paged_attention.paged_attention(wide, kp, vp, table, kv_len, 0,
+                                            ks, vs)
+    torch.cuda.synchronize()
+    assert not _build.counters(q.device, B * Hkv)[:B * Hkv].any()
+
+
+@pytest.mark.cuda
 def test_cuda_paged_counters_stay_zero_at_mixed_shapes():
     """Calls at mixed B and G on one stream, unsynchronised in between:
     each matches its plain form and every arrival counter is 0 after."""
@@ -1321,7 +1376,7 @@ def _qpos_rows(q_start, S, kv_len):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mask", list(WINDOW_CAPS))
 @pytest.mark.parametrize("D,Hq,Hkv", [(128, 32, 16), (64, 8, 2), (32, 4, 4),
-                                      (128, 8, 1)])
+                                      (128, 8, 1), (256, 16, 8), (256, 8, 1)])
 def test_cuda_flash_prefill_fresh_window_softcap_matches_plain(mask, D, Hq,
                                                                Hkv):
     """The fresh read with a window and a softcap, S=1100 fill 1100 and
@@ -1357,15 +1412,18 @@ def test_cuda_flash_prefill_fresh_window_softcap_matches_plain(mask, D, Hq,
 @pytest.mark.parametrize("kind", [None, *KINDS], ids=["bf16", *KINDS])
 @pytest.mark.parametrize("mask", ["cap4", "w600_cap4", "w129", "w13"])
 @pytest.mark.parametrize("Hq,Hkv", [(32, 16), (6, 2)])
+@pytest.mark.parametrize("D", [128, 256])
 def test_cuda_flash_prefill_stacked_window_softcap_matches_plain(kind, mask,
-                                                                 Hq, Hkv):
+                                                                 Hq, Hkv, D):
     """The chunked read of layer 1 of a stacked cache (bf16, int8, fp8)
     at q_start 4096 and 700 with a window and a softcap: the key loop
-    starts at the tile of the block's earliest window."""
+    starts at the tile of the block's earliest window (128 keys a tile,
+    64 at D = 256)."""
     _need_cuda()
     window, cap, qs = WINDOW_CAPS[mask]
-    gen = torch.Generator(device="cuda").manual_seed(Hq + len(mask))
-    L, B, S, T, D = 2, 2, 300, 4608, 128
+    gen = torch.Generator(device="cuda").manual_seed(Hq + (D - 128) +
+                                                     len(mask))
+    L, B, S, T = 2, 2, 300, 4608
     kc, vc, ks, vs = _kv_pair(gen, (L, B, Hkv, T, D), kind)
     sc = (None, None) if ks is None else (ks[1], vs[1])
     q = (qs * torch.randn((B, S, Hq, D), generator=gen, device="cuda")).to(
@@ -1386,15 +1444,17 @@ def test_cuda_flash_prefill_stacked_window_softcap_matches_plain(kind, mask,
 @pytest.mark.parametrize("kind", [None, *KINDS], ids=["bf16", *KINDS])
 @pytest.mark.parametrize("mask", list(WINDOW_CAPS))
 @pytest.mark.parametrize("Hq,Hkv", [(32, 16), (8, 1), (4, 4)])
-def test_cuda_decode_window_softcap_matches_plain(kind, mask, Hq, Hkv):
+@pytest.mark.parametrize("D", [128, 256])
+def test_cuda_decode_window_softcap_matches_plain(kind, mask, Hq, Hkv, D):
     """Decode over bf16, int8 and fp8 caches (T=8192) with a softcap on
     the tensor-core GQA kernel (gh 2 and 8) and the lone-head kernel, on
     windowed and global rows: kv_len 1, 4000, 4097 (a window start past
     a slice edge), 8192; a repeated call gives the same bits."""
     _need_cuda()
     window, cap, qs = WINDOW_CAPS[mask]
-    gen = torch.Generator(device="cuda").manual_seed(Hq * Hkv + len(mask))
-    L, B, T, D = 2, 4, 8192, 128
+    gen = torch.Generator(device="cuda").manual_seed(Hq * Hkv + (D - 128) +
+                                                     len(mask))
+    L, B, T = 2, 4, 8192
     kc, vc, ks, vs = _kv_pair(gen, (L, B, Hkv, T, D), kind)
     q = (qs * torch.randn((B, Hq, D), generator=gen, device="cuda")).to(
         torch.bfloat16)
@@ -1419,8 +1479,9 @@ def test_cuda_decode_window_softcap_matches_plain(kind, mask, Hq, Hkv):
                                            (16, 16, 2, 8)],
                          ids=["G1-gh2", "G5-gh2", "G1-gh1", "G5-gh8",
                               "G16-gh8"])
+@pytest.mark.parametrize("D", [128, 256])
 def test_cuda_paged_window_softcap_matches_plain(kind, mask, G, Hq, Hkv,
-                                                 page):
+                                                 page, D):
     """Paged decode (G=1) and verify (G=5, 16) over bf16, int8 and fp8
     pools with a window and a softcap. The slices count from the earliest
     query's first visible key (kv_len - G + 1 - window), so the first
@@ -1431,10 +1492,11 @@ def test_cuda_paged_window_softcap_matches_plain(kind, mask, G, Hq, Hkv,
     _need_cuda()
     from turboinfer_tpu_torch.kernels import _build
     window, cap, qs = WINDOW_CAPS[mask]
-    gen = torch.Generator(device="cuda").manual_seed(G * Hq + page + len(mask))
+    gen = torch.Generator(device="cuda").manual_seed(G * Hq + page + (D - 128)
+                                                     + len(mask))
     L, P, B, max_pages = 2, 300, 4, 4096 // page
-    kp, vp, ks, vs = _kv_pair(gen, (L, P, Hkv, page, 128), kind)
-    q = (qs * torch.randn((B, G, Hq, 128), generator=gen, device="cuda")).to(
+    kp, vp, ks, vs = _kv_pair(gen, (L, P, Hkv, page, D), kind)
+    q = (qs * torch.randn((B, G, Hq, D), generator=gen, device="cuda")).to(
         torch.bfloat16)
     table = torch.randint(0, P, (B, max_pages), generator=gen, device="cuda",
                           dtype=torch.int32)
@@ -1455,24 +1517,66 @@ def test_cuda_paged_window_softcap_matches_plain(kind, mask, G, Hq, Hkv,
 
 @pytest.mark.cuda
 def test_cuda_attention_refuses_head_dim_256():
-    """D=256 (Gemma-2-2B/9B, Gemma-3) and D=96 (Phi-3) are not ported to
-    the kernels yet: each wrapper raises on the card, nothing falls back."""
+    """D=256 (Gemma-1-7B, Gemma-2-2B/9B, Gemma-3) was refused on the card
+    until its kernels were ported: each wrapper now launches its kernel,
+    window and softcap included, as the launch counters show."""
+    _need_cuda()
+    D = 256
+    q = torch.zeros((1, 8, 4, D), dtype=torch.bfloat16, device="cuda")
+    kv = torch.zeros((1, 2, 8, D), dtype=torch.bfloat16, device="cuda")
+    kt = kv.transpose(1, 2)                    # [B, S, Hkv, D]
+    lens = torch.tensor([8], dtype=torch.int32, device="cuda")
+    cache = torch.zeros((1, 1, 2, 16, D), dtype=torch.bfloat16, device="cuda")
+    table = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    calls = [
+        (flash_attention.flash_prefill,
+         lambda: flash_attention.flash_prefill(q, kv, kv, lens, lens * 0,
+                                               window=4, softcap=50.0)),
+        (decode_attention.decode_attention,
+         lambda: decode_attention.decode_attention(q[:, 0], cache, cache,
+                                                   lens, 0, softcap=50.0)),
+        (paged_attention.paged_attention,
+         lambda: paged_attention.paged_attention(q[:, :1], cache[:, :1],
+                                                 cache[:, :1], table, lens, 0,
+                                                 window=4, softcap=50.0)),
+        (cache_write.cache_write_fresh,
+         lambda: cache_write.cache_write_fresh(cache, cache.clone(), kt, kt,
+                                               0))]
+    for wrapper, call in calls:
+        before = wrapper.launches
+        out = call()
+        assert out is None or torch.isfinite(out.float()).all()
+        assert wrapper.launches == before + 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_head_dim_96_is_refused():
+    """D=96 (Phi-3) has no kernel instance: each wrapper raises on the
+    card, and nothing runs the plain form instead."""
     _need_cuda()
     from turboinfer_tpu_torch.utils.errors import KernelError
-    for D in (96, 256):
-        q = torch.zeros((1, 8, 4, D), dtype=torch.bfloat16, device="cuda")
-        kv = torch.zeros((1, 2, 8, D), dtype=torch.bfloat16, device="cuda")
-        lens = torch.tensor([8], dtype=torch.int32, device="cuda")
-        with pytest.raises(KernelError):
-            flash_attention.flash_prefill(q, kv, kv, lens, lens * 0,
-                                          window=4, softcap=50.0)
-        cache = torch.zeros((1, 1, 2, 16, D), dtype=torch.bfloat16,
-                            device="cuda")
-        with pytest.raises(KernelError):
-            decode_attention.decode_attention(q[:, 0], cache, cache, lens, 0,
-                                              softcap=50.0)
-        table = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
-        with pytest.raises(KernelError):
-            paged_attention.paged_attention(q[:, :1], cache[:, :1],
-                                            cache[:, :1], table, lens, 0,
-                                            window=4, softcap=50.0)
+    D = 96
+    q = torch.zeros((1, 8, 4, D), dtype=torch.bfloat16, device="cuda")
+    kv = torch.zeros((1, 2, 8, D), dtype=torch.bfloat16, device="cuda")
+    lens = torch.tensor([8], dtype=torch.int32, device="cuda")
+    cache = torch.zeros((1, 1, 2, 16, D), dtype=torch.bfloat16, device="cuda")
+    table = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    counted = (flash_attention.flash_prefill,
+               decode_attention.decode_attention,
+               paged_attention.paged_attention, cache_write.kv_encode_write)
+    before = [w.launches for w in counted]
+    with pytest.raises(KernelError):
+        flash_attention.flash_prefill(q, kv, kv, lens, lens * 0)
+    with pytest.raises(KernelError):
+        decode_attention.decode_attention(q[:, 0], cache, cache, lens, 0)
+    with pytest.raises(KernelError):
+        paged_attention.paged_attention(q[:, :1], cache[:, :1], cache[:, :1],
+                                        table, lens, 0)
+    codes = torch.zeros((1, 1, 2, 16, D), dtype=torch.uint8, device="cuda")
+    with pytest.raises(KernelError):
+        cache_write.kv_encode_write(
+            kv.transpose(1, 2)[0], kv.transpose(1, 2)[0], codes,
+            codes.clone(), None, None,
+            torch.arange(8, device="cuda"), 0, 16)
+    assert [w.launches for w in counted] == before

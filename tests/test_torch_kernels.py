@@ -220,7 +220,7 @@ def test_cache_write_plain_matches_pallas():
         np.testing.assert_array_equal(vc.numpy(), np.asarray(want_v))
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_decode_plain_matches_pallas(D):
     rng = _rng(40 + D)
     L, B, Hq, Hkv, T = 2, 4, 8, 4, 64
@@ -330,9 +330,24 @@ def test_prefill_plain_window_softcap_matches_pallas(mask, stacked, kind):
     chunk at q_start > 0 (f32, int8 with its scales, fp8). Rows past
     kv_len may see no key in their window (undefined: each side averages
     another key set) and are left out."""
+    _prefill_window_softcap_case(mask, stacked, kind, 64, 4, 2)
+
+
+@pytest.mark.parametrize("mask", list(_MASKS))
+@pytest.mark.parametrize("stacked,kind", [(False, None), (True, None),
+                                          (True, "int8"), (True, "fp8")],
+                         ids=["fresh", "stacked", "stacked_int8",
+                              "stacked_fp8"])
+def test_prefill_plain_window_softcap_matches_pallas_head_dim_256(
+        mask, stacked, kind):
+    """The same at Gemma's head dim 256 (GQA 2:1)."""
+    _prefill_window_softcap_case(mask, stacked, kind, 256, 2, 1)
+
+
+def _prefill_window_softcap_case(mask, stacked, kind, D, Hq, Hkv):
     window, cap = _MASKS[mask]
-    rng = _rng(70 + len(mask) + 3 * stacked)
-    L, B, S, Hq, Hkv, D = 2, 2, 24, 4, 2, 64
+    rng = _rng(70 + len(mask) + 3 * stacked + (D - 64))
+    L, B, S = 2, 2, 24
     T = 64 if stacked else S
     q = (2.0 * rng.normal(size=(B, S, Hq, D))).astype(np.float32)
     lead = (L, B) if stacked else (B,)
@@ -375,9 +390,21 @@ def test_decode_plain_softcap_matches_pallas(mask, kind):
     """decode_plain with a softcap (and a window) against decode_pallas
     in interpret mode, over f32, int8 and fp8 caches; kv_len 1 and a
     window start past 0."""
+    _decode_softcap_case(mask, kind, 64, 8, 2)
+
+
+@pytest.mark.parametrize("mask", list(_MASKS))
+@pytest.mark.parametrize("kind", [None, "int8", "fp8"],
+                         ids=["f32", "int8", "fp8"])
+def test_decode_plain_softcap_matches_pallas_head_dim_256(mask, kind):
+    """The same at Gemma's head dim 256 (GQA 2:1)."""
+    _decode_softcap_case(mask, kind, 256, 2, 1)
+
+
+def _decode_softcap_case(mask, kind, D, Hq, Hkv):
     window, cap = _MASKS[mask]
-    rng = _rng(80 + len(mask))
-    L, B, Hq, Hkv, T, D = 2, 3, 8, 2, 128, 64
+    rng = _rng(80 + len(mask) + (D - 64))
+    L, B, T = 2, 3, 128
     jk, jks, tk, tks = _kv_store(rng, (L, B, Hkv, T, D), kind)
     jv, jvs, tv, tvs = _kv_store(rng, (L, B, Hkv, T, D), kind)
     q = (2.0 * rng.normal(size=(B, Hq, D))).astype(np.float32)

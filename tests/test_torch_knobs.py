@@ -1,8 +1,9 @@
 """The llama-family knobs of the port against turboinfer_tpu on bridged params.
 
 One tiny f32 config per family the JAX registry sends to its llama body
-(D=32, GQA 4:2): Gemma-2 (alternating windows, both softcaps, (1 + w)
-norms, sandwich norms, GeGLU, attn_scale, scaled and tied embeddings),
+(D=32, GQA 4:2; one Gemma-3 also at its own D=256): Gemma-2
+(alternating windows, both softcaps, (1 + w) norms, sandwich norms,
+GeGLU, attn_scale, scaled and tied embeddings),
 Mistral (a window on every layer), Qwen2 (q/k/v biases), Qwen3 (per-head
 q/k norms, and the whole-projection form), Gemma-3 (q/k norms, pattern
 6, a second RoPE base for the local layers) and Granite (the three
@@ -65,6 +66,16 @@ FAMILIES = {
                    norm_offset=True, scale_embeddings=True, post_norms=True,
                    hidden_act="gelu", attn_scale=32.0 ** -0.5,
                    tie_embeddings=True),
+    # Gemma-3 at its own head dim (D=256, as every Gemma-3 size), 4:2
+    "gemma3_d256": dict(architecture="gemma3", num_layers=6, head_dim=256,
+                        qk_norm=True, sliding_window=9,
+                        sliding_window_pattern=6, rope_local_theta=10000.0,
+                        rope_theta=1e6,
+                        rope_scaling=(("factor", 8.0),
+                                      ("rope_type", "linear")),
+                        norm_offset=True, scale_embeddings=True,
+                        post_norms=True, hidden_act="gelu",
+                        attn_scale=256.0 ** -0.5, tie_embeddings=True),
     "granite": dict(architecture="granite", embedding_multiplier=12.0,
                     residual_multiplier=0.22, logits_scaling=8.0,
                     attn_scale=0.0625),
@@ -227,6 +238,48 @@ def test_gemma2_27b_config_matches_the_jax_mapping():
     tllama.check_supported(t)
     assert [tllama.layer_window(t, li) for li in range(4)] == [
         4096, None, 4096, None]
+
+
+def test_gemma3_12b_config_matches_the_jax_mapping():
+    """gemma3_12b_config() against the JAX loader's mapping of
+    google/gemma-3-12b-pt's config.json: the multimodal wrapper's
+    text_config keys (layer_types giving a global layer every 6th,
+    linear rope_scaling factor 8, rope_local_base_freq,
+    query_pre_attn_scalar 256)."""
+    from turboinfer_tpu.loader.mapping import config_from_hf_dict
+    layer_types = (["sliding_attention"] * 5 + ["full_attention"]) * 8
+    hf = {"architectures": ["Gemma3ForConditionalGeneration"],
+          "model_type": "gemma3",
+          "text_config": {
+              "model_type": "gemma3_text", "vocab_size": 262208,
+              "hidden_size": 3840, "num_hidden_layers": 48,
+              "num_attention_heads": 16, "num_key_value_heads": 8,
+              "head_dim": 256, "intermediate_size": 15360,
+              "rope_theta": 1000000.0, "rope_local_base_freq": 10000.0,
+              "rope_scaling": {"factor": 8.0, "rope_type": "linear"},
+              "rms_norm_eps": 1e-6, "max_position_embeddings": 131072,
+              "sliding_window": 1024, "layer_types": layer_types,
+              "query_pre_attn_scalar": 256,
+              "attn_logit_softcapping": None,
+              "final_logit_softcapping": None,
+              "hidden_activation": "gelu_pytorch_tanh",
+              "tie_word_embeddings": True}}
+    j = config_from_hf_dict(hf)
+    t = tconfig.gemma3_12b_config()
+    for f in ("vocab_size", "hidden_size", "num_layers", "num_heads",
+              "kv_heads", "head_dim_", "ffn_dim", "rope_theta",
+              "rope_local_theta", "rope_scaling", "rms_norm_eps",
+              "max_seq_len", "sliding_window", "sliding_window_pattern",
+              "attn_logit_softcap", "final_logit_softcap", "attn_scale",
+              "norm_offset", "scale_embeddings", "post_norms", "hidden_act",
+              "tie_embeddings", "architecture", "qk_norm", "attn_bias"):
+        assert getattr(t, f) == getattr(j, f), f
+    assert t.rope_mode.value == j.rope_mode.value
+    assert (t.sliding_window_pattern, t.attn_scale, t.head_dim_) == (
+        6, 1 / 16, 256)
+    tllama.check_supported(t)
+    assert [tllama.layer_window(t, li) for li in range(12)] == [
+        1024] * 5 + [None] + [1024] * 5 + [None]
 
 
 def test_families_are_accepted_and_others_refused():

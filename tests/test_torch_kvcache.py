@@ -135,7 +135,7 @@ def _tie_row_bits(D):
     return np.concatenate(out)
 
 
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 def test_int8_tie_rows_match_jitted_jax(D):
     """The rows the encode-and-write kernel's tie test feeds it: the port's
     plain int8 encode (the kernel's reference on the card) equals the
@@ -225,7 +225,8 @@ def _store(rng, shape, kind, big=False):
 
 @pytest.mark.parametrize("kind", list(KV))
 @pytest.mark.parametrize("D,gh,window", [(64, 4, None), (128, 1, None),
-                                         (64, 2, 40)])
+                                         (64, 2, 40), (256, 2, None),
+                                         (256, 1, 40)])
 def test_decode_plain_matches_pallas(kind, D, gh, window):
     rng = np.random.default_rng(D + gh)
     L, B, Hkv, T = 2, 3, 2, 128

@@ -48,7 +48,7 @@ def _table(rng, B, P, max_pages, lens, page):
     return table
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("gh", [1, 4])
 @pytest.mark.parametrize("page", [8, 16])
 @pytest.mark.parametrize("G", [1, 3, 5])
@@ -82,7 +82,7 @@ def test_paged_plain_matches_pallas(D, gh, page, G):
     assert _rel(got.numpy()[valid], np.asarray(want)[valid]) < KERNEL_RTOL
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("page", [8, 16])
 def test_paged_plain_matches_pallas_full_tile(D, page):
     """The widest tile the kernel takes: G=16 tokens of a group of gh=8

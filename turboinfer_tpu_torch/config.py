@@ -234,3 +234,29 @@ def gemma2_27b_config(**kw) -> ModelConfig:
                 architecture="gemma2", name="google/gemma-2-27b")
     base.update(kw)
     return ModelConfig(**base)
+
+
+def gemma3_12b_config(**kw) -> ModelConfig:
+    """google/gemma-3-12b-pt's published config.json (its text_config) as
+    the JAX package's loader maps it (loader/mapping.py, the HF branch):
+    48 layers, hidden 3840, 16 query and 8 kv heads of 256, FFN 15360
+    (GeGLU, gelu_pytorch_tanh), vocab 262208, 131072 positions; a
+    1024-key window on five layers of every six (layer_types: a global
+    layer every 6th, pattern 6); rope_theta 1e6 with linear rope_scaling
+    factor 8 on the global layers and rope_local_base_freq 1e4 on the
+    local ones; query_pre_attn_scalar 256 (attn_scale 256**-0.5), per-head
+    q/k RMSNorms, (1 + w) norms, embeddings times sqrt(hidden), sandwich
+    norms, no softcaps and tied embeddings."""
+    base = dict(vocab_size=262208, hidden_size=3840, num_layers=48,
+                num_heads=16, num_kv_heads=8, head_dim=256,
+                intermediate_size=15360, rope_theta=1000000.0,
+                rope_local_theta=10000.0,
+                rope_scaling=(("factor", 8.0), ("rope_type", "linear")),
+                rope_mode=RopeMode.HALF, rms_norm_eps=1e-6,
+                max_seq_len=131072, sliding_window=1024,
+                sliding_window_pattern=6, attn_scale=256.0 ** -0.5,
+                qk_norm=True, norm_offset=True, scale_embeddings=True,
+                post_norms=True, hidden_act="gelu", tie_embeddings=True,
+                architecture="gemma3", name="google/gemma-3-12b-pt")
+    base.update(kw)
+    return ModelConfig(**base)

@@ -25,11 +25,11 @@
 //
 // What bounds it on the H100: bytes, the bf16 rows read once, the codes
 // (and f32 scales) written once. The design:
-//  * a row of D bf16 is D / 8 lanes, one 16-byte load each (a half-warp
-//    at D = 128, a quarter at 64, an eighth at 32); its absmax is a
-//    shuffle reduction inside that lane group (on the bf16 bits: the
-//    magnitudes order as the low 15 bits), and each lane stores its 8
-//    codes as one 8-byte vector, so a warp stores whole rows;
+//  * a row of D bf16 is D / 8 lanes, one 16-byte load each (a warp at
+//    D = 256, a half-warp at 128, a quarter at 64, an eighth at 32); its
+//    absmax is a shuffle reduction inside that lane group (on the bf16
+//    bits: the magnitudes order as the low 15 bits), and each lane stores
+//    its 8 codes as one 8-byte vector, so a warp stores whole rows;
 //  * a warp takes a chunk of kU * 32 / (D / 8) consecutive tokens of one
 //    (K or V, head) and issues all kU loads of each lane before any
 //    reduction; consecutive tokens of a sequence are consecutive rows of
@@ -345,7 +345,7 @@ int ti_cache_write_fresh(const void* k_new, const void* v_new, void* k_cache,
 // page pool, contiguous and 16-byte aligned, viewed as [rows, D];
 // k_scale, v_scale: f32 [rows] planes for int8 (fp8 = 0), null for fp8;
 // rows: int64 [N] on the device, the head-0 row of token n at layer 0,
-// < 0 to skip it. D in {32, 64, 128}. Returns kMisaligned, launching
+// < 0 to skip it. D in {32, 64, 128, 256}. Returns kMisaligned, launching
 // nothing, when a pointer or stride breaks the 16-byte alignment (the
 // check costs the caller nothing on the host).
 int ti_kv_encode_write(const void* k_new, const void* v_new, void* k_cache,
@@ -370,6 +370,8 @@ int ti_kv_encode_write(const void* k_new, const void* v_new, void* k_cache,
       return launch_encode<64>(fp8, k_new, v_new, k_cache, v_cache, k_scale, v_scale, r, N, Hkv, layer_off, head_stride, strides, st);
     case 128:
       return launch_encode<128>(fp8, k_new, v_new, k_cache, v_cache, k_scale, v_scale, r, N, Hkv, layer_off, head_stride, strides, st);
+    case 256:
+      return launch_encode<256>(fp8, k_new, v_new, k_cache, v_cache, k_scale, v_scale, r, N, Hkv, layer_off, head_stride, strides, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -169,10 +169,11 @@ __device__ __forceinline__ void merge_slices(
     ww[k * kWtsRow + lane + 32] = ec * inv;
   }
   __syncwarp();
-  // unit u = lane + 32 i: head k = u / (D / 4), outputs 4 (u % (D / 4))
+  // unit u = lane + 32 i: head k = u / (D / 4), outputs 4 (u % (D / 4));
+  // kHpw heads of at most 256 outputs are 4 units a lane
   const int units = D / 4;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int i = 0; i < kHpw * 256 / 4 / 32; ++i) {
     const int u = lane + 32 * i, k = u / units, d = (u % units) * 4;
     const int h = warp + k * kWarps;
     if (k >= kHpw || h >= gh) break;
@@ -257,7 +258,9 @@ decode_row_kernel(const KV* __restrict__ kc, const KV* __restrict__ vc,
   if (!slice_of(p.kv_len, b, s, p.T, p.window, p.R, p.S, sl)) return;
   const long long cbase = b * p.csb + hk * p.csh;
   const int c = tid % kLpr, rg = tid / kLpr;
-  float M = ti::kNegInf, Lsum = 0.f, O = 0.f;   // the slice's, d = tid
+  // the slice's running max, sum and outputs d = tid + kThreads j
+  constexpr int kOut = (D + kThreads - 1) / kThreads;
+  float M = ti::kNegInf, Lsum = 0.f, O[kOut] = {};
   do {
     __syncthreads();   // the last sub-slice's rows are read
     load_slice<KV, D>(kc, vc, p.ks, p.vs, cbase, sl, p.R, sK, sV, sKs, sVs,
@@ -326,17 +329,22 @@ decode_row_kernel(const KV* __restrict__ kc, const KV* __restrict__ vc,
       rv[e / 4] = make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
     __syncthreads();
     if (tid < D) {
-      float o = 0.f;
-#pragma unroll
-      for (int r = 0; r < kGroups; ++r) o += red[r * D + tid];
       const float2 f = fold(M, Lsum, ml[0], ml[1]);
-      O = f.x * O + f.y * o;
+#pragma unroll
+      for (int j = 0; j < kOut; ++j) {
+        float o = 0.f;
+#pragma unroll
+        for (int r = 0; r < kGroups; ++r) o += red[r * D + tid + kThreads * j];
+        O[j] = f.x * O[j] + f.y * o;
+      }
     }
   } while (sl.next(p.R));
   const long long row = (long long)b * p.Hq + hk;
   if (tid < D)
-    emit(O, M, Lsum, row, tid, D, s, sl, p.nslices, p.Hq, p.sinks, p.po,
-         p.pml, p.out);
+#pragma unroll
+    for (int j = 0; j < kOut; ++j)
+      emit(O[j], M, Lsum, row, tid + kThreads * j, D, s, sl, p.nslices, p.Hq,
+           p.sinks, p.po, p.pml, p.out);
   if (sl.nlive == 1 ||
       !ti::last_to_arrive(p.counters + (long long)b * p.Hkv + hk, sl.nlive,
                           flag))
@@ -588,6 +596,8 @@ int launch_kv(const void* kc, const void* vc, const Params& p, int B, int D,
       return launch_d<KV, 64>(kc, vc, p, B, stream);
     case 128:
       return launch_d<KV, 128>(kc, vc, p, B, stream);
+    case 256:
+      return launch_d<KV, 256>(kc, vc, p, B, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -596,20 +606,22 @@ int launch_kv(const void* kc, const void* vc, const Params& p, int B, int D,
 // The slice plan: a block's slice is S sub-slices of R rows, counted
 // from lo, and the grid holds nslices slices, enough for the live rows
 // [lo, kv_len) of a (b, kv head), at most min(window, T) of them. A GQA
-// group (the tensor-core kernel) reads 128 rows a sub-slice, a lone head
-// (the CUDA-core kernel) 64, as measured on the H100. A slice is one
-// sub-slice up to kMaxSlices of them a kv head; past that (long
-// contexts) each block loops over S sub-slices, so the last block's
-// merge never weighs more than kMaxSlices partials. Blocks past kv_len
+// group (the tensor-core kernel) reads 128 rows a sub-slice (64 at D =
+// 256, so a block's shared memory stays that of D = 128: two bf16 K/V
+// tiles of 32 KB each), a lone head (the CUDA-core kernel) 64, as
+// measured on the H100. A slice is one sub-slice up to kMaxSlices of
+// them a kv head; past that (long contexts) each block loops over S
+// sub-slices, so the last block's merge never weighs more than
+// kMaxSlices partials. Blocks past kv_len
 // exit at once.
 
 struct Plan {
   int rows, S, nslices;
 };
 
-Plan plan_of(int Hq, int Hkv, int T, int window) {
+Plan plan_of(int Hq, int Hkv, int T, int D, int window) {
   const int span = window > 0 && window < T ? window : T;
-  const int rows = Hq > Hkv ? 128 : 64;
+  const int rows = Hq > Hkv && D <= 128 ? 128 : 64;
   const int sub = (span + rows - 1) / rows;
   const int S = (sub + kMaxSlices - 1) / kMaxSlices;
   return {rows, S, (sub + S - 1) / S};
@@ -624,7 +636,7 @@ extern "C" {
 // every live row (nothing to merge).
 long long ti_decode_workspace(int B, int Hq, int Hkv, int T, int D,
                               int window) {
-  const Plan pl = plan_of(Hq, Hkv, T, window);
+  const Plan pl = plan_of(Hq, Hkv, T, D, window);
   return pl.nslices > 1 ? (long long)B * Hq * pl.nslices * (D + 2) : 0;
 }
 
@@ -637,8 +649,9 @@ long long ti_decode_workspace(int B, int Hq, int Hkv, int T, int D,
 // sinks: f32 [Hq] on the device, or null; window: rows before kv_len -
 // window are masked, 0 for none; work: ti_decode_workspace(B, Hq, Hkv,
 // T, D, window) f32 elements; counters: B * Hkv int32 zeros, left
-// zeros. strides = {qsb, qsh, csb, csh}. D in {32, 64, 128}; Hq / Hkv
-// <= 8. softcap: scores s become softcap * tanh(s / softcap), 0 for none.
+// zeros. strides = {qsb, qsh, csb, csh}. D in {32, 64, 128, 256};
+// Hq / Hkv <= 8. softcap: scores s become softcap * tanh(s / softcap), 0
+// for none.
 int ti_decode_attention(const void* q, const void* k_cache,
                         const void* v_cache, const void* k_scale,
                         const void* v_scale, void* out, void* work,
@@ -651,7 +664,7 @@ int ti_decode_attention(const void* q, const void* k_cache,
       kv_dtype < 0 || kv_dtype > 2 ||
       (kv_dtype == 1) != (k_scale != nullptr && v_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Plan pl = plan_of(Hq, Hkv, T, window);
+  const Plan pl = plan_of(Hq, Hkv, T, D, window);
   Params p{static_cast<const __nv_bfloat16*>(q),
            static_cast<const float*>(k_scale),
            static_cast<const float*>(v_scale),

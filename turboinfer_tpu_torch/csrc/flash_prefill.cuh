@@ -41,22 +41,23 @@
 //    adjacent at each position: one TMA box of (D, G heads, P positions)
 //    is the warpgroup's Q tile, rows 64 - G*P.. zeroed once. The masks
 //    use the row's position.
-//  * TMA and mbarriers. Q is copied once; K and V (128-key tiles) go
-//    through a ring of up to 3 stages. A box row is 128 bytes with the
-//    128-byte swizzle (D = 64, 128: a D = 128 row takes two boxes) or 64
-//    bytes with the 64-byte swizzle (D = 32). TMA fills rows past T (and
-//    query positions past S) with zeros; the kv_len mask covers the rest.
+//  * TMA and mbarriers. Q is copied once; K and V (128-key tiles, 64 at
+//    D = 256) go through a ring of up to 3 stages (2 at D = 256, 1 for
+//    its 8-bit codes). A box row is 128 bytes with the 128-byte swizzle
+//    (D = 64, 128, 256: a row takes D / 64 boxes) or 64 bytes with the
+//    64-byte swizzle (D = 32). TMA fills rows past T (and query
+//    positions past S) with zeros; the kv_len mask covers the rest.
 //    The fresh view's T stride (Hkv*D) exceeds its head stride, so its map
 //    lists the head dimension first (kv_swap).
 //  * wgmma, accumulators in registers. S = Q K^T is the SS form (Q and K
-//    K-major in shared memory, m64 n128 k16). The online softmax runs on
-//    S's registers (a row lives in one quad: two shuffles for its max;
-//    the row sum stays per thread until the epilogue), in base 2 (the
-//    softmax scale folded with log2 e). P is packed to bf16 in registers
-//    and is P V's A (the RS form); V is B in its natural [keys, D] layout
-//    through wgmma's transpose bit (MN-major: 8-key core groups one
-//    box row apart, D-halves one box apart). O never leaves registers
-//    until the epilogue.
+//    K-major in shared memory, m64 n128 k16; n64 at D = 256). The online
+//    softmax runs on S's registers (a row lives in one quad: two shuffles
+//    for its max; the row sum stays per thread until the epilogue), in
+//    base 2 (the softmax scale folded with log2 e). P is packed to bf16
+//    in registers and is P V's A (the RS form); V is B in its natural
+//    [keys, D] layout through wgmma's transpose bit (MN-major: 8-key core
+//    groups one box row apart, 64-column boxes one box apart; D = 256 as
+//    two n128 halves). O never leaves registers until the epilogue.
 //  * 8-bit K/V. TMA brings the raw codes (a ring of stages); all 256
 //    threads decode a tile into one of two bf16 tiles in the swizzled
 //    layout wgmma reads, with the int8 scale rows beside it (0 past
@@ -65,7 +66,8 @@
 //  * Stages of bf16 K/V are refilled by the last of the 8 warps done with
 //    them (a shared counter), so no warp waits for another and no
 //    producer warp is needed: a third warpgroup would cap every thread at
-//    168 registers, and S (64), O (up to 64) and P (32) need more.
+//    168 registers, and S (64), O (up to 64) and P (32) need more (at
+//    D = 256, O's 128 beside S's 32 and P's 16: the 64-key tile).
 //  * Masks and scheduling: only tiles that cross a row's diagonal, its
 //    window's start or kv_len pay for the mask; tiles past the block's
 //    last visible key, and with a window the tiles before the one that
@@ -100,7 +102,6 @@ namespace flash {
 
 using namespace ti::hw;
 
-constexpr int kBN = 128;               // keys a tile
 constexpr int kRows = 64;              // query rows a warpgroup (wgmma's M)
 constexpr int kWG = 2;                 // consumer warpgroups a block
 constexpr int kThreads = kWG * 128;
@@ -115,6 +116,10 @@ constexpr int cmin(int a, int b) { return a < b ? a : b; }
 // scales, the ring of TMA stages, then the mbarriers and counters.
 template <int D, typename KV>
 struct Layout {
+  // keys a tile: 128, or 64 at D = 256 (a 128-key tile would leave one
+  // bf16 stage beside the Q tiles, no room for the 8-bit K/V pairs, and
+  // S's 64 registers a thread beside O's 128)
+  static constexpr int kBN = D > 128 ? 64 : 128;
   static constexpr bool k8 = sizeof(KV) == 1;
   static constexpr int kSw = D == 32 ? 64 : 128;     // bytes a box row
   static constexpr int kSwizzle = kSw == 128 ? 1 : 2; // wgmma layout type
@@ -159,15 +164,36 @@ __device__ __forceinline__ int swz(int r, int ch) {
   return r * kSw + ((ch ^ (kSw == 128 ? (r & 7) : ((r >> 1) & 3))) << 4);
 }
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
-                                         uint64_t desc) {
-  if constexpr (D == 32)
-    wgmma_rs_n32_t(o, a, desc);
-  else if constexpr (D == 64)
-    wgmma_rs_n64_t(o, a, desc);
+// S[64 rows][kBN keys] (+)= Q K^T over 16 of D, both K-major.
+template <int kBN>
+__device__ __forceinline__ void wgmma_qk(float* s, uint64_t dq, uint64_t dk,
+                                         int acc) {
+  if constexpr (kBN == 64)
+    wgmma_ss_n64(s, dq, dk, acc);
   else
-    wgmma_rs_n128_t(o, a, desc);
+    wgmma_ss_n128(s, dq, dk, acc);
+}
+
+// O[64 rows][D] += P V over 16 keys, V MN-major at shared address v
+// (8-key core groups one box row apart, 64-column boxes kBN rows apart).
+// D = 256 is two n128 halves, the second two boxes on.
+template <int D, typename L>
+__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
+                                         uint32_t v) {
+  auto desc = [](uint32_t addr) {
+    return wgmma_desc(addr, L::kBN * L::kSw, 8 * L::kSw, L::kSwizzle);
+  };
+  if constexpr (D == 32) {
+    wgmma_rs_n32_t(o, a, desc(v));
+  } else if constexpr (D == 64) {
+    wgmma_rs_n64_t(o, a, desc(v));
+  } else if constexpr (D == 128) {
+    wgmma_rs_n128_t(o, a, desc(v));
+  } else {
+    static_assert(D == 256, "head dims 32, 64, 128, 256");
+    wgmma_rs_n128_t(o, a, desc(v));
+    wgmma_rs_n128_t(o + 64, a, desc(v + 2 * L::kBN * L::kSw));
+  }
 }
 
 // Four 8-bit codes (one word, code 0 in the low byte) -> two bf16x2
@@ -211,6 +237,7 @@ template <int D, typename KV>
 __device__ __forceinline__ void decode_stage(const uint8_t* raw,
                                              uint8_t* dst) {
   using L = Layout<D, KV>;
+  constexpr int kBN = L::kBN;
   constexpr int kC = D / 16;   // 16-code chunks a row
   for (int i = threadIdx.x; i < 2 * kBN * kC; i += kThreads) {
     const int row = i / kC, c16 = i - row * kC;
@@ -239,6 +266,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tmq,
                      const __grid_constant__ CUtensorMap tmo,
                      const Params p) {
   using L = Layout<D, KV>;
+  constexpr int kBN = L::kBN;
   constexpr bool kScaled = std::is_same<KV, int8_t>::value;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -374,14 +402,14 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tmq,
     }
     const uint32_t vs = ks + L::kTile;
 
-    // S[64 rows][128 keys] = Q K^T
+    // S[64 rows][kBN keys] = Q K^T
     float sc[kBN / 2];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const int bx = kk * 16 / L::kBoxCols;
       const int off = (kk * 16 - bx * L::kBoxCols) * 2;
-      wgmma_ss_n128(sc,
+      wgmma_qk<kBN>(sc,
                     wgmma_desc(qs + bx * kRows * L::kSw + off, 16,
                                8 * L::kSw, L::kSwizzle),
                     wgmma_desc(ks + bx * kBN * L::kSw + off, 16, 8 * L::kSw,
@@ -463,9 +491,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tmq,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk)
-      wgmma_pv<D>(o, pf[kk],
-                  wgmma_desc(vs + kk * 16 * L::kSw, kBN * L::kSw, 8 * L::kSw,
-                             L::kSwizzle));
+      wgmma_pv<D, L>(o, pf[kk], vs + kk * 16 * L::kSw);
     wgmma_commit();
     wgmma_wait<0>();
 
@@ -592,8 +618,8 @@ int launch(const Call& c) {
   const long long es = sizeof(KV);
   const long long kd[4] = {D, p.kv_swap ? c.Hkv : c.T,
                            p.kv_swap ? c.T : c.Hkv, c.B};
-  const int kbox[4] = {L::k8 ? D : L::kBoxCols, p.kv_swap ? 1 : kBN,
-                       p.kv_swap ? kBN : 1, 1};
+  const int kbox[4] = {L::k8 ? D : L::kBoxCols, p.kv_swap ? 1 : L::kBN,
+                       p.kv_swap ? L::kBN : 1, 1};
   const CUtensorMapDataType kt = L::k8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const CUtensorMapSwizzle ksw = L::k8 ? CU_TENSOR_MAP_SWIZZLE_NONE : sw;
@@ -622,6 +648,8 @@ int run_d(const Call& c) {
       return launch<64, KV, kCap>(c);
     case 128:
       return launch<128, KV, kCap>(c);
+    case 256:
+      return launch<256, KV, kCap>(c);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -18,11 +18,12 @@ namespace {
 
 using ti::paged::kMaxSlices;
 using ti::paged::kRowRows;
-using ti::paged::kTcRows;
+using ti::paged::tc_rows;
 
-// The slice plan, from the pool's capacity cap = max_pages * page and the
-// rows R alone (never from kv_len): a block's slice is S sub-slices of
-// `rows` keys (128 on the tensor cores, 64 for R = 1), and the grid holds
+// The slice plan, from the pool's capacity cap = max_pages * page, the
+// rows R and D alone (never from kv_len): a block's slice is S sub-slices
+// of `rows` keys (128 on the tensor cores, 64 there at D = 256 and for
+// R = 1), and the grid holds
 // nslices slices a kv head, one sub-slice each up to kMaxSlices of them;
 // past that each block reads S sub-slices in turn, so the last block's
 // merge never weighs more than kMaxSlices partials.
@@ -30,8 +31,8 @@ struct Plan {
   int rows, S, nslices;
 };
 
-Plan plan_of(int R, int cap) {
-  const int rows = R > 1 ? kTcRows : kRowRows;
+Plan plan_of(int R, int cap, int D) {
+  const int rows = R > 1 ? tc_rows(D) : kRowRows;
   const int sub = (cap + rows - 1) / rows;
   const int S = (sub + kMaxSlices - 1) / kMaxSlices;
   return {rows, S, (sub + S - 1) / S};
@@ -45,7 +46,7 @@ extern "C" {
 // unnormalised outputs plus the slice's max and sum; 0 when one slice
 // covers the capacity cap = max_pages * page (nothing to merge).
 long long ti_paged_workspace(int B, int Hkv, int R, int cap, int D) {
-  const Plan pl = plan_of(R, cap);
+  const Plan pl = plan_of(R, cap, D);
   return pl.nslices > 1 ? (long long)B * Hkv * R * pl.nslices * (D + 2) : 0;
 }
 
@@ -58,7 +59,10 @@ long long ti_paged_workspace(int B, int Hkv, int R, int cap, int D) {
 // [B, Hkv, R, D] contiguous; table: int32 [B, max_pages]; kv_len: int32
 // [B] (the G chunk tokens included); work: ti_paged_workspace(...) f32
 // elements; counters: B * Hkv int32 zeros, left zeros. D in {32, 64,
-// 128}; R <= 128; page a multiple of 8 up to 256. window: query g sees
+// 128, 256}; R <= 128 (at D = 256, over a pool of more than 64 sub-slices
+// of 64 keys, R <= 96 for bf16 and R <= 64 for 8-bit pools: the chunks'
+// kept outputs outgrow shared memory past that, and the call is
+// refused); page a multiple of 8 up to 256. window: query g sees
 // keys col > its position - window, 0 for none; softcap: scores s become
 // softcap * tanh(s / softcap), 0 for none.
 int ti_paged_attention(const void* q, const void* k_pages,
@@ -76,7 +80,7 @@ int ti_paged_attention(const void* q, const void* k_pages,
       (kv_dtype == 1) != (k_scale != nullptr && v_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int cap = max_pages * page;
-  const Plan pl = plan_of(R, cap);
+  const Plan pl = plan_of(R, cap, D);
   ti::paged::Params p{
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const float*>(k_scale),

@@ -33,7 +33,8 @@
 // decode_attention.cu's, read through the block table:
 //  * One launch. A block owns one (b, kv head, slice of keys) and every
 //    query row of that kv head: R = G * gh rows, up to 16 * 8 = 128. A
-//    slice is one sub-slice of 128 keys (64 for R = 1), or, past 64
+//    slice is one sub-slice of 128 keys (64 for R = 1 or D = 256), or,
+//    past 64
 //    slices a kv head, S sub-slices the block reads in turn, folding
 //    each into a running max, sum and output. plan_of picks the slices
 //    from the pool's capacity and the shapes alone (the wrapper sizes the
@@ -96,12 +97,15 @@ using namespace ti::attn;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTcRows = 128;            // keys a sub-slice, R >= 2
 constexpr int kRowRows = 64;            // keys a sub-slice, R = 1
 constexpr int kMaxSlices = 64;          // slices a kv head (two a lane)
 constexpr int kWtsRow = kMaxSlices + 1;  // a row's merge weights (+1: banks)
 constexpr int kSmemMax = 227 * 1024;
-static_assert(kTcRows == kThreads, "a thread looks up one key row");
+
+// Keys a sub-slice for R >= 2: 128, 64 at D = 256 (so the bf16 K and V
+// tiles stay 32 KB each, as at D = 128).
+constexpr int tc_rows(int D) { return D > 128 ? 64 : 128; }
+static_assert(tc_rows(32) <= kThreads, "a thread looks up one key row");
 
 struct Params {
   const __nv_bfloat16* q;   // [B, Hkv, R, D], strides {qsb, qsh, qsr}
@@ -299,7 +303,9 @@ paged_row_kernel(const KV* __restrict__ kp, const KV* __restrict__ vp,
   // a window's slices start at kv_len - window: its rows looked up again
   if (kMask && p.window && tid < kR) prow = pool_row(p, b, hk, sl.t0 + tid);
   const int c = tid % kLpr, rg = tid / kLpr;
-  float M = ti::kNegInf, Lsum = 0.f, O = 0.f;   // the slice's, d = tid
+  // the slice's running max, sum and outputs d = tid + kThreads j
+  constexpr int kOut = (D + kThreads - 1) / kThreads;
+  float M = ti::kNegInf, Lsum = 0.f, O[kOut] = {};
   do {
     __syncthreads();   // the last sub-slice's rows and row ids are read
     if (tid < kR) srow[tid] = prow;
@@ -373,15 +379,21 @@ paged_row_kernel(const KV* __restrict__ kp, const KV* __restrict__ vp,
       rv[e / 4] = make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
     __syncthreads();
     if (tid < D) {
-      float o = 0.f;
-#pragma unroll
-      for (int r = 0; r < kGroups; ++r) o += red[r * D + tid];
       const float2 f = fold(M, Lsum, ml[0], ml[1]);
-      O = f.x * O + f.y * o;
+#pragma unroll
+      for (int j = 0; j < kOut; ++j) {
+        float o = 0.f;
+#pragma unroll
+        for (int r = 0; r < kGroups; ++r) o += red[r * D + tid + kThreads * j];
+        O[j] = f.x * O[j] + f.y * o;
+      }
     }
   } while (sl.next(kR));
   const long long row = (long long)b * p.Hkv + hk;   // R = 1
-  if (tid < D) emit(p, O, M, Lsum, row, tid, D, s, sl.nlive);
+  if (tid < D)
+#pragma unroll
+    for (int j = 0; j < kOut; ++j)
+      emit(p, O[j], M, Lsum, row, tid + kThreads * j, D, s, sl.nlive);
   int* counter = p.counters + (long long)b * p.Hkv + hk;
   if (sl.nlive == 1 || !ti::last_to_arrive(counter, sl.nlive, flag)) return;
   merge_rows<D>(p, counter, reinterpret_cast<float*>(smem), row, sl.nlive);
@@ -401,9 +413,10 @@ paged_row_kernel(const KV* __restrict__ kp, const KV* __restrict__ vp,
 template <typename KV, int D, int NT>
 struct TcLayout {
   static constexpr bool k8 = sizeof(KV) == 1;
+  static constexpr int kR = tc_rows(D);
   static constexpr int kRc = 8 * NT;
-  static constexpr int kTile = kTcRows * D;   // elements of a K or V tile
-  static constexpr int kP = kRc * (kTcRows + 8) * 2;   // probability bytes
+  static constexpr int kTile = kR * D;   // elements of a K or V tile
+  static constexpr int kP = kRc * (kR + 8) * 2;   // probability bytes
   static constexpr bool kPinK = kP <= (k8 ? kTile : 2 * kTile);
   static_assert(2 * kTile >= kMergeBytes, "the merge weights fit the dead rows");
   int kb, vb, q, ks, srow, sp, red, save, flag, total;
@@ -412,10 +425,10 @@ struct TcLayout {
     vb = k8 && nch == 1 ? kb : kb + 2 * kTile;
     q = vb + 2 * kTile;
     ks = q + nch * kRc * D * 2;
-    srow = ks + 8 * kTcRows;
+    srow = ks + 8 * kR;
     const bool in_k = nch == 1 && kPinK;
-    sp = in_k ? 0 : srow + 4 * kTcRows;
-    red = srow + 4 * kTcRows + (in_k ? 0 : kP);
+    sp = in_k ? 0 : srow + 4 * kR;
+    red = srow + 4 * kR + (in_k ? 0 : kP);
     save = red + 2 * kWarps * kRc * 4;
     flag = save + (keep ? nch * kRc * (D + 2) * 4 : 0);
     total = flag + 16;
@@ -427,7 +440,7 @@ __global__ void __launch_bounds__(kThreads)
 paged_tc_kernel(const KV* __restrict__ kp, const KV* __restrict__ vp,
                 Params p) {
   using L = TcLayout<KV, D, NT>;
-  constexpr int kR = kTcRows, kRc = L::kRc, kDs = D / 16;
+  constexpr int kR = L::kR, kRc = L::kRc, kDs = D / 16;
   constexpr int kDt = (D / 16 + kWarps - 1) / kWarps;   // d tiles a warp
   extern __shared__ __align__(16) unsigned char smem[];
   const int nch = (p.R + kRc - 1) / kRc;
@@ -451,14 +464,15 @@ paged_tc_kernel(const KV* __restrict__ kp, const KV* __restrict__ vp,
   const int s = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gi = lane >> 2, q4 = lane & 3;
-  int prow = pool_row(p, b, hk, s * kR * p.S + tid);   // beside kv_len's load
+  // this thread's key row (tid < kR), beside kv_len's load
+  int prow = tid < kR ? pool_row(p, b, hk, s * kR * p.S + tid) : 0;
   Slice sl;
   if (!slice_of(p.kv_len, b, s, p.cap,
                 kMask && p.window ? p.window + p.G - 1 : 0, kR, p.S, sl))
     return;
   // a window's slices start at the earliest query's first visible key:
   // its rows looked up again
-  if (kMask && p.window) prow = pool_row(p, b, hk, sl.t0 + tid);
+  if (kMask && p.window && tid < kR) prow = pool_row(p, b, hk, sl.t0 + tid);
   const int q0 = max(1, min(p.kv_len[b], p.cap)) - p.G;   // token 0's position
   // keys a row sees before its own (window - 1; with none, all), and the
   // latest query's first visible key
@@ -482,7 +496,7 @@ paged_tc_kernel(const KV* __restrict__ kp, const KV* __restrict__ vp,
   bool first = true;
   do {
     __syncthreads();   // the last sub-slice's rows and row ids are read
-    srow[tid] = prow;
+    if (tid < kR) srow[tid] = prow;
     __syncthreads();
     if constexpr (L::k8)
       load_rows<KV, D>(kp, vp, p.ks, p.vs, srow, sl.n, kR, sK, sV, sKs, sVs,
@@ -492,7 +506,7 @@ paged_tc_kernel(const KV* __restrict__ kp, const KV* __restrict__ vp,
                        reinterpret_cast<unsigned char*>(kb),
                        reinterpret_cast<unsigned char*>(vb), sKs, sVs,
                        [](int t, int c) { return swz<D>(t, c); });
-    if (sl.t0 + kR < sl.end)   // the next sub-slice's rows, in flight
+    if (tid < kR && sl.t0 + kR < sl.end)   // the next sub-slice's rows
       prow = pool_row(p, b, hk, sl.t0 + kR + tid);
     ti::async_wait<1>();
     __syncthreads();
@@ -819,6 +833,8 @@ int launch_kv(const void* kp, const void* vp, const Params& p, int B, int D,
       return launch_d<KV, 64>(kp, vp, p, B, stream);
     case 128:
       return launch_d<KV, 128>(kp, vp, p, B, stream);
+    case 256:
+      return launch_d<KV, 256>(kp, vp, p, B, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
