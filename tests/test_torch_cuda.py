@@ -243,7 +243,8 @@ def test_cuda_qmm_refuses_mismatched_weights():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D,Hq,Hkv", [(32, 4, 4), (64, 8, 2), (128, 2, 1),
-                                      (128, 32, 8), (256, 2, 1), (256, 16, 8)])
+                                      (128, 32, 8), (256, 2, 1), (256, 16, 8),
+                                      (96, 32, 32), (96, 32, 8)])
 def test_cuda_attention_kernels_match_plain(D, Hq, Hkv):
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(D)
@@ -316,7 +317,7 @@ def test_cuda_decode_refuses_sinks_not_f32():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D,Hq,Hkv", [(32, 4, 4), (64, 8, 2), (128, 2, 1),
-                                      (256, 4, 2)])
+                                      (256, 4, 2), (96, 32, 32)])
 def test_cuda_flash_prefill_stacked_chunk_matches_plain(D, Hq, Hkv):
     """A chunked-prefill read: layer li of the stacked [L, B, Hkv, T, D]
     cache, queries at q_start > 0, keys masked at kv_len < T."""
@@ -347,7 +348,10 @@ def test_cuda_flash_prefill_stacked_chunk_matches_plain(D, Hq, Hkv):
                                              (64, 16, 2, 8, 16),
                                              (256, 16, 8, 256, 1),
                                              (256, 16, 8, 256, 5),
-                                             (256, 16, 16, 16, 5)])
+                                             (256, 16, 16, 16, 5),
+                                             (96, 32, 32, 256, 1),
+                                             (96, 32, 32, 256, 5),
+                                             (96, 32, 8, 16, 5)])
 def test_cuda_paged_attention_matches_plain(D, Hq, Hkv, page, G):
     """Layer 1 of a stacked pool through a shuffled table with shared
     pages and -1 past each row's need; rows whose query sees no key
@@ -416,7 +420,10 @@ def _compressed(gen, shape, kind):
                                           (32, 4, "prefill"),
                                           (256, 8, "decode"),
                                           (256, 8, "prefill"),
-                                          (256, 8, "paged")])
+                                          (256, 8, "paged"),
+                                          (96, 32, "decode"),
+                                          (96, 32, "prefill"),
+                                          (96, 8, "paged")])
 def test_cuda_kv_encode_write_is_byte_exact(kind, D, Hkv, layout):
     """The encode-and-write kernel against encode_kv_scaled plus an
     indexed assignment, byte for byte, at the three addressings: a
@@ -514,13 +521,15 @@ def _encode_rows_both_ways(x, kind, Hkv=2):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
 def test_cuda_kv_encode_write_fp8_every_bf16_pattern(D):
     """All 65536 bf16 bit patterns (subnormals, +-448..464 and past it,
     inf and NaN of both signs) through the hardware e4m3 conversion and
-    the NaN-code mask, byte for byte with the plain encode."""
+    the NaN-code mask, byte for byte with the plain encode (zeros pad the
+    last rows where 2 D does not divide 65536)."""
     _need_cuda()
     bits = torch.arange(-32768, 32768, dtype=torch.int16)
+    bits = torch.cat([bits, bits.new_zeros((-len(bits)) % (2 * D))])
     x = bits.view(torch.bfloat16).reshape(-1, D).cuda()
     got, want = _encode_rows_both_ways(x, "fp8")
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -529,7 +538,7 @@ def test_cuda_kv_encode_write_fp8_every_bf16_pattern(D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
 def test_cuda_kv_encode_write_int8_tie_rows(D):
     """int8 rows built on rounding ties (_tie_rows): the codes, taken from
     x * (1 / scale) with a division only near a .5 tie, equal the plain
@@ -597,7 +606,9 @@ def test_cuda_kv_encode_write_refuses_misaligned_rows():
                                              (64, 16, 2, 100),
                                              (32, 4, 4, None),
                                              (256, 16, 8, None),
-                                             (256, 16, 16, 100)])
+                                             (256, 16, 16, 100),
+                                             (96, 32, 32, 2047),
+                                             (96, 32, 8, None)])
 def test_cuda_decode_compressed_matches_plain(kind, D, Hq, Hkv, window):
     """The decode kernel's int8 (scaled) and fp8 reads of layer 1 against
     decode_plain on the dequantized layer, kv_len across slices."""
@@ -618,7 +629,7 @@ def test_cuda_decode_compressed_matches_plain(kind, D, Hq, Hkv, window):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", list(KINDS))
 @pytest.mark.parametrize("D,Hq,Hkv", [(32, 4, 4), (64, 8, 2), (128, 32, 8),
-                                      (256, 16, 8)])
+                                      (256, 16, 8), (96, 32, 32)])
 def test_cuda_flash_prefill_stacked_compressed_matches_plain(kind, D, Hq, Hkv):
     """The stacked read of an int8 (scale planes of layer li) or fp8
     cache at q_start > 0 against prefill_plain on the dequantized layer."""
@@ -644,7 +655,7 @@ GQA_GROUPS = [(4, 4), (4, 2), (8, 2), (16, 2), (6, 2)]   # gh 1, 2, 4, 8, 3
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", [None, *KINDS], ids=["bf16", *KINDS])
-@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
 @pytest.mark.parametrize("Hq,Hkv", GQA_GROUPS)
 def test_cuda_flash_prefill_gqa_stacked_matches_plain(kind, D, Hq, Hkv):
     """The stacked read with a query head group packed into each tile's
@@ -680,7 +691,7 @@ def test_cuda_flash_prefill_gqa_stacked_matches_plain(kind, D, Hq, Hkv):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
 @pytest.mark.parametrize("Hq,Hkv", GQA_GROUPS)
 @pytest.mark.parametrize("B,S,fill", [(2, 80, [77, 80]), (1, 200, [200]),
                                       (1, 1024, [1000])],
@@ -743,7 +754,9 @@ def test_cuda_flash_prefill_wide_group(kind):
                                              (32, 4, 4, 8, 2),
                                              (256, 16, 8, 256, 1),
                                              (256, 16, 8, 256, 5),
-                                             (256, 16, 16, 16, 5)])
+                                             (256, 16, 16, 16, 5),
+                                             (96, 32, 32, 256, 1),
+                                             (96, 32, 32, 256, 5)])
 def test_cuda_paged_compressed_matches_plain(kind, D, Hq, Hkv, page, G):
     """Paged decode (G=1) and verify over int8 pages with scale pages
     (looked up through the same clamped table entry) and fp8 pages."""
@@ -987,7 +1000,7 @@ DECODE_GROUPS = [(4, 4), (4, 2), (8, 2), (16, 2), (6, 2)]
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", [None, *KINDS], ids=["bf16", *KINDS])
-@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
 @pytest.mark.parametrize("Hq,Hkv", DECODE_GROUPS)
 @pytest.mark.parametrize("B", [1, 16])
 def test_cuda_decode_slices_match_plain(kind, D, Hq, Hkv, B):
@@ -1029,7 +1042,7 @@ def test_cuda_decode_slices_match_plain(kind, D, Hq, Hkv, B):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", [None, "int8"], ids=["bf16", "int8"])
 @pytest.mark.parametrize("Hq,Hkv", [(16, 2), (2, 2)], ids=["gqa", "lone"])
-@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("D", [64, 96, 256])
 def test_cuda_decode_long_context_matches_plain(kind, Hq, Hkv, D):
     """T = 40000: 313 sub-slices of 128 rows (a GQA group; 625 of 64 at
     D = 256) or 625 of 64 (a lone head), past the 64 slices a kv head
@@ -1220,7 +1233,7 @@ def _paged_check(q, kp, vp, table, kv_len, li, ks, vs):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", [None, *KINDS], ids=["bf16", *KINDS])
 @pytest.mark.parametrize("G,Hq,Hkv", PAGED_ROWS, ids=PAGED_ROW_IDS)
-@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
 @pytest.mark.parametrize("page", [8, 16, 256])
 def test_cuda_paged_rows_match_plain(kind, G, Hq, Hkv, D, page):
     """Sub-slices of 128 (or 64) keys that cross 8- and 16-token pages,
@@ -1376,7 +1389,8 @@ def _qpos_rows(q_start, S, kv_len):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mask", list(WINDOW_CAPS))
 @pytest.mark.parametrize("D,Hq,Hkv", [(128, 32, 16), (64, 8, 2), (32, 4, 4),
-                                      (128, 8, 1), (256, 16, 8), (256, 8, 1)])
+                                      (128, 8, 1), (256, 16, 8), (256, 8, 1),
+                                      (96, 32, 32), (96, 8, 2)])
 def test_cuda_flash_prefill_fresh_window_softcap_matches_plain(mask, D, Hq,
                                                                Hkv):
     """The fresh read with a window and a softcap, S=1100 fill 1100 and
@@ -1412,7 +1426,7 @@ def test_cuda_flash_prefill_fresh_window_softcap_matches_plain(mask, D, Hq,
 @pytest.mark.parametrize("kind", [None, *KINDS], ids=["bf16", *KINDS])
 @pytest.mark.parametrize("mask", ["cap4", "w600_cap4", "w129", "w13"])
 @pytest.mark.parametrize("Hq,Hkv", [(32, 16), (6, 2)])
-@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("D", [96, 128, 256])
 def test_cuda_flash_prefill_stacked_window_softcap_matches_plain(kind, mask,
                                                                  Hq, Hkv, D):
     """The chunked read of layer 1 of a stacked cache (bf16, int8, fp8)
@@ -1444,7 +1458,7 @@ def test_cuda_flash_prefill_stacked_window_softcap_matches_plain(kind, mask,
 @pytest.mark.parametrize("kind", [None, *KINDS], ids=["bf16", *KINDS])
 @pytest.mark.parametrize("mask", list(WINDOW_CAPS))
 @pytest.mark.parametrize("Hq,Hkv", [(32, 16), (8, 1), (4, 4)])
-@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("D", [96, 128, 256])
 def test_cuda_decode_window_softcap_matches_plain(kind, mask, Hq, Hkv, D):
     """Decode over bf16, int8 and fp8 caches (T=8192) with a softcap on
     the tensor-core GQA kernel (gh 2 and 8) and the lone-head kernel, on
@@ -1479,7 +1493,7 @@ def test_cuda_decode_window_softcap_matches_plain(kind, mask, Hq, Hkv, D):
                                            (16, 16, 2, 8)],
                          ids=["G1-gh2", "G5-gh2", "G1-gh1", "G5-gh8",
                               "G16-gh8"])
-@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("D", [96, 128, 256])
 def test_cuda_paged_window_softcap_matches_plain(kind, mask, G, Hq, Hkv,
                                                  page, D):
     """Paged decode (G=1) and verify (G=5, 16) over bf16, int8 and fp8
@@ -1551,12 +1565,53 @@ def test_cuda_attention_refuses_head_dim_256():
 
 
 @pytest.mark.cuda
-def test_cuda_head_dim_96_is_refused():
-    """D=96 (Phi-3) has no kernel instance: each wrapper raises on the
-    card, and nothing runs the plain form instead."""
+def test_cuda_attention_launches_at_head_dim_96():
+    """D=96 (Phi-3) was refused on the card until its kernel instances
+    were ported: each wrapper now launches its kernel, a window included
+    and the encode-and-write beside them, as the launch counters show."""
+    _need_cuda()
+    D = 96
+    q = torch.zeros((1, 8, 4, D), dtype=torch.bfloat16, device="cuda")
+    kv = torch.zeros((1, 2, 8, D), dtype=torch.bfloat16, device="cuda")
+    kt = kv.transpose(1, 2)                    # [B, S, Hkv, D]
+    lens = torch.tensor([8], dtype=torch.int32, device="cuda")
+    cache = torch.zeros((1, 1, 2, 16, D), dtype=torch.bfloat16, device="cuda")
+    codes = torch.zeros((1, 1, 2, 16, D), dtype=torch.uint8, device="cuda")
+    table = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    calls = [
+        (flash_attention.flash_prefill,
+         lambda: flash_attention.flash_prefill(q, kv, kv, lens, lens * 0,
+                                               window=4)),
+        (decode_attention.decode_attention,
+         lambda: decode_attention.decode_attention(q[:, 0], cache, cache,
+                                                   lens, 0, window=4)),
+        (paged_attention.paged_attention,
+         lambda: paged_attention.paged_attention(q[:, :1], cache[:, :1],
+                                                 cache[:, :1], table, lens, 0,
+                                                 window=4)),
+        (cache_write.cache_write_fresh,
+         lambda: cache_write.cache_write_fresh(cache, cache.clone(), kt, kt,
+                                               0)),
+        (cache_write.kv_encode_write,
+         lambda: cache_write.kv_encode_write(
+             kt[0], kt[0], codes, codes.clone(), None, None,
+             torch.arange(8, device="cuda"), 0, 16))]
+    for wrapper, call in calls:
+        before = wrapper.launches
+        out = call()
+        assert out is None or torch.isfinite(out.float()).all()
+        assert wrapper.launches == before + 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [80, 160])
+def test_cuda_head_dim_80_is_refused(D):
+    """A head dim with no kernel instance (80: Phi-2, 160) raises on the
+    card in each wrapper that takes D, and nothing runs the plain form
+    instead: no launch counter moves."""
     _need_cuda()
     from turboinfer_tpu_torch.utils.errors import KernelError
-    D = 96
     q = torch.zeros((1, 8, 4, D), dtype=torch.bfloat16, device="cuda")
     kv = torch.zeros((1, 2, 8, D), dtype=torch.bfloat16, device="cuda")
     lens = torch.tensor([8], dtype=torch.int32, device="cuda")

@@ -260,3 +260,21 @@ def gemma3_12b_config(**kw) -> ModelConfig:
                 architecture="gemma3", name="google/gemma-3-12b-pt")
     base.update(kw)
     return ModelConfig(**base)
+
+
+def phi3_mini_4k_config(**kw) -> ModelConfig:
+    """microsoft/Phi-3-mini-4k-instruct's published config.json as the JAX
+    package's loader maps it (loader/mapping.py, the HF branch): 32
+    layers, hidden 3072, 32 query and 32 kv heads of 96, FFN 8192 (SiLU),
+    vocab 32064, 4096 positions, rope_theta 1e4 without rope_scaling, a
+    2047-key window on every layer, rms_norm_eps 1e-5 and untied
+    embeddings. The checkpoint's fused qkv_proj / gate_up_proj are the
+    loader's concern; the model body is the llama one."""
+    base = dict(vocab_size=32064, hidden_size=3072, num_layers=32,
+                num_heads=32, num_kv_heads=32, intermediate_size=8192,
+                rope_theta=10000.0, rms_norm_eps=1e-5, max_seq_len=4096,
+                sliding_window=2047, tie_embeddings=False,
+                architecture="phi3",
+                name="microsoft/Phi-3-mini-4k-instruct")
+    base.update(kw)
+    return ModelConfig(**base)

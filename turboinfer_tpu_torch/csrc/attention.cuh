@@ -61,12 +61,35 @@ __device__ __forceinline__ float2 fold(float& M, float& L, float m, float l) {
 }
 
 // 16-byte chunk c of bf16 row t, XOR-swizzled so the 8 rows an ldmatrix
-// reads sit in 8 different bank groups.
+// reads sit in 8 different bank groups. A row of D = 96 is 12 chunks: the
+// first 8 XOR with t & 7 and the last 4 with (t >> 1) & 3, so every chunk
+// stays in its row (c ^ (t & 7) would carry chunks 8-11 into the next
+// row) and, rows being 12 chunks (4 bank groups mod 8) apart, the 8 rows
+// still meet 8 bank groups.
 template <int D>
 __device__ __forceinline__ int swz(int t, int c) {
-  constexpr int kMask = (D / 8 < 8 ? D / 8 : 8) - 1;
-  return t * (D / 8) + (c ^ (t & kMask));
+  if constexpr (D == 96) {
+    return t * 12 + (c < 8 ? c ^ (t & 7) : 8 + ((c - 8) ^ ((t >> 1) & 3)));
+  } else {
+    constexpr int kMask = (D / 8 < 8 ? D / 8 : 8) - 1;
+    return t * (D / 8) + (c ^ (t & kMask));
+  }
 }
+
+// The lanes of a CUDA-core row kernel (a lone head's decode and paged
+// kernels, kThreads threads): a row of D values is kLpr = D / kE 16-byte
+// chunks, and its score is read by kGrp = lane_group(kLpr) lanes (at D =
+// 96, 12 chunks of bf16 or 6 of 8-bit codes: lanes 12-15 of each 16, or
+// 6-7 of each 8, hold zeros). P V takes kGroups row groups of kLpr
+// threads; the kThreads % kLpr threads left over sit it out.
+template <int D, int kE, int kThreads>
+struct RowLanes {
+  static constexpr int kLpr = D / kE;
+  static constexpr int kGrp = lane_group(kLpr);
+  static constexpr int kRpw = 32 / kGrp;          // rows a warp pass
+  static constexpr int kGroups = kThreads / kLpr;  // row groups of P V
+  static_assert(kLpr * kE == D && kGrp <= 32, "head dims 32-256");
+};
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p,
                                             bool trans) {

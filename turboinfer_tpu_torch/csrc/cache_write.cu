@@ -26,7 +26,8 @@
 // What bounds it on the H100: bytes, the bf16 rows read once, the codes
 // (and f32 scales) written once. The design:
 //  * a row of D bf16 is D / 8 lanes, one 16-byte load each (a warp at
-//    D = 256, a half-warp at 128, a quarter at 64, an eighth at 32); its
+//    D = 256, a half-warp at 128 and at 96, whose last 4 lanes idle, a
+//    quarter at 64, an eighth at 32); its
 //    absmax is a shuffle reduction inside that lane group (on the bf16
 //    bits: the magnitudes order as the low 15 bits), and each lane stores
 //    its 8 codes as one 8-byte vector, so a warp stores whole rows;
@@ -194,12 +195,15 @@ __device__ __forceinline__ uint2 codes8(const uint4& v, float s, float y) {
     return int8_codes(v, s, y);
 }
 
-// kG = D / 8 lanes a row (one 16-byte piece, 8 bf16, each), kSlots = 32
-// / kG rows a warp instruction, kRows = kSlots * kU tokens a warp (its
-// chunk): token n0 + u * kSlots + slot is the lane's u-th row. Chunk c is
-// token chunk c / (2 Hkv) of (K or V, head) c % (2 Hkv), so the 8 warps
-// of a block read 8 neighbouring heads of the same tokens. A warp issues
-// all its loads before any reduction.
+// A row of D bf16 is kG = D / 8 16-byte pieces, one a lane, in a group of
+// kGP = lane_group(kG) lanes (at D = 96 the 12 pieces take lanes 0-11 of
+// a 16-lane group, and lanes 12-15 load nothing, hold a zero absmax and
+// store nothing, so the butterfly stays in the group and no lane writes a
+// row of another token). kSlots = 32 / kGP rows a warp instruction, kRows
+// = kSlots * kU tokens a warp (its chunk): token n0 + u * kSlots + slot is
+// the lane's u-th row. Chunk c is token chunk c / (2 Hkv) of (K or V,
+// head) c % (2 Hkv), so the 8 warps of a block read 8 neighbouring heads
+// of the same tokens. A warp issues all its loads before any reduction.
 template <int D, bool kFp8, int kU>
 __global__ void __launch_bounds__(kEncThreads)
 kv_encode_write_kernel(const __nv_bfloat16* __restrict__ k_new,
@@ -212,15 +216,17 @@ kv_encode_write_kernel(const __nv_bfloat16* __restrict__ k_new,
                        long long layer_off, long long head_stride,
                        long long ksn, long long ksh, long long vsn,
                        long long vsh) {
-  constexpr int kG = D / 8, kSlots = 32 / kG, kRows = kSlots * kU;
-  const int lane = threadIdx.x & 31, slot = lane / kG, part = lane % kG;
+  constexpr int kG = D / 8, kGP = ti::lane_group(kG);
+  constexpr int kSlots = 32 / kGP, kRows = kSlots * kU;
+  const int lane = threadIdx.x & 31, slot = lane / kGP, part = lane % kGP;
+  const bool live = kGP == kG || part < kG;   // the lane holds a piece
   const int c = blockIdx.x * (kEncThreads / 32) + (threadIdx.x >> 5);
   if (c >= 2 * Hkv * ((N + kRows - 1) / kRows)) return;
   const int n0 = c / (2 * Hkv) * kRows, hv = c % (2 * Hkv);
   const bool is_v = hv >= Hkv;
   const int h = is_v ? hv - Hkv : hv;
   const __nv_bfloat16* src =
-      (is_v ? v_new + h * vsh : k_new + h * ksh) + part * 8;
+      (is_v ? v_new + h * vsh : k_new + h * ksh) + (live ? part * 8 : 0);
   const long long sn = is_v ? vsn : ksn;
   uint8_t* dst = (is_v ? v_cache : k_cache) + part * 8;
   const long long base = layer_off + h * head_stride;
@@ -230,7 +236,8 @@ kv_encode_write_kernel(const __nv_bfloat16* __restrict__ k_new,
   for (int u = 0; u < kU; ++u) {
     const int n = n0 + u * kSlots + slot;
     row[u] = n < N ? __ldg(rows + n) : -1;
-    x[u] = n < N ? load_stream(src + n * sn) : make_uint4(0, 0, 0, 0);
+    x[u] = n < N && live ? load_stream(src + n * sn)
+                         : make_uint4(0u, 0u, 0u, 0u);
   }
   float s[kU] = {}, y[kU] = {};
   if constexpr (!kFp8) {
@@ -239,7 +246,7 @@ kv_encode_write_kernel(const __nv_bfloat16* __restrict__ k_new,
 #pragma unroll
     for (int u = 0; u < kU; ++u) m[u] = abs_max_bits(x[u]);
 #pragma unroll
-    for (int o = kG / 2; o > 0; o >>= 1)
+    for (int o = kGP / 2; o > 0; o >>= 1)
 #pragma unroll
       for (int u = 0; u < kU; ++u)
         m[u] = max(m[u], __shfl_xor_sync(0xffffffffu, m[u], o));
@@ -253,14 +260,14 @@ kv_encode_write_kernel(const __nv_bfloat16* __restrict__ k_new,
   }
 #pragma unroll
   for (int u = 0; u < kU; ++u)
-    if (row[u] >= 0)
+    if (row[u] >= 0 && live)
       *reinterpret_cast<uint2*>(dst + (row[u] + base) * D) =
           codes8<kFp8>(x[u], s[u], y[u]);
   if constexpr (!kFp8) {
     // lane l < kRows writes the scale of the chunk's token l
     float my_s = 0.f;
     long long my_row = -1;
-    const int from = (lane % kSlots) * kG;
+    const int from = (lane % kSlots) * kGP;
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
       const float su = __shfl_sync(0xffffffffu, s[u], from);
@@ -277,7 +284,8 @@ int launch_encode(const void* k_new, const void* v_new, void* k_cache,
                   const long long* rows, int N, int Hkv, long long layer_off,
                   long long head_stride, const long long* st,
                   cudaStream_t stream) {
-  constexpr int kRows = 32 / (D / 8) * kU, kWarps = kEncThreads / 32;
+  constexpr int kRows = 32 / ti::lane_group(D / 8) * kU;
+  constexpr int kWarps = kEncThreads / 32;
   const long long warps = 2LL * Hkv * ((N + kRows - 1) / kRows);
   kv_encode_write_kernel<D, kFp8, kU>
       <<<static_cast<unsigned>((warps + kWarps - 1) / kWarps), kEncThreads,
@@ -345,7 +353,7 @@ int ti_cache_write_fresh(const void* k_new, const void* v_new, void* k_cache,
 // page pool, contiguous and 16-byte aligned, viewed as [rows, D];
 // k_scale, v_scale: f32 [rows] planes for int8 (fp8 = 0), null for fp8;
 // rows: int64 [N] on the device, the head-0 row of token n at layer 0,
-// < 0 to skip it. D in {32, 64, 128, 256}. Returns kMisaligned, launching
+// < 0 to skip it. D in {32, 64, 96, 128, 256}. Returns kMisaligned, launching
 // nothing, when a pointer or stride breaks the 16-byte alignment (the
 // check costs the caller nothing on the host).
 int ti_kv_encode_write(const void* k_new, const void* v_new, void* k_cache,
@@ -368,6 +376,8 @@ int ti_kv_encode_write(const void* k_new, const void* v_new, void* k_cache,
       return launch_encode<32>(fp8, k_new, v_new, k_cache, v_cache, k_scale, v_scale, r, N, Hkv, layer_off, head_stride, strides, st);
     case 64:
       return launch_encode<64>(fp8, k_new, v_new, k_cache, v_cache, k_scale, v_scale, r, N, Hkv, layer_off, head_stride, strides, st);
+    case 96:
+      return launch_encode<96>(fp8, k_new, v_new, k_cache, v_cache, k_scale, v_scale, r, N, Hkv, layer_off, head_stride, strides, st);
     case 128:
       return launch_encode<128>(fp8, k_new, v_new, k_cache, v_cache, k_scale, v_scale, r, N, Hkv, layer_off, head_stride, strides, st);
     case 256:

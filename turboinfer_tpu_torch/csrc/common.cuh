@@ -16,6 +16,13 @@ namespace ti {
 
 constexpr float kNegInf = -1e30f;   // mask value of the JAX package (ops.NEG_INF)
 
+// n (<= 32) rounded up to a power of two: the lanes that hold a row of n
+// 16-byte chunks, so an XOR butterfly over them never reaches another
+// row's (head dim 96: 12 bf16 chunks take 16 lanes, 6 of 8-bit codes 8).
+__host__ __device__ constexpr int lane_group(int n) {
+  return n > 16 ? 32 : n > 8 ? 16 : n > 4 ? 8 : n > 2 ? 4 : n;
+}
+
 // Logit soft-capping, cap * tanh(x / cap), as 1 - 2 / (e^{2y} + 1) with
 // y = x / cap: one ex2.approx and one approximate division, within a few
 // f32 ulps of cap over the whole range (e^{2y} = inf gives cap exactly,

@@ -49,6 +49,14 @@
 //    head (gh = 1, decode_row_kernel) runs on the CUDA cores: D / kE
 //    lanes a row and 16-byte reads for the scores, then P V with each
 //    thread owning kE outputs over a share of the rows.
+//  * Head dim 96 (Phi-3), whose row is 12 16-byte chunks of bf16 or 6 of
+//    8-bit codes: the lone head's score lanes come in groups of 16 (or
+//    8), the chunks in the first 12 (or 6) and zeros in the rest, so the
+//    butterfly that sums a row never reaches into its neighbour's lanes;
+//    P V takes floor(128 / 12) = 10 (or 21) row groups and the 8 (or 2)
+//    threads left over sit out (attention.cuh RowLanes). The tensor-core
+//    kernel's swizzle keeps chunks 8-11 of a row inside it
+//    (attention.cuh swz).
 //  * The merge rides the same launch. Each block writes its unnormalised
 //    output with its max and sum, and counts itself in an arrival counter
 //    of its (b, kv head); the last block to arrive merges the slices in
@@ -236,9 +244,11 @@ decode_row_kernel(const KV* __restrict__ kc, const KV* __restrict__ vc,
   using L = RowLayout<KV, D>;
   constexpr int kE = L::kE;                    // elements per 16 bytes
   constexpr int kRowB = D * static_cast<int>(sizeof(KV));
-  constexpr int kLpr = D / kE;                 // lanes per row (scores)
-  constexpr int kRpw = 32 / kLpr;              // rows per warp pass
-  constexpr int kGroups = kThreads / kLpr;     // row groups of P V
+  using RL = RowLanes<D, kE, kThreads>;
+  constexpr int kLpr = RL::kLpr;               // chunks a row (P V)
+  constexpr int kGrp = RL::kGrp;               // lanes a row (scores)
+  constexpr int kRpw = RL::kRpw;               // rows per warp pass
+  constexpr int kGroups = RL::kGroups;         // row groups of P V
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* sK = smem;
   unsigned char* sV = smem + L::kv(p.R);
@@ -251,13 +261,19 @@ decode_row_kernel(const KV* __restrict__ kc, const KV* __restrict__ vc,
 
   const int s = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int lrow = lane / kLpr, dl = (lane % kLpr) * kE;
+  const int lrow = lane / kGrp, dl = (lane % kGrp) * kE;
+  const bool live = kGrp == kLpr || dl < D;    // the lane holds a chunk
   float qf[kE];   // in flight beside kv_len's load
-  ti::load_bf16_row<kE>(p.q + b * p.qsb + hk * p.qsh + dl, qf);
+  ti::load_bf16_row<kE>(p.q + b * p.qsb + hk * p.qsh + (live ? dl : 0),
+                        qf);
+  if (!live)
+#pragma unroll
+    for (int e = 0; e < kE; ++e) qf[e] = 0.f;
   Slice sl;
   if (!slice_of(p.kv_len, b, s, p.T, p.window, p.R, p.S, sl)) return;
   const long long cbase = b * p.csb + hk * p.csh;
   const int c = tid % kLpr, rg = tid / kLpr;
+  const bool pv = kThreads % kLpr == 0 || rg < kGroups;   // a P V thread
   // the slice's running max, sum and outputs d = tid + kThreads j
   constexpr int kOut = (D + kThreads - 1) / kThreads;
   float M = ti::kNegInf, Lsum = 0.f, O[kOut] = {};
@@ -272,7 +288,7 @@ decode_row_kernel(const KV* __restrict__ kc, const KV* __restrict__ vc,
     for (int base = warp * kRpw; base < sl.n; base += kWarps * kRpw) {
       const int t = base + lrow;
       uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (t < sl.n)
+      if (t < sl.n && live)
         u = *reinterpret_cast<const uint4*>(sK + t * kRowB +
                                             dl * static_cast<int>(sizeof(KV)));
       float kf[kE];
@@ -281,9 +297,9 @@ decode_row_kernel(const KV* __restrict__ kc, const KV* __restrict__ vc,
 #pragma unroll
       for (int e = 0; e < kE; ++e) d = fmaf(qf[e], kf[e], d);
 #pragma unroll
-      for (int off = kLpr / 2; off > 0; off >>= 1)
+      for (int off = kGrp / 2; off > 0; off >>= 1)
         d += __shfl_xor_sync(0xffffffffu, d, off);
-      if (t < sl.n && (lane % kLpr) == 0)
+      if (t < sl.n && (lane % kGrp) == 0)
         sc[t] = p.ks ? d * p.scale * sKs[t] : d * p.scale;
     }
     __syncthreads();
@@ -315,7 +331,7 @@ decode_row_kernel(const KV* __restrict__ kc, const KV* __restrict__ vc,
     float acc[kE];
 #pragma unroll
     for (int e = 0; e < kE; ++e) acc[e] = 0.f;
-    for (int t = rg; t < sl.n; t += kGroups) {
+    for (int t = rg; pv && t < sl.n; t += kGroups) {
       const float pr = p.vs ? sc[t] * sVs[t] : sc[t];
       float vf[kE];
       ti::kv16_to_float<KV>(
@@ -324,9 +340,10 @@ decode_row_kernel(const KV* __restrict__ kc, const KV* __restrict__ vc,
       for (int e = 0; e < kE; ++e) acc[e] = fmaf(pr, vf[e], acc[e]);
     }
     float4* rv = reinterpret_cast<float4*>(red + rg * D + c * kE);
+    if (pv)
 #pragma unroll
-    for (int e = 0; e < kE; e += 4)
-      rv[e / 4] = make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
+      for (int e = 0; e < kE; e += 4)
+        rv[e / 4] = make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
     __syncthreads();
     if (tid < D) {
       const float2 f = fold(M, Lsum, ml[0], ml[1]);
@@ -594,6 +611,8 @@ int launch_kv(const void* kc, const void* vc, const Params& p, int B, int D,
       return launch_d<KV, 32>(kc, vc, p, B, stream);
     case 64:
       return launch_d<KV, 64>(kc, vc, p, B, stream);
+    case 96:
+      return launch_d<KV, 96>(kc, vc, p, B, stream);
     case 128:
       return launch_d<KV, 128>(kc, vc, p, B, stream);
     case 256:
@@ -649,7 +668,7 @@ long long ti_decode_workspace(int B, int Hq, int Hkv, int T, int D,
 // sinks: f32 [Hq] on the device, or null; window: rows before kv_len -
 // window are masked, 0 for none; work: ti_decode_workspace(B, Hq, Hkv,
 // T, D, window) f32 elements; counters: B * Hkv int32 zeros, left
-// zeros. strides = {qsb, qsh, csb, csh}. D in {32, 64, 128, 256};
+// zeros. strides = {qsb, qsh, csb, csh}. D in {32, 64, 96, 128, 256};
 // Hq / Hkv <= 8. softcap: scores s become softcap * tanh(s / softcap), 0
 // for none.
 int ti_decode_attention(const void* q, const void* k_cache,

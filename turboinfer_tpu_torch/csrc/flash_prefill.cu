@@ -19,10 +19,10 @@ extern "C" {
 // multiples of 16 bytes): strides = {qsb, qss, qsh, ksb, ksh, kst, vsb,
 // vsh, vst, osb, oss, osh, ssb, ssh}. k_scale, v_scale: for int8, f32
 // [B, Hkv, T] with strides {ssb, ssh} and contiguous T, else null.
-// kv_len, q_start: int32 [B] on the device. D in {32, 64, 128}. window:
-// a query at position p sees keys t > p - window, 0 for none; softcap:
-// scores s (times the int8 key scale) become softcap * tanh(s / softcap)
-// before the mask, 0 for none.
+// kv_len, q_start: int32 [B] on the device. D in {32, 64, 96, 128, 256}.
+// window: a query at position p sees keys t > p - window, 0 for none;
+// softcap: scores s (times the int8 key scale) become softcap * tanh(s /
+// softcap) before the mask, 0 for none.
 int ti_flash_prefill(const void* q, const void* k, const void* v,
                      const void* k_scale, const void* v_scale, void* o,
                      const void* kv_len, const void* q_start, int B, int S,

@@ -45,7 +45,10 @@
 //    D = 256) go through a ring of up to 3 stages (2 at D = 256, 1 for
 //    its 8-bit codes). A box row is 128 bytes with the 128-byte swizzle
 //    (D = 64, 128, 256: a row takes D / 64 boxes) or 64 bytes with the
-//    64-byte swizzle (D = 32). TMA fills rows past T (and query
+//    64-byte swizzle (D = 32, and D = 96 as three 32-column boxes: 96
+//    columns are not a whole number of 128-byte boxes, and one box
+//    width keeps a single swizzle in every descriptor and in the
+//    decoded 8-bit tiles). TMA fills rows past T (and query
 //    positions past S) with zeros; the kv_len mask covers the rest.
 //    The fresh view's T stride (Hkv*D) exceeds its head stride, so its map
 //    lists the head dimension first (kv_swap).
@@ -56,8 +59,9 @@
 //    base 2 (the softmax scale folded with log2 e). P is packed to bf16
 //    in registers and is P V's A (the RS form); V is B in its natural
 //    [keys, D] layout through wgmma's transpose bit (MN-major: 8-key core
-//    groups one box row apart, 64-column boxes one box apart; D = 256 as
-//    two n128 halves). O never leaves registers until the epilogue.
+//    groups one box row apart, boxes one box apart; D = 96 as one n96,
+//    D = 256 as two n128 halves). O never leaves registers until the
+//    epilogue.
 //  * 8-bit K/V. TMA brings the raw codes (a ring of stages); all 256
 //    threads decode a tile into one of two bf16 tiles in the swizzled
 //    layout wgmma reads, with the int8 scale rows beside it (0 past
@@ -121,7 +125,7 @@ struct Layout {
   // S's 64 registers a thread beside O's 128)
   static constexpr int kBN = D > 128 ? 64 : 128;
   static constexpr bool k8 = sizeof(KV) == 1;
-  static constexpr int kSw = D == 32 ? 64 : 128;     // bytes a box row
+  static constexpr int kSw = D % 64 ? 64 : 128;      // bytes a box row
   static constexpr int kSwizzle = kSw == 128 ? 1 : 2; // wgmma layout type
   static constexpr int kBoxCols = kSw / 2;            // bf16 columns a box
   static constexpr int kBoxes = D / kBoxCols;
@@ -175,8 +179,10 @@ __device__ __forceinline__ void wgmma_qk(float* s, uint64_t dq, uint64_t dk,
 }
 
 // O[64 rows][D] += P V over 16 keys, V MN-major at shared address v
-// (8-key core groups one box row apart, 64-column boxes kBN rows apart).
-// D = 256 is two n128 halves, the second two boxes on.
+// (8-key core groups one box row apart, boxes of kBoxCols columns kBN rows
+// apart). D = 96 is one n96 over three 32-column boxes (96 is a legal
+// wgmma N, so one instruction, not three n32s each feeding P again); D =
+// 256 is two n128 halves, the second two boxes on.
 template <int D, typename L>
 __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
                                          uint32_t v) {
@@ -187,10 +193,12 @@ __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
     wgmma_rs_n32_t(o, a, desc(v));
   } else if constexpr (D == 64) {
     wgmma_rs_n64_t(o, a, desc(v));
+  } else if constexpr (D == 96) {
+    wgmma_rs_n96_t(o, a, desc(v));
   } else if constexpr (D == 128) {
     wgmma_rs_n128_t(o, a, desc(v));
   } else {
-    static_assert(D == 256, "head dims 32, 64, 128, 256");
+    static_assert(D == 256, "head dims 32, 64, 96, 128, 256");
     wgmma_rs_n128_t(o, a, desc(v));
     wgmma_rs_n128_t(o + 64, a, desc(v + 2 * L::kBN * L::kSw));
   }
@@ -646,6 +654,8 @@ int run_d(const Call& c) {
       return launch<32, KV, kCap>(c);
     case 64:
       return launch<64, KV, kCap>(c);
+    case 96:
+      return launch<96, KV, kCap>(c);
     case 128:
       return launch<128, KV, kCap>(c);
     case 256:

@@ -59,7 +59,7 @@ long long ti_paged_workspace(int B, int Hkv, int R, int cap, int D) {
 // [B, Hkv, R, D] contiguous; table: int32 [B, max_pages]; kv_len: int32
 // [B] (the G chunk tokens included); work: ti_paged_workspace(...) f32
 // elements; counters: B * Hkv int32 zeros, left zeros. D in {32, 64,
-// 128, 256}; R <= 128 (at D = 256, over a pool of more than 64 sub-slices
+// 96, 128, 256}; R <= 128 (at D = 256, over a pool of more than 64 sub-slices
 // of 64 keys, R <= 96 for bf16 and R <= 64 for 8-bit pools: the chunks'
 // kept outputs outgrow shared memory past that, and the call is
 // refused); page a multiple of 8 up to 256. window: query g sees

@@ -75,7 +75,11 @@
 //    window's only in one before the latest query's first visible key.
 //  * R = 1 (a lone head's decode, paged_row_kernel) runs on the CUDA
 //    cores: D / kE lanes a key row and 16-byte reads for the scores, then
-//    P V with each thread owning kE outputs over a share of the rows.
+//    P V with each thread owning kE outputs over a share of the rows. At
+//    head dim 96 (Phi-3) a row's lanes are padded to a power of two and
+//    the leftover P V threads sit out, as in decode_attention.cu, and the
+//    tensor-core kernel's swizzle keeps a row's 12 chunks inside it
+//    (attention.cuh RowLanes, swz).
 //
 // int8 and fp8 pools: the rows arrive as stored. fp8 bits decode as
 // e4m3_to_bf16 reads them (0x7F/0xFF as +-480); int8 codes are exact, and
@@ -276,9 +280,11 @@ paged_row_kernel(const KV* __restrict__ kp, const KV* __restrict__ vp,
   constexpr int kR = L::kR;
   constexpr int kE = L::kE;                    // elements per 16 bytes
   constexpr int kRowB = D * static_cast<int>(sizeof(KV));
-  constexpr int kLpr = D / kE;                 // lanes per row (scores)
-  constexpr int kRpw = 32 / kLpr;              // rows per warp pass
-  constexpr int kGroups = kThreads / kLpr;     // row groups of P V
+  using RL = RowLanes<D, kE, kThreads>;
+  constexpr int kLpr = RL::kLpr;               // chunks a row (P V)
+  constexpr int kGrp = RL::kGrp;               // lanes a row (scores)
+  constexpr int kRpw = RL::kRpw;               // rows per warp pass
+  constexpr int kGroups = RL::kGroups;         // row groups of P V
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* sK = smem;
   unsigned char* sV = smem + L::kv;
@@ -292,10 +298,15 @@ paged_row_kernel(const KV* __restrict__ kp, const KV* __restrict__ vp,
 
   const int s = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int lrow = lane / kLpr, dl = (lane % kLpr) * kE;
+  const int lrow = lane / kGrp, dl = (lane % kGrp) * kE;
+  const bool live = kGrp == kLpr || dl < D;    // the lane holds a chunk
   // the query row and this thread's key row in flight beside kv_len's load
   float qf[kE];
-  ti::load_bf16_row<kE>(p.q + b * p.qsb + hk * p.qsh + dl, qf);
+  ti::load_bf16_row<kE>(p.q + b * p.qsb + hk * p.qsh + (live ? dl : 0),
+                        qf);
+  if (!live)
+#pragma unroll
+    for (int e = 0; e < kE; ++e) qf[e] = 0.f;
   int prow = tid < kR ? pool_row(p, b, hk, s * kR * p.S + tid) : 0;
   Slice sl;
   if (!slice_of(p.kv_len, b, s, p.cap, kMask ? p.window : 0, kR, p.S, sl))
@@ -303,6 +314,7 @@ paged_row_kernel(const KV* __restrict__ kp, const KV* __restrict__ vp,
   // a window's slices start at kv_len - window: its rows looked up again
   if (kMask && p.window && tid < kR) prow = pool_row(p, b, hk, sl.t0 + tid);
   const int c = tid % kLpr, rg = tid / kLpr;
+  const bool pv = kThreads % kLpr == 0 || rg < kGroups;   // a P V thread
   // the slice's running max, sum and outputs d = tid + kThreads j
   constexpr int kOut = (D + kThreads - 1) / kThreads;
   float M = ti::kNegInf, Lsum = 0.f, O[kOut] = {};
@@ -321,7 +333,7 @@ paged_row_kernel(const KV* __restrict__ kp, const KV* __restrict__ vp,
     for (int base = warp * kRpw; base < sl.n; base += kWarps * kRpw) {
       const int t = base + lrow;
       uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (t < sl.n)
+      if (t < sl.n && live)
         u = *reinterpret_cast<const uint4*>(sK + t * kRowB +
                                             dl * static_cast<int>(sizeof(KV)));
       float kf[kE];
@@ -330,9 +342,9 @@ paged_row_kernel(const KV* __restrict__ kp, const KV* __restrict__ vp,
 #pragma unroll
       for (int e = 0; e < kE; ++e) d = fmaf(qf[e], kf[e], d);
 #pragma unroll
-      for (int off = kLpr / 2; off > 0; off >>= 1)
+      for (int off = kGrp / 2; off > 0; off >>= 1)
         d += __shfl_xor_sync(0xffffffffu, d, off);
-      if (t < sl.n && (lane % kLpr) == 0)
+      if (t < sl.n && (lane % kGrp) == 0)
         sc[t] = p.ks ? d * p.scale * sKs[t] : d * p.scale;
     }
     __syncthreads();
@@ -365,7 +377,7 @@ paged_row_kernel(const KV* __restrict__ kp, const KV* __restrict__ vp,
     float acc[kE];
 #pragma unroll
     for (int e = 0; e < kE; ++e) acc[e] = 0.f;
-    for (int t = rg; t < sl.n; t += kGroups) {
+    for (int t = rg; pv && t < sl.n; t += kGroups) {
       const float pr = p.vs ? sc[t] * sVs[t] : sc[t];
       float vf[kE];
       ti::kv16_to_float<KV>(
@@ -374,9 +386,10 @@ paged_row_kernel(const KV* __restrict__ kp, const KV* __restrict__ vp,
       for (int e = 0; e < kE; ++e) acc[e] = fmaf(pr, vf[e], acc[e]);
     }
     float4* rv = reinterpret_cast<float4*>(red + rg * D + c * kE);
+    if (pv)
 #pragma unroll
-    for (int e = 0; e < kE; e += 4)
-      rv[e / 4] = make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
+      for (int e = 0; e < kE; e += 4)
+        rv[e / 4] = make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
     __syncthreads();
     if (tid < D) {
       const float2 f = fold(M, Lsum, ml[0], ml[1]);
@@ -831,6 +844,8 @@ int launch_kv(const void* kp, const void* vp, const Params& p, int B, int D,
       return launch_d<KV, 32>(kp, vp, p, B, stream);
     case 64:
       return launch_d<KV, 64>(kp, vp, p, B, stream);
+    case 96:
+      return launch_d<KV, 96>(kp, vp, p, B, stream);
     case 128:
       return launch_d<KV, 128>(kp, vp, p, B, stream);
     case 256:

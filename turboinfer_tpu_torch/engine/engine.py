@@ -8,7 +8,9 @@ budget rounded up to a multiple of 32 (the slack is discarded), per-row
 budgets bounded by each row's own headroom, EOS and stop reasons, and
 rows that fill the cache finishing on their own. Where JAX fuses the
 decode loop into one program, this engine steps an eager per-token loop
-on the device with no host synchronisation inside it. Beam search,
+on the device with no host synchronisation inside it. With
+use_cache=False it recomputes the whole sequence for every token through
+the model's forward_no_cache, as the JAX engine does. Beam search,
 logprob scoring, streaming and chat come in later slices.
 """
 
@@ -213,12 +215,13 @@ class InferenceEngine:
         """One prefill and one decode step per token for ALL rows."""
         for p in prompts:
             self._validate(p)
-        if not self.config.use_cache:
-            raise NotImplementedError("use_cache=False is not ported yet")
         sp = self._sampling_params(**sampling_kw)
         eos, pad = self.config.eos_token_id, self.config.pad_token_id
         max_seq = self.config.max_seq_len
         t0 = time.perf_counter()
+        if not self.config.use_cache:
+            return self._generate_batch_nocache(prompts, max_new_tokens, sp,
+                                                eos, t0, return_logprobs)
 
         tokens, seq_lens, S = self._pad_batch(prompts)
         B = len(prompts)
@@ -314,6 +317,61 @@ class InferenceEngine:
                 break
         return (torch.stack(toks, dim=1), torch.stack(lps, dim=1), finished,
                 cache)
+
+    def _generate_batch_nocache(self, prompts, max_new_tokens, sp, eos, t0,
+                                want_logprobs):
+        """use_cache=False (JAX _generate_batch_nocache): every new token
+        recomputes the whole padded sequence through the model's
+        forward_no_cache and samples from its last valid position; the
+        tokens come back to the host each step. Stop reasons as the JAX
+        engine's: "eos", "max_seq" when a row reaches max_seq_len, else
+        "length"."""
+        B, V = len(prompts), self.model_config.vocab_size
+        seqs = [list(p) for p in prompts]
+        lps: List[List[float]] = [[] for _ in prompts]
+        finished, stop = [False] * B, ["length"] * B
+        rows = torch.arange(B, device=self.device)
+        for _ in range(max_new_tokens):
+            if all(finished):
+                break
+            tokens, seq_lens, _ = self._pad_batch(seqs)
+            logits = self._model.forward_no_cache(
+                self.params, self.model_config, tokens, seq_lens=seq_lens)
+            last = logits[rows, (seq_lens - 1).clamp(min=0).long()]
+            counts = None
+            if sp.needs_counts:
+                ids = [torch.as_tensor(s, dtype=torch.long) for s in seqs]
+                every = torch.stack([torch.bincount(i, minlength=V)
+                                     for i in ids])
+                out = torch.stack([torch.bincount(i[len(p):], minlength=V)
+                                   for i, p in zip(ids, prompts)])
+                counts = (every.to(self.device, torch.int32),
+                          out.to(self.device, torch.int32))
+            nxt = sampling.sample(self._gen, last, sp, counts)
+            lp = sampling.token_logprob(last, nxt)
+            for b, (t, p) in enumerate(zip(nxt.tolist(), lp.tolist())):
+                if finished[b]:
+                    continue
+                seqs[b].append(t)
+                lps[b].append(p)
+                if t == eos:
+                    finished[b], stop[b] = True, "eos"
+                elif len(seqs[b]) >= self.config.max_seq_len:
+                    finished[b], stop[b] = True, "max_seq"
+        t1 = time.perf_counter()
+        results = []
+        for b, s in enumerate(seqs):
+            n = len(s) - len(prompts[b])
+            results.append(GenerationResult(
+                tokens=s, logprobs=lps[b] if want_logprobs else None,
+                total_time_ms=(t1 - t0) * 1e3,
+                tokens_per_second=n / max(t1 - t0, 1e-9),
+                finished=finished[b] or n >= max_new_tokens,
+                stop_reason=stop[b]))
+        self.stats.record_generation(
+            new_tokens=sum(len(s) - len(p) for s, p in zip(seqs, prompts)),
+            elapsed_s=t1 - t0, prefill_s=0.0, batch=B)
+        return results
 
     # -- introspection ------------------------------------------------------
 

@@ -33,7 +33,7 @@ import torch
 from turboinfer_tpu_torch.kernels import _build
 from turboinfer_tpu_torch.utils.errors import KernelError
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 96, 128, 256)
 MISALIGNED = -1    # ti_kv_encode_write's refusal (checked in C: no host cost)
 
 

@@ -23,7 +23,7 @@ import torch
 from turboinfer_tpu_torch.kernels import _build, ops
 from turboinfer_tpu_torch.utils.errors import KernelError
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 96, 128, 256)
 MAX_GROUP = 8        # query heads per kv head one block computes
 # cache storage dtype -> the kernel's element-type code
 KV_DTYPES = {torch.bfloat16: 0, torch.int8: 1, torch.uint8: 2}

@@ -27,7 +27,7 @@ from turboinfer_tpu_torch.kernels.decode_attention import (KV_DTYPES,
                                                            window_cap)
 from turboinfer_tpu_torch.utils.errors import KernelError
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 96, 128, 256)
 
 
 def prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

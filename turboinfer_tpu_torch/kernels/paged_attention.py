@@ -33,7 +33,7 @@ from turboinfer_tpu_torch.kernels.decode_attention import (KV_DTYPES,
                                                            window_cap)
 from turboinfer_tpu_torch.utils.errors import KernelError
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 96, 128, 256)
 MAX_GROUP = 8          # query heads per kv head
 MAX_TOKENS = 16        # G, the chunk tokens of a verify
 MAX_PAGE = 256

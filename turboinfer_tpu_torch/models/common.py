@@ -1,5 +1,5 @@
 """Shared model machinery: the KV cache container and its storage codecs,
-projection fusion and parameter accounting (counterpart of
+projection fusion, cache reset and parameter accounting (counterpart of
 turboinfer_tpu/models/common.py).
 
 The port keeps the head-major stacked cache [L, B, Hkv, T, D] for every
@@ -109,6 +109,17 @@ def init_cache(config: ModelConfig, batch_size: int,
                    k_scale=ks, v_scale=vs)
 
 
+def reset_cache(cache: KVCache) -> KVCache:
+    """A zero-filled cache of the same shapes (JAX common.reset_cache):
+    K, V, length and each scale plane from its own tensor, so the two
+    planes never share storage."""
+    def zeros(t):
+        return None if t is None else torch.zeros_like(t)
+    return KVCache(k=zeros(cache.k), v=zeros(cache.v),
+                   length=zeros(cache.length), k_scale=zeros(cache.k_scale),
+                   v_scale=zeros(cache.v_scale))
+
+
 def _e4m3_bits(x: torch.Tensor) -> torch.Tensor:
     """float -> e4m3 bit patterns equal to the JAX package's
     x.astype(float8_e4m3fn): round to nearest even below the NaN bound,
@@ -204,6 +215,26 @@ def _leaves(tree):
             yield from _leaves(v)
     elif isinstance(tree, (QTensor, QEmbed, torch.Tensor)):
         yield tree
+
+
+def param_count(params: Any) -> int:
+    """Parameters, as the JAX package counts them (common.param_count): a
+    QTensor is its logical K x N times every stacking dim of its data
+    ([L, ...] layer stacks, [L, E, ...] expert stacks count L * E
+    matrices), any other tensor its elements (a QEmbed's codes and
+    scales, as JAX's pytree leaves)."""
+    total = 0
+    for leaf in _leaves(params):
+        if isinstance(leaf, QTensor):
+            n = leaf.shape[0] * leaf.shape[1]
+            for d in leaf.data.shape[:-2]:
+                n *= d
+            total += n
+        elif isinstance(leaf, QEmbed):
+            total += leaf.data.numel() + leaf.scales.numel()
+        else:
+            total += leaf.numel()
+    return total
 
 
 def param_bytes(params: Any) -> int:

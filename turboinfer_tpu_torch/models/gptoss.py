@@ -59,6 +59,8 @@ from turboinfer_tpu_torch.kernels import cache_write, dispatch, ops
 from turboinfer_tpu_torch.models import llama, moe
 from turboinfer_tpu_torch.models.common import (COMPRESSED_KV, KVCache,
                                                 decode_kv)
+from turboinfer_tpu_torch.models.common import (  # noqa: F401
+    param_bytes, param_count, reset_cache)
 from turboinfer_tpu_torch.models.llama import layer_window
 from turboinfer_tpu_torch.models.moe import dense_mix
 from turboinfer_tpu_torch.utils.device import resolve_device
@@ -361,6 +363,15 @@ def forward(params: Dict[str, Any], config: ModelConfig, tokens: torch.Tensor,
     return llama.forward(params, config, tokens, cache, seq_lens=seq_lens,
                          logit_idx=logit_idx, fresh_prefill=fresh_prefill,
                          layer_fn=_layer_forward)
+
+
+def forward_no_cache(params: Dict[str, Any], config: ModelConfig,
+                     tokens: torch.Tensor,
+                     seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Same contract as llama.forward_no_cache, with GPT-OSS's blocks."""
+    check_supported(config)
+    return llama.forward_no_cache(params, config, tokens, seq_lens,
+                                  layer_fn=_layer_forward)
 
 
 def forward_paged_decode(params: Dict[str, Any], config: ModelConfig,

@@ -50,6 +50,9 @@ from turboinfer_tpu_torch.config import ModelConfig
 from turboinfer_tpu_torch.kernels import cache_write, dispatch, ops
 from turboinfer_tpu_torch.models.common import COMPRESSED_KV, KVCache
 from turboinfer_tpu_torch.models.common import init_cache as _init_cache
+# the model interface the JAX registry names (models/registry.py)
+from turboinfer_tpu_torch.models.common import (  # noqa: F401
+    param_bytes, param_count, reset_cache)
 from turboinfer_tpu_torch.utils.device import resolve_device
 
 # The forwards thread int8 scale planes and read fp8 caches (the engine
@@ -452,6 +455,21 @@ def forward(params: Dict[str, Any], config: ModelConfig, tokens: torch.Tensor,
     if logit_idx is not None:
         x = x[torch.arange(B, device=x.device), logit_idx.long()][:, None]
     return head(config, params, x), cache._replace(length=kv_len)
+
+
+def forward_no_cache(params: Dict[str, Any], config: ModelConfig,
+                     tokens: torch.Tensor,
+                     seq_lens: Optional[torch.Tensor] = None, *,
+                     ffn_fn=None, layer_fn=None) -> torch.Tensor:
+    """Cacheless full-sequence forward (JAX llama.forward_no_cache): a
+    model-dtype cache of exactly S positions and one fresh prefill over
+    it (so the cache write and flash kernels run as in any prefill) ->
+    logits [B, S, V] f32. ffn_fn, layer_fn: as forward's."""
+    B, S = tokens.shape
+    cache = init_cache(config, B, max_seq=S, device=tokens.device)
+    logits, _ = forward(params, config, tokens, cache, seq_lens=seq_lens,
+                        fresh_prefill=True, ffn_fn=ffn_fn, layer_fn=layer_fn)
+    return logits
 
 
 def forward_paged_decode(params: Dict[str, Any], config: ModelConfig,

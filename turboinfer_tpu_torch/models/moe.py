@@ -35,6 +35,8 @@ from turboinfer_tpu_torch.core.qtensor import QTensor
 from turboinfer_tpu_torch.kernels import ops
 from turboinfer_tpu_torch.models import llama
 from turboinfer_tpu_torch.models.common import KVCache
+from turboinfer_tpu_torch.models.common import (  # noqa: F401
+    param_bytes, param_count, reset_cache)
 from turboinfer_tpu_torch.utils.device import resolve_device
 from turboinfer_tpu_torch.utils.errors import ConfigError
 
@@ -237,6 +239,15 @@ def forward(params: Dict[str, Any], config: ModelConfig, tokens: torch.Tensor,
     return llama.forward(params, config, tokens, cache, seq_lens=seq_lens,
                          logit_idx=logit_idx, fresh_prefill=fresh_prefill,
                          ffn_fn=_moe_ffn)
+
+
+def forward_no_cache(params: Dict[str, Any], config: ModelConfig,
+                     tokens: torch.Tensor,
+                     seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Same contract as llama.forward_no_cache, with the routed experts."""
+    check_supported(config)
+    return llama.forward_no_cache(params, config, tokens, seq_lens,
+                                  ffn_fn=_moe_ffn)
 
 
 def forward_paged_decode(params: Dict[str, Any], config: ModelConfig,
