@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port (turboinfer_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,...,15] [--json PATH]
+    python3 chip_smoke.py [--phases 1,2,...,16] [--json PATH]
 
 Phases:
   1. environment: card name and power limit, torch/CUDA versions, and the
@@ -172,6 +172,28 @@ Phases:
      windowed and global, bf16, int8, fp8; a GQA decode; flash fresh,
      chunked and read back), Phi-3's products at a B=2 decode, and the
      cache write and encode-and-write at phase 15's shapes.
+ 16. weights in and out, files written by the port's own writers into
+     _smoke_files/ beside the script (gitignored; 16 GiB free asked for
+     up front, removed at the end) and loaded onto the card: (a)
+     Phi-3-mini-4k's bf16 weights drawn from a seed as an HF checkpoint
+     directory (two bf16 shards of at most 5 GB under Phi-3's fused HF
+     names, the index, microsoft/Phi-3-mini-4k-instruct's config.json),
+     load_model_data and int4 g=64 quantize_params on the card, bit for
+     bit the in-memory quantization, then generate_batch B=2 (prompts
+     3000/3500, 64 new) with tokens equal to the in-memory path's; write
+     and load seconds and GB/s (page cache warm), quantize ms; (b)
+     quantize_model_file to .tinq and load_engine of it: the same
+     QTensors and tokens; (c) 4 of the 32 layers as an F16 GGUF under
+     llama.cpp's names (attn_qkv, double-width ffn_up), f32 logits
+     against the in-memory params within 5% of max|logit| (the last
+     position under the tie rule), and the native Q4_0/Q8_0/Q4_K/Q6_K
+     dequantizers against numpy at w_gateup's size; (d) the 7B int4 L=32
+     as .tinq under an r=16 PEFT adapter on all seven modules through
+     load_engine(lora=): decode ms/step with and without it, interleaved
+     (B=8 prompts 512, 64 new), the paged scheduler's tokens against
+     generate_batch's, L=2 kernels against plain with the adapter; (e)
+     calibrated_quantize_params of Phi-3-mini on 8 x 512 tokens, its
+     activation-weighted error beside (a)'s uncalibrated int4.
 Exits non-zero on any failure (no CPU fallback). The last stdout line is
 {"ok": true, "device": {...}}; before it come a {"kernels": [...]} line
 and the nvidia-smi name/power-limit line.
@@ -3899,10 +3921,611 @@ def phase_phi3(torch, report):
     return launches
 
 
+# -- phase 16: weights in and out ------------------------------------------
+
+# microsoft/Phi-3-mini-4k-instruct's published config.json, transcribed
+# (the keys the loader reads; config_from_hf_dict maps it to
+# config.phi3_mini_4k_config()).
+PHI3_MINI_4K_CONFIG_JSON = {
+    "_name_or_path": "microsoft/Phi-3-mini-4k-instruct",
+    "architectures": ["Phi3ForCausalLM"], "model_type": "phi3",
+    "vocab_size": 32064, "hidden_size": 3072, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 32,
+    "intermediate_size": 8192, "hidden_act": "silu",
+    "max_position_embeddings": 4096, "original_max_position_embeddings": 4096,
+    "rope_theta": 10000.0, "rope_scaling": None, "rms_norm_eps": 1e-05,
+    "sliding_window": 2047, "tie_word_embeddings": False,
+    "attention_bias": False, "bos_token_id": 1, "eos_token_id": 32000,
+    "pad_token_id": 32000, "torch_dtype": "bfloat16"}
+SHARD_BYTES = 5 * 10 ** 9        # HF's default max_shard_size, "5GB"
+FILES_NEED_BYTES = 16 * 2 ** 30  # the largest set of files alive at once,
+                                 # with room
+
+
+def nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def phi3_hf_tensors(params, cfg):
+    """The bf16 params of a Phi-3 model under Phi-3's HF names and
+    layout: [out, in] weights, q/k/v fused into qkv_proj, gate/up into
+    gate_up_proj (device tensors; the writer moves them to the host)."""
+    import torch
+    lw = params["layers"]
+    t = {"model.embed_tokens.weight": params["embed"]}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}"
+        t[f"{p}.input_layernorm.weight"] = lw["attn_norm"][i]
+        t[f"{p}.self_attn.qkv_proj.weight"] = torch.cat(
+            [lw["wq"][i].T, lw["wk"][i].T, lw["wv"][i].T])
+        t[f"{p}.self_attn.o_proj.weight"] = lw["wo"][i].T
+        t[f"{p}.post_attention_layernorm.weight"] = lw["ffn_norm"][i]
+        t[f"{p}.mlp.gate_up_proj.weight"] = torch.cat(
+            [lw["w_gate"][i].T, lw["w_up"][i].T])
+        t[f"{p}.mlp.down_proj.weight"] = lw["w_down"][i].T
+    t["model.norm.weight"] = params["final_norm"]
+    t["lm_head.weight"] = params["lm_head"].T
+    return t
+
+
+def write_hf_checkpoint(d, tensors, config_json):
+    """An HF checkpoint directory: model-0000N-of-0000M.safetensors
+    shards of at most SHARD_BYTES in tensor order, their
+    model.safetensors.index.json and config.json. Returns bytes written."""
+    import os
+    from turboinfer_tpu_torch.loader.safetensors import write_safetensors
+    shards, cur, size = [], {}, 0
+    for k, v in tensors.items():
+        if cur and size + nbytes(v) > SHARD_BYTES:
+            shards.append(cur)
+            cur, size = {}, 0
+        cur[k] = v
+        size += nbytes(v)
+    shards.append(cur)
+    weight_map, total = {}, 0
+    for n, shard in enumerate(shards):
+        fname = f"model-{n + 1:05d}-of-{len(shards):05d}.safetensors"
+        write_safetensors(os.path.join(d, fname), shard,
+                          metadata={"format": "pt"})
+        weight_map.update({k: fname for k in shard})
+        total += os.path.getsize(os.path.join(d, fname))
+    with open(os.path.join(d, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": sum(
+            nbytes(v) for v in tensors.values())},
+            "weight_map": weight_map}, f)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(config_json, f)
+    return total, len(shards)
+
+
+def same_tree(torch, a, b, what: str) -> int:
+    """Two parameter trees equal bit for bit (QTensor codes, scales and
+    zero points, QEmbed codes and scales, tensors); returns the leaves
+    compared."""
+    from turboinfer_tpu_torch.core.qtensor import QEmbed, QTensor
+    n = 0
+    need(set(a) == set(b), f"{what}: keys {sorted(a)} != {sorted(b)}")
+    for k in a:
+        x, y = a[k], b[k]
+        if isinstance(x, dict):
+            n += same_tree(torch, x, y, f"{what}/{k}")
+            continue
+        if isinstance(x, QTensor):
+            need(isinstance(y, QTensor) and x.bits == y.bits
+                 and x.group_size == y.group_size and x.shape == y.shape,
+                 f"{what}/{k}: QTensor layouts differ")
+            pairs = [(x.data, y.data), (x.scales, y.scales)]
+            if x.zero_points is not None or y.zero_points is not None:
+                pairs.append((x.zero_points, y.zero_points))
+        elif isinstance(x, QEmbed):
+            pairs = [(x.data, y.data), (x.scales, y.scales)]
+        else:
+            pairs = [(x, y)]
+        for u, v in pairs:
+            need(u is not None and v is not None and u.dtype == v.dtype
+                 and torch.equal(u, v.to(u.device)),
+                 f"{what}/{k}: not bit-identical")
+            n += 1
+    return n
+
+
+def tokens_or_ties(torch, eng, cfg, prompts, got, want, label: str):
+    """got == want row for row, but where a row's first difference is a
+    tie: the engine's own logits at that position (a B=1 recompute of the
+    want row's prefix through forward_no_cache) put the wanted token
+    within TIE_ULPS bf16 ulps of max|logit| below the top, in at most
+    MAX_TIE_ROWS rows (the two paths reach that position through
+    different batch shapes and kernels). Returns the tie rows."""
+    ties = []
+    for b, (g, w) in enumerate(zip(got, want)):
+        need(len(g) == len(w), f"{label} row {b}: {len(g)} tokens, want "
+                               f"{len(w)}")
+        if g == w:
+            continue
+        i = next(j for j in range(len(w)) if g[j] != w[j])
+        tok = torch.tensor([w[:i]], dtype=torch.int32, device="cuda")
+        lg = eng._model.forward_no_cache(eng.params, cfg, tok)[0, -1].float()
+        ref = lg.abs().max().item()
+        gap = abs(lg[g[i]].item() - lg[w[i]].item())
+        tie_gap = TIE_ULPS * BF16_ULP * 2.0 ** math.floor(math.log2(ref))
+        need(gap <= tie_gap, f"{label} row {b}: token {i - len(prompts[b])} "
+             f"differs ({g[i]} vs {w[i]}) beyond a tie: logit gap {gap} > "
+             f"{tie_gap}")
+        ties.append(dict(row=b, new_token=i - len(prompts[b]), gap=gap,
+                         tie_gap=tie_gap))
+    need(len(ties) <= MAX_TIE_ROWS, f"{label}: {len(ties)} tie rows")
+    return ties
+
+
+def random_adapter(torch, gen, cfg, r: int, layers: int):
+    """PEFT tensors of an adapter on all seven modules of `layers`
+    layers: lora_A [r, in] and lora_B [out, r], N(0, 0.01^2), f32."""
+    H, F, QD, KVD = cfg.hidden_size, cfg.ffn_dim, cfg.q_dim, cfg.kv_dim
+    dims = {"self_attn.q_proj": (QD, H), "self_attn.k_proj": (KVD, H),
+            "self_attn.v_proj": (KVD, H), "self_attn.o_proj": (H, QD),
+            "mlp.gate_proj": (F, H), "mlp.up_proj": (F, H),
+            "mlp.down_proj": (H, F)}
+    t = {}
+    for i in range(layers):
+        for m, (o, n) in dims.items():
+            pre = f"base_model.model.model.layers.{i}.{m}"
+            t[f"{pre}.lora_A.weight"] = 0.01 * torch.randn(
+                (r, n), generator=gen)
+            t[f"{pre}.lora_B.weight"] = 0.01 * torch.randn(
+                (o, r), generator=gen)
+    return t
+
+
+def loader_hf_tinq(torch, kernels, work, cfg, params, long, out):
+    """(a) and (b) of phase 16; returns (a)'s quantized params and
+    launches."""
+    import os
+    import shutil
+    from turboinfer_tpu_torch.config import (InferenceConfig,
+                                             QuantizationConfig, QuantType,
+                                             phi3_mini_4k_config)
+    from turboinfer_tpu_torch.engine.engine import InferenceEngine
+    from turboinfer_tpu_torch.loader import load_engine, load_model_data
+    from turboinfer_tpu_torch.quant.quantizer import (quantize_model_file,
+                                                      quantize_params)
+    L, T = cfg.num_layers, cfg.max_seq_len
+    qc = QuantizationConfig(type=QuantType.INT4, group_size=64)
+    hf = os.path.join(work, "phi3-hf")
+    os.makedirs(hf)
+    tensors = phi3_hf_tensors(params, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    size, n_shards = write_hf_checkpoint(hf, tensors,
+                                         PHI3_MINI_4K_CONFIG_JSON)
+    write_s = time.perf_counter() - t0
+    del tensors
+    t0 = time.perf_counter()
+    data = load_model_data(hf, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    need(data.config == phi3_mini_4k_config(),
+         f"(a) config.json mapped to {data.config}, not "
+         "phi3_mini_4k_config()")
+    need(data.params["layers"]["wq"].is_cuda, "(a) loaded off the card")
+    n_raw = same_tree(torch, data.params, params, "(a) loaded bf16")
+    t0 = time.perf_counter()
+    qp = quantize_params(data.params, qc)
+    torch.cuda.synchronize()
+    quant_ms = (time.perf_counter() - t0) * 1e3
+    del data
+    gc.collect()
+    qmem = quantize_params(params, qc)
+    n_q = same_tree(torch, qp, qmem, "(a) quantized loaded vs in memory")
+    a = dict(shards=n_shards, file_bytes=size, write_s=write_s,
+             write_gb_per_s=size / write_s / 1e9, load_s=load_s,
+             load_gb_per_s=size / load_s / 1e9, quantize_ms=quant_ms,
+             leaves_bit_identical=n_raw + n_q)
+    say(f"  (a) HF checkpoint: {n_shards} bf16 shards, {size / 1e9:.3f} GB "
+        f"written in {write_s:.2f} s ({a['write_gb_per_s']:.2f} GB/s); "
+        f"load_model_data onto the card {load_s:.2f} s "
+        f"({a['load_gb_per_s']:.2f} GB/s, page cache warm); config.json -> "
+        f"phi3_mini_4k_config(); quantize_params int4 g=64 on the card "
+        f"{quant_ms:.1f} ms; {n_raw} bf16 and {n_q} quantized leaves bit "
+        "for bit the in-memory ones")
+    icfg = InferenceConfig(max_seq_len=T, temperature=0.0, seed=0,
+                           eos_token_id=-1, measure_ttft=True)
+    runs = {}
+    for label, p in (("in memory", qmem), ("loaded", qp)):
+        eng = InferenceEngine(p, cfg, icfg, device="cuda")
+        res, counts, stats = run_counted(torch, kernels, eng, long, 64,
+                                         f"(a) {label} B=2 greedy")
+        want = expected_launches(L, 63)
+        need(counts == want, f"(a) {label}: launches {counts} != {want}")
+        runs[label] = ([r.tokens for r in res], stats)
+        del eng
+    need(runs["loaded"][0] == runs["in memory"][0],
+         "(a) the loaded model's tokens differ from the in-memory path's")
+    a.update(generate=runs["loaded"][1], in_memory=runs["in memory"][1])
+    say("  (a) tokens equal the in-memory path's (phase 15 (a)'s path on "
+        "the same weights)")
+    out["hf"] = a
+    del qmem
+    gc.collect()
+    # (b) TINQ
+    tq = os.path.join(work, "phi3.tinq")
+    t0 = time.perf_counter()
+    quantize_model_file(hf, tq, qc, device="cuda")
+    file_s = time.perf_counter() - t0
+    shutil.rmtree(hf)
+    t0 = time.perf_counter()
+    eng = load_engine(tq, icfg, device="cuda")
+    torch.cuda.synchronize()
+    tload_s = time.perf_counter() - t0
+    tbytes = os.path.getsize(tq)
+    from turboinfer_tpu_torch.loader import tinq
+    raw, _, tqc, _ = tinq.load(tq, device="cuda")
+    n_t = same_tree(torch, raw, qp, "(b) TINQ params")
+    need(tqc == qc, f"(b) TINQ quantization config {tqc}")
+    del raw
+    res, counts, stats = run_counted(torch, kernels, eng, long, 64,
+                                     "(b) TINQ B=2 greedy")
+    need(counts == expected_launches(L, 63), f"(b) launches {counts}")
+    need([r.tokens for r in res] == runs["loaded"][0],
+         "(b) the TINQ model's tokens differ from (a)'s")
+    out["tinq"] = dict(file_bytes=tbytes, quantize_model_file_s=file_s,
+                       load_engine_s=tload_s,
+                       load_gb_per_s=tbytes / tload_s / 1e9,
+                       leaves_bit_identical=n_t, generate=stats)
+    say(f"  (b) quantize_model_file (load, int4 g=64, save) {file_s:.2f} s; "
+        f".tinq {tbytes / 1e9:.3f} GB; load_engine {tload_s:.2f} s "
+        f"({out['tinq']['load_gb_per_s']:.2f} GB/s); QTensors bit for bit "
+        "(a)'s; tokens equal (a)'s")
+    del eng
+    os.remove(tq)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return qp, runs["loaded"][1]["launches"]
+
+
+def loader_gguf(torch, work, cfg, params, out):
+    """(c) of phase 16: a 4-layer Phi-3 GGUF (llama.cpp names, F16), and
+    the GGML dequantizers at w_gateup's size."""
+    import os
+    import numpy as np
+    from turboinfer_tpu_torch import native
+    from turboinfer_tpu_torch.loader import gguf, load_gguf
+    from turboinfer_tpu_torch.models import llama
+    Lg = 4
+    cfg4 = cfg.replace(num_layers=Lg)
+    lw = params["layers"]
+
+    def f16(t):
+        return t.to(torch.float16).cpu().numpy()
+    t = {"token_embd.weight": f16(params["embed"]),
+         "output_norm.weight": f16(params["final_norm"]),
+         "output.weight": f16(params["lm_head"].T)}
+    for i in range(Lg):
+        t[f"blk.{i}.attn_norm.weight"] = f16(lw["attn_norm"][i])
+        t[f"blk.{i}.attn_qkv.weight"] = f16(torch.cat(
+            [lw["wq"][i].T, lw["wk"][i].T, lw["wv"][i].T]))
+        t[f"blk.{i}.attn_output.weight"] = f16(lw["wo"][i].T)
+        t[f"blk.{i}.ffn_norm.weight"] = f16(lw["ffn_norm"][i])
+        t[f"blk.{i}.ffn_up.weight"] = f16(torch.cat(
+            [lw["w_gate"][i].T, lw["w_up"][i].T]))
+        t[f"blk.{i}.ffn_down.weight"] = f16(lw["w_down"][i].T)
+    a = "phi3"
+    md = {"general.architecture": a, "general.name": "phi3-mini-4k-4layers",
+          f"{a}.embedding_length": cfg.hidden_size, f"{a}.block_count": Lg,
+          f"{a}.attention.head_count": cfg.num_heads,
+          f"{a}.attention.head_count_kv": cfg.kv_heads,
+          f"{a}.feed_forward_length": cfg.ffn_dim,
+          f"{a}.rope.freq_base": cfg.rope_theta,
+          f"{a}.attention.layer_norm_rms_epsilon": cfg.rms_norm_eps,
+          f"{a}.context_length": cfg.max_seq_len,
+          f"{a}.attention.sliding_window": cfg.sliding_window,
+          "tokenizer.ggml.model": "llama",
+          "tokenizer.ggml.tokens": ["<unk>", "<s>", "</s>"] + [
+              f"<tok{i}>" for i in range(cfg.vocab_size - 3)],
+          "tokenizer.ggml.scores": [0.0] * cfg.vocab_size,
+          "tokenizer.ggml.eos_token_id": 32000}
+    path = os.path.join(work, "phi3-4layers-f16.gguf")
+    t0 = time.perf_counter()
+    gguf.write_gguf(path, md, t)
+    write_s = time.perf_counter() - t0
+    del t
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    data = load_gguf(path, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    c = data.config
+    need((c.architecture, c.num_layers, c.hidden_size, c.num_heads,
+          c.kv_heads, c.head_dim_, c.ffn_dim, c.vocab_size, c.sliding_window,
+          c.max_seq_len, c.rope_mode, c.tie_embeddings) ==
+         (cfg4.architecture, Lg, cfg4.hidden_size, cfg4.num_heads,
+          cfg4.kv_heads, cfg4.head_dim_, cfg4.ffn_dim, cfg4.vocab_size,
+          cfg4.sliding_window, cfg4.max_seq_len, cfg4.rope_mode, False)
+         and abs(c.rms_norm_eps - cfg4.rms_norm_eps) < 1e-9,
+         f"(c) GGUF metadata mapped to {c}")
+    need(data.tokenizer is not None and data.tokenizer.eos_id == 32000,
+         "(c) no tokenizer from the GGUF metadata")
+    os.remove(path)
+    say(f"  (c) GGUF F16, {Lg} of 32 layers, llama.cpp names (attn_qkv, "
+        f"double-width ffn_up): {size / 1e9:.3f} GB written in {write_s:.2f} "
+        f"s, load_gguf onto the card {load_s:.2f} s "
+        f"({size / load_s / 1e9:.2f} GB/s, native index "
+        f"{native.available()})")
+    mem = {**params, "layers": {k: v[:Lg] for k, v in lw.items()}}
+    gen = torch.Generator().manual_seed(16)
+    tok = torch.randint(1, cfg.vocab_size, (1, 512), generator=gen,
+                        dtype=torch.int32).cuda()
+    lg = {}
+    for label, p, c in (("gguf", data.params, data.config),
+                        ("memory", mem, cfg4)):
+        lg[label] = llama.forward_no_cache(p, c, tok)[0].float().cpu()
+    del data
+    what = f"(c) GGUF f32 logits vs the in-memory bf16 params L={Lg}"
+    cmp = {"all 512 positions": logits_agree(
+        torch, lg["gguf"], lg["memory"], what + ", all 512 positions", 0,
+        False, False)[0], "last position": logits_agree(
+        torch, lg["gguf"][-1:], lg["memory"][-1:], what + ", last position",
+        0, False, True)[0]}
+    res = dict(file_bytes=size, write_s=write_s, load_s=load_s,
+               load_gb_per_s=size / load_s / 1e9, logits=cmp)
+    # the dequantizers at w_gateup's size (16384 x 3072), random blocks
+    # with finite fp16 scale fields
+    need(native.available(), f"(c) the native library did not build: "
+         f"{native.last_error()}")
+    n = 2 * cfg.ffn_dim * cfg.hidden_size
+    rng = np.random.default_rng(16)
+    deq = {}
+    for name, fields in (("Q4_0", (0,)), ("Q8_0", (0,)), ("Q4_K", (0, 2)),
+                         ("Q6_K", (208,))):
+        ty = {v: k for k, v in gguf.GGML_TYPE_NAMES.items()}[name]
+        be, bb = gguf._BLOCK_LAYOUT[ty]
+        blocks = rng.integers(0, 256, size=(n // be, bb), dtype=np.uint8)
+        for o in fields:
+            blocks[:, o:o + 2] = rng.normal(scale=0.02, size=n // be).astype(
+                np.float16).view(np.uint8).reshape(-1, 2)
+        raw = blocks.reshape(-1)
+        t0 = time.perf_counter()
+        got = native.ggml_dequant(raw, ty, n)
+        nat_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = gguf.dequantize_ggml_numpy(raw, ty, n)
+        np_s = time.perf_counter() - t0
+        need(got is not None and np.array_equal(got, want),
+             f"(c) native {name} dequant differs from numpy")
+        deq[name] = dict(native_s=nat_s, numpy_s=np_s, elements=n,
+                         native_gelem_per_s=n / nat_s / 1e9)
+        say(f"  (c) dequant {name} {n} elements: native {nat_s * 1e3:.1f} ms "
+            f"({n / nat_s / 1e9:.2f} Gelem/s), numpy {np_s * 1e3:.1f} ms, "
+            "equal bit for bit")
+    res["dequant"] = deq
+    out["gguf"] = res
+
+
+def loader_lora(torch, kernels, work, out):
+    """(d) of phase 16: the 7B int4 under an r=16 PEFT adapter on all
+    seven modules, through load_engine(.tinq, lora=...)."""
+    import os
+    from turboinfer_tpu_torch.config import InferenceConfig, llama7b_config
+    from turboinfer_tpu_torch.engine.scheduler import PagedContinuousScheduler
+    from turboinfer_tpu_torch.kernels.dispatch import prepare_params
+    from turboinfer_tpu_torch.loader import (load_engine, load_lora,
+                                             strip_lora, tinq)
+    from turboinfer_tpu_torch.loader.safetensors import write_safetensors
+    from turboinfer_tpu_torch.loader.synthetic import \
+        create_synthetic_quantized_model
+    from turboinfer_tpu_torch.models import llama
+    L, B, S, NEW, T, R = 32, 8, 512, 64, 1024, 16
+    cfg = llama7b_config(num_layers=L, max_seq_len=T)
+    base = os.path.join(work, "llama7b-int4.tinq")
+    ad = os.path.join(work, "adapter")
+    os.makedirs(ad)
+    gen = torch.Generator().manual_seed(17)
+    t0 = time.perf_counter()
+    tinq.save(base, create_synthetic_quantized_model(
+        cfg, bits=4, group_size=64, device="cuda", seed=0).params, cfg)
+    write_safetensors(os.path.join(ad, "adapter_model.safetensors"),
+                      random_adapter(torch, gen, cfg, R, L))
+    with open(os.path.join(ad, "adapter_config.json"), "w") as f:
+        json.dump({"peft_type": "LORA", "r": R, "lora_alpha": 32,
+                   "use_rslora": False, "target_modules": [
+                       "q_proj", "k_proj", "v_proj", "o_proj",
+                       "gate_proj", "up_proj", "down_proj"]}, f)
+    write_s = time.perf_counter() - t0
+    icfg = InferenceConfig(max_seq_len=T, temperature=0.0, seed=0,
+                           eos_token_id=-1, measure_ttft=True)
+    t0 = time.perf_counter()
+    eng = load_engine(base, icfg, lora=ad, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    os.remove(base)
+    need(all(f"lora_{s}_{x}" in eng.params["layers"] for x in "ab" for s in (
+        "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")),
+        "(d) adapter slots missing")
+    from turboinfer_tpu_torch.engine.engine import InferenceEngine
+    plain = InferenceEngine(strip_lora(eng.params), cfg, icfg, device="cuda")
+    say(f"  (d) 7B int4 g=64 L={L} as .tinq + r={R} adapter on all seven "
+        f"modules written in {write_s:.2f} s; load_engine(lora=) "
+        f"{load_s:.2f} s")
+    prompts = torch.randint(1, cfg.vocab_size, (B, S),
+                            generator=torch.Generator().manual_seed(0)
+                            ).tolist()
+    want = expected_launches(L, NEW - 1)
+    runs = {"base": [], "lora": []}
+    toks = {}
+    for rep in range(2):
+        for label, e in (("base", plain), ("lora", eng)):
+            res, counts, stats = run_counted(
+                torch, kernels, e, prompts, NEW,
+                f"(d) {label} B={B} prompts {S} run {rep}")
+            need(counts == want, f"(d) {label}: launches {counts} != {want}")
+            runs[label].append(stats)
+            toks[label] = [r.tokens for r in res]
+    lora_step = statistics.median(r["decode_ms_per_step"]
+                                  for r in runs["lora"])
+    base_step = statistics.median(r["decode_ms_per_step"]
+                                  for r in runs["base"])
+    differ = sum(a != b for a, b in zip(toks["lora"], toks["base"]))
+    say(f"  (d) decode ms/step interleaved: base {base_step:.3f}, with the "
+        f"adapter {lora_step:.3f} (+{lora_step - base_step:.3f}); prefill "
+        f"{statistics.median(r['prefill_ms'] for r in runs['base']):.2f} vs "
+        f"{statistics.median(r['prefill_ms'] for r in runs['lora']):.2f} ms; "
+        f"the adapter changed {differ} of {B} rows")
+    res = dict(write_s=write_s, load_engine_s=load_s, runs=runs,
+               decode_ms_per_step_base=base_step,
+               decode_ms_per_step_lora=lora_step,
+               rows_changed_by_adapter=differ)
+    del plain
+    # the same adapter through the paged scheduler
+    sched = PagedContinuousScheduler(eng.params, cfg, icfg, batch_slots=B,
+                                     page_size=256, device="cuda")
+    kernels.reset_launch_counts()
+    ids = [sched.submit(p, NEW) for p in prompts]
+    done = sched.run()
+    counts = kernels.launch_counts()
+    need(counts["paged_attention"] > 0, f"(d) paged launches {counts}")
+    res["paged_ties"] = tokens_or_ties(
+        torch, eng, cfg, prompts, [done[i].tokens for i in ids],
+        toks["lora"], "(d) paged + adapter")
+    say(f"  (d) paged scheduler with the adapter: tokens equal "
+        f"generate_batch's{'' if not res['paged_ties'] else ' but tie rows ' + str(res['paged_ties'])}; "
+        f"launches {counts}")
+    del sched, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # L=2: kernels against plain with the adapter
+    cfg2 = cfg.replace(num_layers=2)
+    p2 = create_synthetic_quantized_model(cfg2, bits=4, group_size=64,
+                                          device="cuda", seed=1).params
+    ad2 = os.path.join(work, "adapter2")
+    os.makedirs(ad2)
+    write_safetensors(os.path.join(ad2, "adapter_model.safetensors"),
+                      random_adapter(torch, gen, cfg2, R, 2))
+    with open(os.path.join(ad2, "adapter_config.json"), "w") as f:
+        json.dump({"r": R, "lora_alpha": 32}, f)
+    p2["layers"].update(load_lora(ad2, cfg2, device="cuda"))
+    res["vs_plain"] = kernels_vs_plain(
+        torch, llama, cfg2, prepare_params(p2),
+        lambda B: {"decode_attention": 2}, "7B + LoRA", 17,
+        decided_agree=True)
+    out["lora"] = res
+
+
+def loader_calibrate(torch, cfg, params, qp, out):
+    """(e) of phase 16: calibrated int4 g=64 of Phi-3-mini on 8 x 512
+    tokens, and its activation-weighted reconstruction error beside
+    (a)'s uncalibrated QTensors."""
+    from turboinfer_tpu_torch.config import QuantizationConfig, QuantType
+    from turboinfer_tpu_torch.core.qtensor import dequantize
+    from turboinfer_tpu_torch.quant import calibrate
+    qc = QuantizationConfig(type=QuantType.INT4, group_size=64,
+                            calibration_samples=8, calibration_max_len=512)
+    toks = calibrate.default_calibration_tokens(qc, cfg, seed=16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    moments = calibrate.collect_moments(params, cfg, toks)
+    torch.cuda.synchronize()
+    moments_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cal = calibrate.calibrated_quantize_params(params, qc, cfg,
+                                               sample_tokens=toks)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    errs = {}
+    for slot in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        num = {"uncalibrated": 0.0, "calibrated": 0.0}
+        den = 0.0
+        for li in range(cfg.num_layers):
+            w = params["layers"][slot][li].float()
+            m = moments[slot][li].float()
+            m = torch.maximum(m, 0.01 * m.mean())[:, None]
+            den += (m * w * w).sum().item()
+            for label, q in (("uncalibrated", qp), ("calibrated", cal)):
+                wq = dequantize(q["layers"][slot].layer(li))
+                num[label] += (m * (w - wq) ** 2).sum().item()
+        errs[slot] = {k: v / den for k, v in num.items()}
+    tot = {k: sum(e[k] for e in errs.values()) for k in
+           ("uncalibrated", "calibrated")}
+    need(tot["calibrated"] < tot["uncalibrated"],
+         f"(e) calibration did not lower the weighted error: {tot}")
+    say(f"  (e) calibrated int4 g=64 on {len(toks)} x {len(toks[0])} tokens: "
+        f"moments {moments_s:.2f} s, calibrated_quantize_params "
+        f"{cal_s:.2f} s; activation-weighted relative error (sum over "
+        f"slots) {tot['calibrated']:.5f} vs {tot['uncalibrated']:.5f} "
+        "uncalibrated")
+    for slot, e in errs.items():
+        say(f"    {slot}: {e['calibrated']:.6f} vs {e['uncalibrated']:.6f}")
+    out["calibrate"] = dict(moments_s=moments_s, seconds=cal_s,
+                            tokens=[len(toks), len(toks[0])],
+                            weighted_rel_err=errs, total=tot)
+
+
+def phase_loader(torch, report):
+    """Phase 16: weights in and out at full width. Phi-3-mini-4k's bf16
+    weights drawn from a seed: (a) written as an HF checkpoint directory
+    (bf16 shards of at most 5 GB under Phi-3's HF names, the index and
+    the published config.json), loaded onto the card by load_model_data
+    and quantized there to int4 g=64: bit for bit the in-memory
+    quantization, then generate_batch B=2 (prompts 3000/3500, 64 new)
+    with tokens equal to the in-memory path's; (b) quantize_model_file to
+    .tinq and load_engine of it: the same QTensors and tokens; (c) a
+    4-layer F16 GGUF under llama.cpp's names against the in-memory
+    params (5% rule, ties), and the native GGML dequantizers against
+    numpy at w_gateup's size; (d) the 7B int4 L=32 as .tinq under an
+    r=16 PEFT adapter on all seven modules through load_engine(lora=):
+    decode ms/step with and without it, interleaved; the paged
+    scheduler's tokens against generate_batch's; L=2 kernels against
+    plain with the adapter; (e) calibrated quantization of Phi-3-mini on
+    8 x 512 tokens. The files live in _smoke_files/ beside this script
+    (gitignored), which must have FILES_NEED_BYTES free, and are removed
+    at the end."""
+    import os
+    import shutil
+    from turboinfer_tpu_torch import kernels, native
+    from turboinfer_tpu_torch.config import phi3_mini_4k_config
+    from turboinfer_tpu_torch.models import llama
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "_smoke_files")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    free = shutil.disk_usage(work).free
+    need(free >= FILES_NEED_BYTES, f"phase 16 needs {FILES_NEED_BYTES} bytes "
+         f"free beside the script for its files, has {free}")
+    need(native.available(), f"the native library did not build: "
+                             f"{native.last_error()}")
+    say(f"phase 16: weights in and out; files in {work} ({free / 2**30:.0f} "
+        f"GiB free); native library {native.version()} built, OpenMP "
+        f"{native.openmp()} (GGUF index and dequant on the native path)")
+    out = dict(native=native.version(), native_openmp=native.openmp(),
+               free_bytes=free)
+    cfg = phi3_mini_4k_config()
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = llama.init_params(cfg, seed=16, device="cuda")
+        torch.cuda.synchronize()
+        say(f"  Phi-3-mini-4k bf16 weights drawn on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+        gen = torch.Generator().manual_seed(15)
+        long = [torch.randint(1, cfg.vocab_size, (n,), generator=gen
+                              ).tolist() for n in (3000, 3500)]
+        qp, launches = loader_hf_tinq(torch, kernels, work, cfg, params,
+                                      long, out)
+        loader_gguf(torch, work, cfg, params, out)
+        loader_calibrate(torch, cfg, params, qp, out)
+        del params, qp
+        gc.collect()
+        torch.cuda.empty_cache()
+        loader_lora(torch, kernels, work, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    report["loader"] = out
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15")
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16")
     ap.add_argument("--json", default=None,
                     help="also write every measurement to this JSON file")
     args = ap.parse_args(argv)
@@ -3979,6 +4602,7 @@ def main(argv=None) -> int:
         gemma2_launches = run(13, phase_gemma2, {})
         gemma3_launches = run(14, phase_gemma3, {})
         phi3_launches = run(15, phase_phi3, {})
+        files_launches = run(16, phase_loader, {})
     except (SmokeError, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         if args.json:
@@ -3998,7 +4622,8 @@ def main(argv=None) -> int:
     # launches_w4a8 from that run for every kernel; launches_gemma2 from
     # phase 13 (a)'s run (windowed and softcapped flash and decode),
     # launches_gemma3 from phase 14 (a)'s (head dim 256), launches_phi3
-    # from phase 15 (a)'s (head dim 96)
+    # from phase 15 (a)'s (head dim 96), launches_files from phase 16
+    # (a)'s run of the Phi-3 model loaded from its HF files
     kern = []
     for name in kernels.wrappers():
         r = results.get(name, {})
@@ -4020,6 +4645,7 @@ def main(argv=None) -> int:
                      "launches_gemma2": gemma2_launches.get(name, 0),
                      "launches_gemma3": gemma3_launches.get(name, 0),
                      "launches_phi3": phi3_launches.get(name, 0),
+                     "launches_files": files_launches.get(name, 0),
                      "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
                      "plain_ms": r.get("plain_ms"),
                      "bound_ms": r.get("bound_ms"),

@@ -1635,3 +1635,159 @@ def test_cuda_head_dim_80_is_refused(D):
             codes.clone(), None, None,
             torch.arange(8, device="cuda"), 0, 16)
     assert [w.launches for w in counted] == before
+
+
+# -- weights in and out: files loaded onto the card, LoRA, native dequant --
+
+def _loader_model(tmp_path):
+    """A tiny llama (D=64, GQA 4:2) as a bf16 HF directory written by the
+    port's writers, and its in-memory bf16 params."""
+    import json
+    from turboinfer_tpu_torch.config import ModelConfig
+    from turboinfer_tpu_torch.loader import safetensors as st
+    from turboinfer_tpu_torch.models import llama
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                      num_heads=4, num_kv_heads=2, intermediate_size=512,
+                      max_seq_len=128, architecture="llama", name="tiny")
+    params = llama.init_params(cfg, seed=3, device="cpu")
+    lw = params["layers"]
+    t = {"model.embed_tokens.weight": params["embed"],
+         "model.norm.weight": params["final_norm"],
+         "lm_head.weight": params["lm_head"].T}
+    names = dict(wq="self_attn.q_proj", wk="self_attn.k_proj",
+                 wv="self_attn.v_proj", wo="self_attn.o_proj",
+                 w_gate="mlp.gate_proj", w_up="mlp.up_proj",
+                 w_down="mlp.down_proj")
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}"
+        t[f"{p}.input_layernorm.weight"] = lw["attn_norm"][i]
+        t[f"{p}.post_attention_layernorm.weight"] = lw["ffn_norm"][i]
+        for slot, n in names.items():
+            t[f"{p}.{n}.weight"] = lw[slot][i].T
+    d = tmp_path / "hf"
+    d.mkdir()
+    st.write_safetensors(str(d / "model.safetensors"), t)
+    (d / "config.json").write_text(json.dumps(
+        {"model_type": "llama", "vocab_size": 512, "hidden_size": 256,
+         "num_hidden_layers": 2, "num_attention_heads": 4,
+         "num_key_value_heads": 2, "intermediate_size": 512,
+         "max_position_embeddings": 128}))
+    return str(d), cfg, params
+
+
+@pytest.mark.cuda
+def test_cuda_file_loaded_onto_cuda_matches_cpu_load(tmp_path):
+    """A bf16 HF directory loaded straight onto the card: the params equal
+    the CPU load's and the in-memory weights bit for bit, int4 g=64
+    quantized on the card equals the CPU quantization, and the engine's
+    greedy tokens equal those of the CPU-loaded params moved to the card;
+    a TINQ round trip through the card gives the same tokens."""
+    _need_cuda()
+    from turboinfer_tpu_torch.config import (InferenceConfig,
+                                             QuantizationConfig, QuantType)
+    from turboinfer_tpu_torch.engine.engine import InferenceEngine
+    from turboinfer_tpu_torch.loader import load_engine, load_model_data, tinq
+    from turboinfer_tpu_torch.models.common import params_to
+    from turboinfer_tpu_torch.quant.quantizer import quantize_params
+    d, cfg, params = _loader_model(tmp_path)
+    on_card = load_model_data(d, device="cuda")
+    on_cpu = load_model_data(d, device="cpu")
+    assert on_card.params["layers"]["wq"].is_cuda
+    for a, b, c in ((on_card.params["layers"][k], on_cpu.params["layers"][k],
+                     params["layers"][k]) for k in params["layers"]):
+        assert torch.equal(a.cpu(), b) and torch.equal(b, c)
+    qc = QuantizationConfig(type=QuantType.INT4, group_size=64)
+    q_card = quantize_params(on_card.params, qc)
+    q_cpu = quantize_params(on_cpu.params, qc)
+    for k in ("wq", "wo", "w_down"):
+        assert torch.equal(q_card["layers"][k].data.cpu(),
+                           q_cpu["layers"][k].data)
+        assert torch.equal(q_card["layers"][k].scales.cpu(),
+                           q_cpu["layers"][k].scales)
+    icfg = InferenceConfig(max_seq_len=128, temperature=0.0, eos_token_id=-1)
+    prompts = [[1, 5, 9, 33, 7, 80], [250, 2, 11]]
+    want = [r.tokens for r in InferenceEngine(
+        params_to(q_cpu, "cuda"), cfg, icfg,
+        device="cuda").generate_batch(prompts, 12)]
+    got = [r.tokens for r in InferenceEngine(
+        q_card, cfg, icfg, device="cuda").generate_batch(prompts, 12)]
+    assert got == want
+    path = str(tmp_path / "m.tinq")
+    tinq.save(path, q_card, cfg, qc)
+    eng = load_engine(path, icfg, device="cuda")
+    assert [r.tokens for r in eng.generate_batch(prompts, 12)] == want
+
+
+@pytest.mark.cuda
+def test_cuda_lora_on_int4_matches_plain(tmp_path):
+    """An int4 base under an adapter on every slot: the kernels' prefill
+    and decode logits against the plain path's on the CPU within 2% of
+    max|logit|, greedy tokens equal, and the paged scheduler's tokens
+    equal generate_batch's on the card."""
+    _need_cuda()
+    from turboinfer_tpu_torch.config import (InferenceConfig,
+                                             QuantizationConfig, QuantType)
+    from turboinfer_tpu_torch.engine.engine import InferenceEngine
+    from turboinfer_tpu_torch.engine.scheduler import PagedContinuousScheduler
+    from turboinfer_tpu_torch.kernels.dispatch import prepare_params
+    from turboinfer_tpu_torch.models import llama
+    from turboinfer_tpu_torch.models.common import params_to
+    from turboinfer_tpu_torch.quant.quantizer import quantize_params
+    _, cfg, params = _loader_model(tmp_path)
+    q = quantize_params(params, QuantizationConfig(type=QuantType.INT4,
+                                                   group_size=64))
+    gen = torch.Generator().manual_seed(4)
+    L, r = cfg.num_layers, 8
+    dims = dict(wq=(256, 256), wk=(256, 128), wv=(256, 128), wo=(256, 256),
+                w_gate=(256, 512), w_up=(256, 512), w_down=(512, 256))
+    for slot, (n_in, n_out) in dims.items():
+        q["layers"][f"lora_{slot}_a"] = (0.05 * torch.randn(
+            (L, n_in, r), generator=gen)).to(torch.bfloat16)
+        q["layers"][f"lora_{slot}_b"] = (0.05 * torch.randn(
+            (L, r, n_out), generator=gen)).to(torch.bfloat16)
+    sides = {dev: prepare_params(params_to(q, dev)) for dev in ("cuda", "cpu")}
+    tok = torch.randint(1, 512, (2, 40), generator=gen, dtype=torch.int32)
+    out = {}
+    for dev, p in sides.items():
+        cache = llama.init_cache(cfg, 2, device=dev)
+        lg, cache = llama.forward(p, cfg, tok.to(dev), cache,
+                                  fresh_prefill=True)
+        nxt = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        step, _ = llama.forward(p, cfg, nxt.to(dev), cache)
+        out[dev] = (lg.float().cpu(), step.float().cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert (a - b).abs().max().item() <= 2e-2 * b.abs().max().item()
+    icfg = InferenceConfig(max_seq_len=128, temperature=0.0, eos_token_id=-1)
+    prompts = [[1, 5, 9, 33, 7, 80], [250, 2, 11]]
+    want = [r.tokens for r in InferenceEngine(
+        sides["cuda"], cfg, icfg, device="cuda").generate_batch(prompts, 12)]
+    sched = PagedContinuousScheduler(sides["cuda"], cfg, icfg, batch_slots=2,
+                                     page_size=16, device="cuda")
+    ids = [sched.submit(p, 12) for p in prompts]
+    res = sched.run()
+    assert [res[i].tokens for i in ids] == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["Q4_0", "Q8_0", "Q4_K", "Q6_K"])
+def test_cuda_machine_native_dequant_matches_numpy(name):
+    """The native dequantizer builds on the GPU machine and equals the
+    numpy forms on random blocks (fp16 scale fields finite)."""
+    _need_cuda()
+    import numpy as np
+    from turboinfer_tpu_torch import native
+    from turboinfer_tpu_torch.loader import gguf
+    assert native.available(), native.last_error()
+    t = {v: k for k, v in gguf.GGML_TYPE_NAMES.items()}[name]
+    be, bb = gguf._BLOCK_LAYOUT[t]
+    nb = 4096 // be * 64
+    rng = np.random.default_rng(t)
+    blocks = rng.integers(0, 256, size=(nb, bb), dtype=np.uint8)
+    off = 208 if name == "Q6_K" else 0
+    for o in ((0, 2) if name == "Q4_K" else (off,)):
+        blocks[:, o:o + 2] = rng.normal(scale=0.05, size=nb).astype(
+            np.float16).view(np.uint8).reshape(nb, 2)
+    raw = blocks.reshape(-1)
+    got = native.ggml_dequant(raw, t, nb * be)
+    np.testing.assert_array_equal(got, gguf.dequantize_ggml_numpy(
+        raw, t, nb * be))

@@ -53,6 +53,15 @@ def test_no_jax_in_the_port(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_the_loader_slice_is_under_the_import_rule():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("native.py", "loader/loader.py", "loader/safetensors.py",
+                "loader/gguf.py", "loader/mapping.py", "loader/tinq.py",
+                "loader/lora.py", "loader/ckpt.py", "tokenizer/bpe.py",
+                "quant/calibrate.py"):
+        assert f"turboinfer_tpu_torch/{mod}" in names
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -67,6 +76,25 @@ def test_entry_points_default_to_cuda(monkeypatch):
                      llama.init_params(cfg, device="cpu"), cfg)):
         with pytest.raises(DeviceError):
             call()
+
+
+def test_loader_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The loaders place weights on the card unless asked for the CPU."""
+    from turboinfer_tpu_torch.loader import (load_engine, load_model_data,
+                                             save_checkpoint, load_checkpoint,
+                                             tinq)
+    cfg = tiny_config(dtype=torch.float32, num_layers=1)
+    params = llama.init_params(cfg, device="cpu")
+    tinq.save(str(tmp_path / "m.tinq"), params, cfg)
+    save_checkpoint(str(tmp_path / "ck"), params, cfg)
+    _no_cuda(monkeypatch)
+    for call in (lambda: load_model_data(str(tmp_path / "m.tinq")),
+                 lambda: load_engine(str(tmp_path / "m.tinq")),
+                 lambda: load_checkpoint(str(tmp_path / "ck"))):
+        with pytest.raises(DeviceError):
+            call()
+    eng = load_engine(str(tmp_path / "m.tinq"), device="cpu")
+    assert len(eng.generate([1, 2, 3], 3, temperature=0.0).tokens) == 6
 
 
 @pytest.mark.parametrize("sched", [ContinuousBatchingScheduler,

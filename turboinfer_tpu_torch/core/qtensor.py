@@ -155,16 +155,27 @@ def _linspace_f32(start: float, stop: float, num: int) -> torch.Tensor:
 
 
 def _mse_scale(xg: torch.Tensor, base_scale: torch.Tensor, qmax: float,
-               num_grid: int = 16, shrink_min: float = 0.30) -> torch.Tensor:
+               num_grid: int = 16, shrink_min: float = 0.30,
+               moments: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-group scale minimising the round-trip squared error, the port
     of the JAX package's _mse_scale: shrink factors c from 1.0 down to
     shrink_min applied to the absmax scale (c = 1 first, so never worse
-    than absmax). xg: [G, g, N] f32; base_scale: [G, N]."""
+    than absmax). xg: [G, g, N] f32; base_scale: [G, N]. moments: [G, g]
+    per-input-channel activation second moments E[x_k^2] (calibration,
+    quant/calibrate.py) weighting each channel's error, floored at 1% of
+    their mean so channels calibration never drove still count."""
     best, best_err = base_scale, None
+    m = None
+    if moments is not None:
+        mf = moments.to(torch.float32)
+        m = torch.maximum(mf, 0.01 * mf.mean())[:, :, None]       # [G, g, 1]
     for c in _linspace_f32(1.0, shrink_min, num_grid).to(xg.device):
         s = torch.clamp(base_scale * c, min=1e-12)
         q = torch.clamp(torch.round(xg / s[:, None, :]), -qmax, qmax)
-        err = torch.square(q * s[:, None, :] - xg).sum(dim=1)      # [G, N]
+        sq = torch.square(q * s[:, None, :] - xg)
+        if m is not None:
+            sq = sq * m
+        err = sq.sum(dim=1)                                        # [G, N]
         if best_err is None:
             best_err = err
         else:
@@ -173,16 +184,26 @@ def _mse_scale(xg: torch.Tensor, base_scale: torch.Tensor, qmax: float,
     return best
 
 
+def _div(a: torch.Tensor, v: float) -> torch.Tensor:
+    """a / v as an IEEE division on every device: CUDA turns a Python
+    scalar divisor into a multiply by its reciprocal, which rounds
+    differently from the JAX package's division (and from the CPU's)."""
+    return a / torch.full_like(a, v)
+
+
 def quantize(w: torch.Tensor, qtype: QuantType, *, group_size: int = 64,
              symmetric: bool = True, scale_dtype=torch.bfloat16,
-             scale_method: str = "absmax") -> QTensor:
+             scale_method: str = "absmax",
+             weight_moments: Optional[torch.Tensor] = None) -> QTensor:
     """Group-wise quantization of a 2-D weight [K, N] along K, the JAX
     package's arithmetic op for op. Symmetric: absmax (or the "mse"
     shrink search) scales, codes in [-127, 127] / [-7, 7], no zero
     points. Asymmetric: scale = (max - min) / 255 (/ 15 for int4),
     zp_f = round(min / scale) - lo, codes round(x / scale) - zp_f
     clipped to [-128, 127] / [-8, 7], zero points stored as -zp_f in
-    scale_dtype, so dequant is (q - zp) * scale."""
+    scale_dtype, so dequant is (q - zp) * scale. weight_moments: [K]
+    per-input-channel E[x^2] from calibration; the symmetric scale
+    search then weighs each channel's error by them (see _mse_scale)."""
     if w.dim() != 2:
         raise QuantizationError(f"quantize expects 2-D [K, N], got "
                                 f"{tuple(w.shape)}")
@@ -190,9 +211,11 @@ def quantize(w: torch.Tensor, qtype: QuantType, *, group_size: int = 64,
         raise QuantizationError(f"unsupported qtype {qtype}")
     if scale_method not in ("absmax", "mse"):
         raise QuantizationError(f"unknown scale_method '{scale_method}'")
-    if scale_method == "mse" and not symmetric:
-        raise QuantizationError("scale_method='mse' requires symmetric "
-                                "quantization")
+    if (scale_method == "mse" or weight_moments is not None) \
+            and not symmetric:
+        raise QuantizationError(
+            "scale_method='mse' / calibrated quantization requires "
+            "symmetric quantization")
     K, N = w.shape
     bits = 8 if qtype == QuantType.INT8 else 4
     g = group_size if group_size > 0 else K
@@ -203,21 +226,29 @@ def quantize(w: torch.Tensor, qtype: QuantType, *, group_size: int = 64,
             f"int4 needs even K and even group_size dividing K "
             f"(K={K}, group_size={g})")
     xg = w.to(torch.float32).reshape(K // g, g, N)
+    mg = None
+    if weight_moments is not None:
+        mf = torch.as_tensor(weight_moments, dtype=torch.float32,
+                             device=w.device).reshape(-1)
+        if mf.shape[0] != K:
+            raise QuantizationError(
+                f"weight_moments length {mf.shape[0]} != K={K}")
+        mg = mf.reshape(K // g, g)
     zp = None
     if symmetric:
         qmax = 127.0 if bits == 8 else 7.0
         absmax = xg.abs().amax(dim=1)                              # [G, N]
-        scale = torch.where(absmax > 0, absmax / qmax,
+        scale = torch.where(absmax > 0, _div(absmax, qmax),
                             torch.ones_like(absmax))
-        if scale_method == "mse":
-            scale = _mse_scale(xg, scale, qmax)
+        if scale_method == "mse" or mg is not None:
+            scale = _mse_scale(xg, scale, qmax, moments=mg)
         q = torch.clamp(torch.round(xg / scale[:, None, :]), -qmax, qmax)
     else:
         levels, lo, hi = (255.0, -128.0, 127.0) if bits == 8 else \
             (15.0, -8.0, 7.0)
         mn = xg.amin(dim=1)
         rng = xg.amax(dim=1) - mn
-        scale = torch.where(rng > 0, rng / levels, torch.ones_like(rng))
+        scale = torch.where(rng > 0, _div(rng, levels), torch.ones_like(rng))
         zp_f = torch.round(mn / scale) - lo                        # [G, N]
         q = torch.clamp(torch.round(xg / scale[:, None, :])
                         - zp_f[:, None, :] + 0.0, lo, hi)
@@ -247,6 +278,66 @@ def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
     return w.reshape(lead + (K, N)).to(dtype)
 
 
+def quantization_error(w: torch.Tensor, qt: QTensor) -> float:
+    """Relative L2 reconstruction error ||w - dequant(qt)|| / ||w||."""
+    wf = w.to(torch.float32)
+    num = torch.linalg.vector_norm(wf - dequantize(qt, torch.float32))
+    den = torch.clamp(torch.linalg.vector_norm(wf), min=1e-12)
+    return float(num / den)
+
+
+def estimate_compression_ratio(shape: Tuple[int, int], qtype: QuantType,
+                               group_size: int = 64, symmetric: bool = True,
+                               from_dtype_bytes: int = 4) -> float:
+    """Theoretical compression ratio against an fp source, counting
+    scales and zero points (at 4 bytes each, as the JAX package counts
+    them)."""
+    K, N = shape
+    G = -(-K // (group_size if group_size > 0 else K))
+    if qtype == QuantType.INT8:
+        data = K * N
+    elif qtype == QuantType.INT4:
+        data = (K // 2) * N
+    elif qtype == QuantType.FLOAT16:
+        data = 2 * K * N
+    else:
+        return 1.0
+    meta = G * N * 4 * (1 if symmetric else 2)
+    return (from_dtype_bytes * K * N) / float(data + meta)
+
+
+def _np(t: torch.Tensor):
+    """Host numpy view of a tensor; bf16 as its uint16 bits."""
+    t = t.detach().to("cpu").contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("uint16")
+    return t.numpy()
+
+
+def to_numpy_blobs(qt: QTensor):
+    """Host-side numpy arrays of a QTensor's storage (bf16 scales and
+    zero points as their uint16 bits) for persistence."""
+    blobs = {"data": _np(qt.data), "scales": _np(qt.scales)}
+    if qt.zero_points is not None:
+        blobs["zero_points"] = _np(qt.zero_points)
+    return blobs
+
+
+def from_numpy_blobs(blobs, bits: int, group_size: int,
+                     shape: Tuple[int, int], scale_dtype=torch.bfloat16,
+                     device="cpu") -> QTensor:
+    """Inverse of to_numpy_blobs: uint16 scale / zero-point blobs are
+    read as scale_dtype bits (bf16), any other dtype as it is."""
+    def t(a):
+        a = torch.from_numpy(a.copy())
+        return (a.view(scale_dtype) if a.dtype == torch.uint16 else a
+                ).to(device)
+    zp = blobs.get("zero_points")
+    return QTensor(data=t(blobs["data"]), scales=t(blobs["scales"]),
+                   zero_points=None if zp is None else t(zp), bits=bits,
+                   group_size=group_size, shape=tuple(shape))
+
+
 class QEmbed(NamedTuple):
     """Per-row symmetric int8 embedding table: data [V, H] int8, scales
     [V, 1] f32. Lookup dequantizes only the gathered rows."""
@@ -257,7 +348,8 @@ class QEmbed(NamedTuple):
 def quantize_embed(w: torch.Tensor) -> QEmbed:
     """[V, H] fp -> per-row symmetric int8."""
     wf = w.to(torch.float32)
-    s = torch.clamp(wf.abs().amax(dim=1, keepdim=True), min=1e-12) / 127.0
+    s = _div(torch.clamp(wf.abs().amax(dim=1, keepdim=True), min=1e-12),
+             127.0)
     q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
     return QEmbed(data=q, scales=s)
 

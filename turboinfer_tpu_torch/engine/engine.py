@@ -68,17 +68,20 @@ class InferenceEngine:
     plain PyTorch versions and must be asked for. Params are moved to
     the device and fused once (kernels.dispatch.prepare_params). The
     cache stores config.kv_cache_dtype (models/common.resolve_kv_dtype:
-    "model", "bf16", "int8" with scale planes, "fp8")."""
+    "model", "bf16", "int8" with scale planes, "fp8"). tokenizer: kept
+    as `self.tokenizer` (loader.load_engine passes the file's); the text
+    methods that use it come in a later slice."""
 
     def __init__(self, params: Dict[str, Any], model_config: ModelConfig,
                  config: Optional[InferenceConfig] = None,
-                 device="cuda"):
+                 tokenizer=None, device="cuda"):
         self.device = resolve_device(device)
         self._model = registry.get_model(model_config.architecture)
         self._model.check_supported(model_config)
         self.model_config = model_config
         self.config = config or InferenceConfig(
             max_seq_len=model_config.max_seq_len)
+        self.tokenizer = tokenizer
         self._kv_dtype = resolve_kv_dtype(self.config.kv_cache_dtype,
                                           model_config.dtype)
         check_kv_dtype(self._model, model_config.architecture,

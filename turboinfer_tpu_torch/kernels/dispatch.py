@@ -112,13 +112,16 @@ def prepare_params(params: Any) -> Any:
     """One-time engine setup: view 4-D expert QTensors [L, E, ...] as the
     flat [L*E] stack the kernels index (what qmm.prepare_scales does in
     the JAX package, without its TPU scale tiling), cast the sink logits
-    to the f32 the decode kernel reads, then fuse same-input projections
-    (wq/wk/wv -> wqkv, w_gate/w_up -> w_gateup, we_gate/we_up ->
-    we_gateup). Idempotent."""
+    to the f32 the decode kernel reads and LoRA adapter slots ("lora_*",
+    which models/llama.add_lora multiplies in f32) to f32 once, then fuse
+    same-input projections (wq/wk/wv -> wqkv, w_gate/w_up -> w_gateup,
+    we_gate/we_up -> we_gateup); the adapter slots stay unfused, their
+    updates added after the fused product's split. Idempotent."""
     from turboinfer_tpu_torch.models.common import fuse_projections
     if isinstance(params, dict) and isinstance(params.get("layers"), dict):
         params = {**params, "layers": {
             k: v.flat() if isinstance(v, QTensor)
-            else v.to(torch.float32).contiguous() if k == "sinks" else v
+            else v.to(torch.float32).contiguous()
+            if k == "sinks" or k.startswith("lora_") else v
             for k, v in params["layers"].items()}}
     return fuse_projections(params)

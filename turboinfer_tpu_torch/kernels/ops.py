@@ -9,6 +9,7 @@ card. qmatmul / attention_* route through kernels/dispatch.py.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -19,6 +20,23 @@ from turboinfer_tpu_torch.config import RopeMode
 from turboinfer_tpu_torch.core.qtensor import QEmbed, QTensor, dequantize
 
 NEG_INF = -1e30
+
+# Calibration hook (quant/calibrate.py): while a tap is installed, every
+# qmatmul reports (x, w, layer_index) before computing; w is the weight
+# as the caller passed it (the whole stack for a stacked weight).
+_QMM_TAP = None
+
+
+@contextlib.contextmanager
+def qmm_tap(fn):
+    """Install fn(x, w, layer_index) as the qmatmul tap for the block."""
+    global _QMM_TAP
+    prev = _QMM_TAP
+    _QMM_TAP = fn
+    try:
+        yield
+    finally:
+        _QMM_TAP = prev
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5,
@@ -184,6 +202,8 @@ def qmatmul(x: torch.Tensor, w, layer_index: Optional[int] = None
             ) -> torch.Tensor:
     """[..., K] @ [K, N] for fp weights or QTensors (stacked weights take
     `layer_index`). QTensors go through the fused dequant-matmul."""
+    if _QMM_TAP is not None:
+        _QMM_TAP(x, w, layer_index)
     if isinstance(w, QTensor):
         from turboinfer_tpu_torch.kernels import dispatch
         return dispatch.qmatmul(x, w, layer_index)

@@ -1,6 +1,7 @@
-"""Random-weight quantized LLaMA-class or MoE model built directly in the
-packed format on the device (counterpart of
-turboinfer_tpu/loader/synthetic.py create_synthetic_quantized_model): a
+"""Synthetic models, the counterparts of turboinfer_tpu/loader/synthetic.py:
+create_synthetic_model, a random fp LLaMA-class model, and
+create_synthetic_quantized_model, a random-weight quantized LLaMA-class
+or MoE model built directly in the packed format on the device: a
 7B, Mixtral or Gemma-2-27B fixture never exists in fp. Values are random
 (uniform bytes, scales 0.01; a bf16 router for MoE); use it to measure
 speed, not accuracy. Each stacked weight is drawn in place into its
@@ -16,21 +17,38 @@ as quant/quantizer.py makes one from the tied table.
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Any, Dict
+from typing import Optional
 
 import torch
 
 from turboinfer_tpu_torch.config import ModelConfig
 from turboinfer_tpu_torch.core.qtensor import QTensor
+from turboinfer_tpu_torch.loader.loader import ModelData
 from turboinfer_tpu_torch.utils.device import resolve_device
 
 
-@dataclasses.dataclass
-class ModelData:
-    params: Dict[str, Any]
-    config: ModelConfig
-    source_format: str = "synthetic-quantized"
+def create_synthetic_model(vocab_size: int = 1000, hidden_size: int = 128,
+                           num_layers: int = 2, num_heads: int = 4,
+                           intermediate_size: Optional[int] = None,
+                           max_seq_len: int = 2048, seed: int = 0,
+                           dtype=torch.bfloat16, name: str = "synthetic",
+                           device="cuda") -> ModelData:
+    """A random-weight fp LLaMA-class model (llama.init_params from
+    `seed`) with the built-in tokenizer: the JAX package's
+    create_synthetic_model, with torch's random stream."""
+    from turboinfer_tpu_torch.models import llama
+    from turboinfer_tpu_torch.tokenizer.bpe import BuiltinTokenizer
+    config = ModelConfig(
+        vocab_size=vocab_size, hidden_size=hidden_size,
+        num_layers=num_layers, num_heads=num_heads, num_kv_heads=num_heads,
+        intermediate_size=intermediate_size or 4 * hidden_size,
+        max_seq_len=max_seq_len, dtype=dtype, name=name,
+        architecture="llama")
+    return ModelData(params=llama.init_params(config, seed=seed,
+                                              device=device),
+                     config=config,
+                     tokenizer=BuiltinTokenizer(vocab_size=vocab_size),
+                     source_format="synthetic")
 
 
 def create_synthetic_quantized_model(config: ModelConfig, bits: int = 4,
@@ -102,4 +120,5 @@ def create_synthetic_quantized_model(config: ModelConfig, bits: int = 4,
         layers.update(q_norm=ones(L, c.head_dim_), k_norm=ones(L, c.head_dim_))
     if c.post_norms:
         layers.update(post_attn_norm=ones(L, H), post_ffn_norm=ones(L, H))
-    return ModelData(params=params, config=config)
+    return ModelData(params=params, config=config,
+                     source_format="synthetic-quantized")

@@ -10,6 +10,11 @@ either a tensor or a QTensor:
               "w_gate"/"w_up" [L, H, F], "w_down" [L, F, H]
               (or the fused "wqkv" / "w_gateup")},
    "final_norm": [H], "lm_head": [H, V]}
+A LoRA adapter (loader/lora.py) rides in "layers" as "lora_<slot>_a"
+[L, in, r] / "lora_<slot>_b" [L, r, out]; its f32 update adds to the
+product's output (add_lora) on every path: q/k/v, gate/up, down and wo
+in this family, q/k/v only in MoE and GPT-OSS, as in the JAX package's
+forward of each family.
 A Python loop over layers replaces lax.scan; the kernels read layer li
 of the stacked weights and cache through pointer offsets, never copies.
 The forwards take an `ffn_fn(config, h, layers, li)` hook, as the JAX
@@ -214,11 +219,27 @@ def init_params(config: ModelConfig, seed: int = 0, device="cuda",
     return params
 
 
+def add_lora(y: torch.Tensor, h: torch.Tensor, lw: Dict[str, Any],
+             slot: str, li: int) -> torch.Tensor:
+    """y plus the LoRA update of `slot` for input h, (h @ A) @ B in f32
+    (the alpha/r scaling folded into B at load, loader/lora.py), when an
+    adapter targets the slot ("lora_<slot>_a" [L, in, r], "_b" [L, r,
+    out]); else y. It adds to the product's output, so it works on
+    quantized bases, and after a fused product's split."""
+    a = lw.get(f"lora_{slot}_a")
+    if a is None:
+        return y
+    f32 = torch.float32
+    d = (h.to(f32) @ a[li].to(f32)) @ lw[f"lora_{slot}_b"][li].to(f32)
+    return y + d.to(y.dtype)
+
+
 def qkv_proj(config: ModelConfig, h: torch.Tensor, lw: Dict[str, Any],
              li: int):
     """q/k/v projections of h [B, S, H]: one fused product when "wqkv"
     is present, plus the q/k/v biases when their slots ("b_qkv", or
-    "b_q"/"b_k"/"b_v") are present, then under config.qk_norm the q/k
+    "b_q"/"b_k"/"b_v") are present and the q/k/v LoRA updates when an
+    adapter targets them (add_lora), then under config.qk_norm the q/k
     RMSNorm: over the whole projection when "q_norm" is Hq*D wide
     (OLMoE), else per head. Returns qk [B, S, Hq + Hkv, D] (q heads,
     then k heads; RoPE treats them in one pass) and v [B, S, Hkv, D]."""
@@ -238,6 +259,9 @@ def qkv_proj(config: ModelConfig, h: torch.Tensor, lw: Dict[str, Any],
             q = q + lw["b_q"][li].to(q.dtype)
             k = k + lw["b_k"][li].to(k.dtype)
             v = v + lw["b_v"][li].to(v.dtype)
+    q = add_lora(q, h, lw, "wq", li)
+    k = add_lora(k, h, lw, "wk", li)
+    v = add_lora(v, h, lw, "wv", li)
     q, k = q.reshape(B, S, Hq, D), k.reshape(B, S, Hkv, D)
     if config.qk_norm and "q_norm" in lw:
         qw, kw = lw["q_norm"][li], lw["k_norm"][li]
@@ -250,12 +274,17 @@ def qkv_proj(config: ModelConfig, h: torch.Tensor, lw: Dict[str, Any],
 
 
 def gate_up_proj(h, lw, li):
-    """SwiGLU gate/up: one fused product when "w_gateup" is present."""
+    """SwiGLU gate/up: one fused product when "w_gateup" is present,
+    plus their LoRA updates (add_lora)."""
     if "w_gateup" in lw:
         gu = ops.qmatmul(h, lw["w_gateup"], li)
         F = gu.shape[-1] // 2
-        return gu[..., :F], gu[..., F:]
-    return ops.qmatmul(h, lw["w_gate"], li), ops.qmatmul(h, lw["w_up"], li)
+        gate, up = gu[..., :F], gu[..., F:]
+    else:
+        gate = ops.qmatmul(h, lw["w_gate"], li)
+        up = ops.qmatmul(h, lw["w_up"], li)
+    return (add_lora(gate, h, lw, "w_gate", li),
+            add_lora(up, h, lw, "w_up", li))
 
 
 def _attn_inputs(config: ModelConfig, x: torch.Tensor, lw: Dict[str, Any],
@@ -293,10 +322,11 @@ def encode_write(k_store: torch.Tensor, v_store: torch.Tensor, k_scale,
 
 def dense_ffn(config: ModelConfig, h: torch.Tensor, lw: Dict[str, Any],
               li: int) -> torch.Tensor:
-    """The dense GLU FFN block of layer li (the ffn_fn default)."""
+    """The dense GLU FFN block of layer li (the ffn_fn default), with
+    the LoRA updates of gate, up and down."""
     gate, up = gate_up_proj(h, lw, li)
     g = ops.glu(gate, up, config.hidden_act).to(h.dtype)
-    return ops.qmatmul(g, lw["w_down"], li)
+    return add_lora(ops.qmatmul(g, lw["w_down"], li), g, lw, "w_down", li)
 
 
 def _branch(config: ModelConfig, y: torch.Tensor, lw: Dict[str, Any],
@@ -314,11 +344,14 @@ def _attn_out_ffn(config: ModelConfig, x: torch.Tensor, attn: torch.Tensor,
                   lw: Dict[str, Any], li: int, ffn_fn) -> torch.Tensor:
     """Output projection and residual, then RMSNorm -> ffn_fn ->
     residual, of layer li (each branch through _branch). attn:
-    [B, S, Hq, D]."""
+    [B, S, Hq, D]. The wo LoRA update is the llama family's (ffn_fn
+    dense_ffn): the JAX package's MoE layer adds only q/k/v updates."""
     B, S, _ = x.shape
     attn = attn.reshape(B, S, -1).to(x.dtype)
-    x = x + _branch(config, ops.qmatmul(attn, lw["wo"], li), lw,
-                    "post_attn_norm", li)
+    y = ops.qmatmul(attn, lw["wo"], li)
+    if ffn_fn is dense_ffn:
+        y = add_lora(y, attn, lw, "wo", li)
+    x = x + _branch(config, y, lw, "post_attn_norm", li)
     h = norm(config, x, lw["ffn_norm"][li])
     return x + _branch(config, ffn_fn(config, h, lw, li), lw,
                        "post_ffn_norm", li)
