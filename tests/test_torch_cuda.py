@@ -1791,3 +1791,104 @@ def test_cuda_machine_native_dequant_matches_numpy(name):
     got = native.ggml_dequant(raw, t, nb * be)
     np.testing.assert_array_equal(got, gguf.dequantize_ggml_numpy(
         raw, t, nb * be))
+
+
+def _text_model(kv="model"):
+    """A tiny int4 model on the card (D=32) and its engine."""
+    from turboinfer_tpu_torch.config import InferenceConfig, tiny_config
+    from turboinfer_tpu_torch.engine.engine import InferenceEngine
+    from turboinfer_tpu_torch.loader.synthetic import \
+        create_synthetic_quantized_model
+    cfg = tiny_config(max_seq_len=128)
+    params = create_synthetic_quantized_model(cfg, bits=4, group_size=64,
+                                              device="cuda", seed=3).params
+    icfg = InferenceConfig(max_seq_len=128, temperature=0.0, eos_token_id=-1,
+                           kv_cache_dtype=kv)
+    return cfg, params, icfg, InferenceEngine(params, cfg, icfg,
+                                              device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("parent", [[2, 0, 2, 1], [3, 3, 3, 3], [0, 1, 2, 3]])
+def test_cuda_beam_gather_matches_cpu(kv, parent):
+    """The beam cache reordered by parent on the card equals the same
+    gather on the CPU byte for byte (int8 codes with their f32 scale
+    planes, fp8 as raw bytes), and positions past n stay as they were."""
+    _need_cuda()
+    *_, eng = _text_model(kv)
+    cache = eng._take_cache(4)
+    gen = torch.Generator().manual_seed(sum(parent))
+    host = []
+    for plane, _ in eng._cache_planes(cache, cache):
+        x = torch.randint(0, 255, plane.shape, generator=gen).to(plane.dtype)
+        plane.copy_(x.to("cuda"))
+        host.append(x)
+    p = torch.tensor(parent)
+    eng._beam_gather(cache, p.to("cuda"), 37)
+    torch.cuda.synchronize()
+    for x, (plane, _) in zip(host, eng._cache_planes(cache, cache)):
+        want = x.clone()
+        want[:, :, :, :37] = x[:, p, :, :37]
+        assert torch.equal(plane.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["model", "int8"])
+def test_cuda_stream_and_beam_one_match_generate(kv):
+    """On the card, generate_stream's greedy tokens (bursts 1 and 5) and a
+    width-1 beam search equal generate()'s; the stream launched the
+    decode kernel once a layer a token."""
+    _need_cuda()
+    from turboinfer_tpu_torch import kernels
+    cfg, _, _, eng = _text_model(kv)
+    prompt = [1, 5, 9, 33, 7, 80, 250, 2, 11]
+    want = eng.generate(prompt, 20).tokens[len(prompt):]
+    for burst in (1, 5):
+        kernels.reset_launch_counts()
+        got = [c.token for c in eng.generate_stream(prompt, 20, burst=burst)]
+        assert got == want
+        assert kernels.launch_counts()["decode_attention"] == \
+            cfg.num_layers * 19
+    beam = eng.generate_beam_search(prompt, 20, beam_size=1)
+    assert beam.tokens[len(prompt):] == want
+
+
+@pytest.mark.cuda
+def test_cuda_constrained_bias_row_matches_host_mask():
+    """A constrained slot's bias row on the card is the host mask of its
+    grammar state (plus the request's logit_bias) after every token, and
+    the greedy output is a legal JSON prefix."""
+    _need_cuda()
+    import numpy as np
+    from turboinfer_tpu_torch.engine.scheduler import \
+        ContinuousBatchingScheduler
+    from turboinfer_tpu_torch.structured import json_fsm
+    from turboinfer_tpu_torch.tokenizer.bpe import BuiltinTokenizer
+    cfg, params, icfg, _ = _text_model()
+    tok = BuiltinTokenizer(vocab_size=cfg.vocab_size)
+    s = ContinuousBatchingScheduler(params, cfg, icfg, batch_slots=2,
+                                    tokenizer=tok, device="cuda")
+    bias = {7: 1.5, 40: -2.0}
+    rid = s.submit([1, 7, 9], 24, response_format="json_object",
+                   logit_bias=bias)
+    plain = s.submit([3, 3, 4], 24)
+    user = np.zeros((cfg.vocab_size,), np.float32)
+    for t, b in bias.items():
+        user[t] = b
+    checked = 0
+    while s.pending:
+        s.step()
+        for slot, req in s._active.items():
+            if req.rid != rid:
+                continue
+            mk = s._masker(req.response_format)
+            want = mk.bias_row(req.struct_state, icfg.eos_token_id) + user
+            np.testing.assert_array_equal(s.slot_bias[slot].cpu().numpy(),
+                                          want)
+            checked += 1
+    res = s.run()
+    assert checked > 0 and len(res[plain].tokens) == 3 + 24
+    text = tok.decode(res[rid].tokens[3:])
+    assert json_fsm.advance_bytes(json_fsm.initial(True),
+                                  text.encode()) is not None

@@ -941,8 +941,10 @@ def test_bpe_and_builtin_tokenizers_as_jax():
     assert bt.encode("The water, 7 ü") == bj.encode("The water, 7 ü")
     assert bt.decode(bt.encode("good day")) == "good day"
     assert tbpe.from_gguf_metadata({}) is None
-    with pytest.raises(NotImplementedError, match="item 9"):
-        bt.apply_chat_template([{"role": "user", "content": "hi"}])
+    msgs = [{"role": "user", "content": "hi"}]
+    assert bt.apply_chat_template(msgs) == bj.apply_chat_template(msgs)
+    assert bt.apply_chat_template(msgs, tokenize=True) == \
+        bj.apply_chat_template(msgs, tokenize=True)
 
 
 # -- checkpoints ------------------------------------------------------------

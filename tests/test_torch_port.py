@@ -62,6 +62,15 @@ def test_the_loader_slice_is_under_the_import_rule():
         assert f"turboinfer_tpu_torch/{mod}" in names
 
 
+def test_the_text_slice_is_under_the_import_rule():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("tokenizer/hf.py", "tokenizer/chat.py", "tokenizer/stream.py",
+                "structured/__init__.py", "structured/json_fsm.py",
+                "structured/regex_nfa.py", "structured/schema_fsm.py",
+                "structured/filter.py"):
+        assert f"turboinfer_tpu_torch/{mod}" in names
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 

@@ -200,7 +200,7 @@ def test_submit_validation_and_queue():
         ts.submit([], 4)
     with pytest.raises(ValueError):
         ts.submit(list(range(1, 97)), 4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="tokenizer"):
         ts.submit([1, 2], 4, response_format="json")
     a = ts.submit([1, 2, 3], 4)
     b = ts.submit([4, 5], 4)

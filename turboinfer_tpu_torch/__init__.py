@@ -10,8 +10,12 @@ from turboinfer_tpu_torch.config import (InferenceConfig, ModelConfig,
                                          QuantizationConfig, QuantType,
                                          RopeMode, llama7b_config,
                                          tiny_config)
+from turboinfer_tpu_torch.engine.engine import (GenerationResult,
+                                               InferenceEngine, StreamChunk,
+                                               quick_generate)
 from turboinfer_tpu_torch.version import __version__
 
 __all__ = ["InferenceConfig", "ModelConfig", "QuantizationConfig",
            "QuantType", "RopeMode", "llama7b_config", "tiny_config",
-           "__version__"]
+           "InferenceEngine", "GenerationResult", "StreamChunk",
+           "quick_generate", "__version__"]

@@ -10,7 +10,12 @@ at once. PagedContinuousScheduler keeps the cache in a page pool instead
 pages are shared between requests with a common prefix.
 
 Each request carries its own sampling knobs (temperature, top-k, top-p,
-min-p, penalties, logit_bias) in per-slot device tensors. With a draft
+min-p, penalties, logit_bias) in per-slot device tensors. A
+response_format (JSON object or JSON Schema; needs the scheduler's
+tokenizer) constrains a request by its grammar: after each token the
+host advances the grammar state and writes the next state's mask (with
+the request's logit_bias) into the slot's bias row, so bursts fall back
+to single steps while a constrained slot is live. With a draft
 model every step can be a speculative round: the draft proposes spec_k
 tokens per slot, one target pass verifies them, and rejection sampling
 accepts a prefix; greedy slots keep the plain trajectory exactly.
@@ -19,13 +24,14 @@ The JAX package's jitted programs are plain methods here, run eagerly
 on the scheduler's device. A step moves its results to the host with
 ONE device-to-host copy; the paged block table is uploaded only when
 the host changed it. Not ported yet: meshes and the other parallel
-modes (ROADMAP §1 item 13), response_format (needs structured/, ROADMAP
-§1 item 9) and chunked admission (prefill_chunk > 0, ROADMAP §1 item 8).
+modes (ROADMAP §1 item 13) and chunked admission (prefill_chunk > 0,
+ROADMAP §1 item 8).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Sequence
@@ -36,13 +42,16 @@ import torch
 from turboinfer_tpu_torch.config import InferenceConfig, ModelConfig
 from turboinfer_tpu_torch.engine import paged_cache as pc
 from turboinfer_tpu_torch.engine import sampling
-from turboinfer_tpu_torch.engine.engine import GenerationResult, _bucket
+from turboinfer_tpu_torch.engine.engine import (GenerationResult, _bucket,
+                                               _to_host)
 from turboinfer_tpu_torch.engine.speculative import (emit_layout,
                                                      rejection_accept)
 from turboinfer_tpu_torch.kernels.dispatch import prepare_params
 from turboinfer_tpu_torch.models import registry
 from turboinfer_tpu_torch.models.common import (KVCache, check_kv_dtype,
                                                 params_to, resolve_kv_dtype)
+from turboinfer_tpu_torch.structured import TokenMaskCache
+from turboinfer_tpu_torch.structured.schema_fsm import SchemaFSM
 from turboinfer_tpu_torch.utils.device import resolve_device
 from turboinfer_tpu_torch.utils.errors import SchedulerFullError
 
@@ -69,18 +78,39 @@ class _Request:
     presence_penalty: Optional[float] = None
     frequency_penalty: Optional[float] = None
     logit_bias: Optional[Dict[int, float]] = None
+    # constrained decoding: "json" | "json_object" |
+    # ("schema", <canonical schema json>) | None
+    response_format: object = None
+    struct_state: object = None          # live grammar state (FSM)
+    user_bias: Optional[np.ndarray] = None   # logit_bias row under a grammar
 
 
-def _to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
-    """ONE device-to-host copy for several small tensors: they travel
-    flattened as float64 (exact for token ids, flags and f32 values)."""
-    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
-    host = flat.cpu().numpy()
-    out, i = [], 0
-    for t in tensors:
-        out.append(host[i:i + t.numel()].reshape(tuple(t.shape)))
-        i += t.numel()
-    return out
+def _normalize_response_format(rf):
+    """The API forms of a response_format -> a hashable normal form:
+    None | "json" | "json_object" | ("schema", canonical json). Raises
+    ValueError for anything else; a schema compiles here, so its errors
+    surface at submit time, not mid-decode (JAX
+    _normalize_response_format)."""
+    if rf in (None, "json", "json_object"):
+        return rf
+    if isinstance(rf, dict):
+        t = rf.get("type")
+        if t in ("json", "json_object"):
+            return t
+        if t == "json_schema":
+            js = rf.get("json_schema") or {}
+            schema = js.get("schema") if isinstance(js, dict) else None
+            if schema is None and isinstance(rf.get("schema"), dict):
+                schema = rf["schema"]
+            if not isinstance(schema, dict):
+                raise ValueError(
+                    "response_format json_schema needs "
+                    "{'type':'json_schema','json_schema':{'schema': {...}}}")
+            SchemaFSM(schema)          # compile now; raises
+            # no sort_keys: property ORDER is semantic (emitted keys
+            # follow the schema's declaration order)
+            return ("schema", json.dumps(schema, separators=(",", ":")))
+    raise ValueError(f"unsupported response_format '{rf}'")
 
 
 class ContinuousBatchingScheduler:
@@ -102,11 +132,12 @@ class ContinuousBatchingScheduler:
                  parallel: str = "tp",
                  draft_params: Optional[Dict[str, Any]] = None,
                  draft_config: Optional[ModelConfig] = None,
-                 spec_k: int = 4, device="cuda"):
+                 spec_k: int = 4, tokenizer=None, device="cuda"):
         """decode_burst > 1 runs that many decode steps per host round
         trip (admission happens between bursts; a slot that finishes
         mid-burst idles for the rest of it). draft_params/draft_config
-        attach a draft model for speculative rounds of spec_k tokens."""
+        attach a draft model for speculative rounds of spec_k tokens.
+        tokenizer: the vocab the response_format grammars mask."""
         if mesh is not None:
             raise NotImplementedError(
                 "a mesh (sharded serving) is not ported yet: ROADMAP §1 "
@@ -142,6 +173,10 @@ class ContinuousBatchingScheduler:
         self._active: Dict[int, _Request] = {}       # slot -> request
         self._done: Dict[int, _Request] = {}
         self._next_id = 0
+        # constrained decoding: one TokenMaskCache (token trie + per-state
+        # masks) per normalized response_format, built at first use
+        self.tokenizer = tokenizer
+        self._maskers: Dict[Any, TokenMaskCache] = {}
         self.cache = self._make_cache()
         dev, B, c = self.device, self.B, self.config
 
@@ -325,10 +360,10 @@ class ContinuousBatchingScheduler:
                response_format=None) -> int:
         if len(prompt) == 0:
             raise ValueError("prompt must be non-empty")
-        if response_format is not None:
-            raise NotImplementedError(
-                "response_format (constrained decoding) is not ported yet: "
-                "it needs structured/, ROADMAP §1 item 9")
+        response_format = _normalize_response_format(response_format)
+        if response_format is not None and self.tokenizer is None:
+            raise ValueError("response_format needs a scheduler tokenizer "
+                             "(ContinuousBatchingScheduler(tokenizer=...))")
         if len(prompt) >= self.T:
             raise ValueError(f"prompt length {len(prompt)} >= max_seq_len")
         if self.max_queue is not None and len(self._queue) >= self.max_queue:
@@ -342,7 +377,8 @@ class ContinuousBatchingScheduler:
             top_k=top_k, top_p=top_p, min_p=min_p,
             repetition_penalty=repetition_penalty,
             presence_penalty=presence_penalty,
-            frequency_penalty=frequency_penalty, logit_bias=logit_bias))
+            frequency_penalty=frequency_penalty, logit_bias=logit_bias,
+            response_format=response_format))
         return rid
 
     def cancel(self, rid: int, reason: str = "cancelled") -> bool:
@@ -398,12 +434,22 @@ class ContinuousBatchingScheduler:
         for tid, b in (req.logit_bias or {}).items():
             if 0 <= int(tid) < V:
                 bias[int(tid)] = float(b)
+        if req.response_format is not None:
+            # the grammar's initial state masks the FIRST token (the
+            # admission prefill samples it); the user's bias rides every
+            # later grammar row too (_struct_after_token)
+            req.user_bias = bias.copy() if req.logit_bias else None
+            mk = self._masker(req.response_format)
+            req.struct_state = mk.initial()
+            bias = bias + mk.bias_row(req.struct_state,
+                                      self.config.eos_token_id)
         row, bias = row.to(dev), torch.from_numpy(bias).to(dev)
         self.counts_prompt[slot] = row
         self.counts_out[slot] = 0
         self.slot_bias[slot] = bias
         self._slot_plain[slot] = (mp == 0.0 and rep == 1.0 and pres == 0.0
-                                  and freq == 0.0 and not req.logit_bias)
+                                  and freq == 0.0 and not req.logit_bias
+                                  and req.response_format is None)
 
         def one(v, dtype):
             return torch.tensor([v], dtype=dtype, device=dev)
@@ -476,8 +522,11 @@ class ContinuousBatchingScheduler:
         self.active[slot] = True
         self.budget[slot] = req.max_new - len(req.out_tokens)
         self._active[slot] = req
+        done_struct = self._struct_after_token(slot, req, first)
         if first == self.config.eos_token_id:
             self._finish(slot, "eos")
+        elif done_struct:
+            self._finish(slot, "stop")
         elif len(req.out_tokens) >= req.max_new:
             self._finish(slot, "length")
 
@@ -501,12 +550,16 @@ class ContinuousBatchingScheduler:
 
     def _record(self, slot: int, req: _Request, tok: int, lp: float,
                 hit_eos: bool) -> bool:
-        """Append one emitted token; finish the request on eos, budget or
-        a full cache. Returns True if it finished."""
+        """Append one emitted token; finish the request on eos, a
+        completed grammar, budget or a full cache. Returns True if it
+        finished."""
         req.out_tokens.append(tok)
         req.out_logprobs.append(lp)
+        done_struct = self._struct_after_token(slot, req, tok)
         if hit_eos:
             self._finish(slot, "eos")
+        elif done_struct:
+            self._finish(slot, "stop")
         elif len(req.out_tokens) >= req.max_new:
             self._finish(slot, "length")
         elif self._hit_max_seq(req):
@@ -514,6 +567,54 @@ class ContinuousBatchingScheduler:
         else:
             return False
         return True
+
+    # -- constrained decoding -------------------------------------------
+
+    def _masker(self, rf) -> TokenMaskCache:
+        """TokenMaskCache of a normalized response_format: "json" /
+        "json_object" use the generic JSON pushdown; ("schema", <json>)
+        compiles the schema to its own byte program (schema_fsm)."""
+        m = self._maskers.get(rf)
+        if m is None:
+            fsm = (SchemaFSM(json.loads(rf[1])) if isinstance(rf, tuple)
+                   else None)
+            m = TokenMaskCache(self.tokenizer,
+                               require_object=(rf == "json_object"),
+                               vocab_size=self.model_config.vocab_size,
+                               fsm=fsm)
+            self._maskers[rf] = m
+        return m
+
+    def _struct_after_token(self, slot: int, req: _Request,
+                            tid: int) -> bool:
+        """After a constrained slot emitted `tid`: advance its grammar
+        state and write the next state's mask (plus the request's
+        logit_bias) into the slot's bias row, which the next decode step
+        adds before sampling. Returns True when the grammar completed
+        (the caller finishes the slot with stop_reason "stop", as
+        generate_structured stops)."""
+        if req.response_format is None:
+            return False
+        if tid == self.config.eos_token_id:
+            return False                  # the eos branch finishes it
+        mk = self._masker(req.response_format)
+        nxt = mk.advance(req.struct_state, tid)
+        if nxt is None:
+            # unreachable: the mask admits only legal tokens; end the
+            # request rather than emit text outside the grammar
+            return True
+        req.struct_state = nxt
+        if mk.done(nxt):
+            return True
+        row = mk.bias_row(nxt, self.config.eos_token_id)
+        if req.user_bias is not None:
+            row = row + req.user_bias      # OpenAI logit_bias persists
+        self.slot_bias[slot] = torch.from_numpy(row).to(self.device)
+        return False
+
+    def _has_structured(self) -> bool:
+        return any(r.response_format is not None
+                   for r in self._active.values())
 
     def _spec_ready(self) -> bool:
         """Whether this step can be a speculative round: a draft model,
@@ -534,7 +635,9 @@ class ContinuousBatchingScheduler:
         if self._spec_ready():
             self._spec_catchup()
             return self._step_spec()
-        if self.decode_burst > 1:
+        if self.decode_burst > 1 and not self._has_structured():
+            # a constrained slot needs its mask refreshed every token:
+            # single steps while one is live
             return self._step_burst()
         return self._step_plain()
 
@@ -765,7 +868,7 @@ class PagedContinuousScheduler(ContinuousBatchingScheduler):
                  parallel: str = "tp",
                  draft_params: Optional[Dict[str, Any]] = None,
                  draft_config: Optional[ModelConfig] = None,
-                 spec_k: int = 4, device="cuda"):
+                 spec_k: int = 4, tokenizer=None, device="cuda"):
         model = registry.get_model(model_config.architecture)
         if draft_params is not None and not hasattr(model,
                                                     "forward_paged_verify"):
@@ -779,7 +882,7 @@ class PagedContinuousScheduler(ContinuousBatchingScheduler):
                          decode_burst=decode_burst, max_queue=max_queue,
                          mesh=mesh, parallel=parallel,
                          draft_params=draft_params, draft_config=draft_config,
-                         spec_k=spec_k, device=device)
+                         spec_k=spec_k, tokenizer=tokenizer, device=device)
         self.page = page_size
         max_pages = -(-self.T // page_size)
         if num_pages is None:
@@ -1012,9 +1115,12 @@ class PagedContinuousScheduler(ContinuousBatchingScheduler):
             # steps this iteration
             self._spec_catchup()
             return self._step_spec()
-        if self.decode_burst > 1 and all(
-                self._ensure_pages(s, int(self._lengths[s]) + self.decode_burst)
-                for s in self._active):
+        if (self.decode_burst > 1 and not self._has_structured()
+                and all(self._ensure_pages(
+                    s, int(self._lengths[s]) + self.decode_burst)
+                    for s in self._active)):
+            # constrained slots refresh their masks every token: single
+            # steps while one is live, as when the pool cannot back a burst
             return self._step_burst()
         # each live slot writes its next token at position _lengths[slot]
         for slot in self._active:

@@ -7,10 +7,10 @@ GGUF v3 (with its tokenizer from the metadata arrays), SafeTensors
 checkpoint directories load into the port's parameter dict on the asked
 device (cuda unless the caller asks for the CPU); ONNX raises. The
 config comes from the caller, a config.json sidecar, the GGUF metadata,
-or the tensor shapes, in that order. A tokenizer.json sidecar is not
-read yet (the HF tokenizer is ROADMAP item 9): the load logs a warning
-and attaches no tokenizer, as the JAX package does when it cannot read
-one.
+or the tensor shapes, in that order. An HF directory's tokenizer.json
+sidecar (with tokenizer_config.json's chat template) is attached as an
+HFTokenizer; a corrupt sidecar is logged and skipped, as the JAX package
+does, but a missing package (`regex`) raises.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from turboinfer_tpu_torch.loader import mapping
 from turboinfer_tpu_torch.loader import safetensors as st_mod
 from turboinfer_tpu_torch.loader import tinq as tinq_mod
 from turboinfer_tpu_torch.tokenizer import bpe as tok_mod
+from turboinfer_tpu_torch.tokenizer import hf as hf_tok
 from turboinfer_tpu_torch.utils import logging as tlog
 from turboinfer_tpu_torch.utils.errors import ModelFormatError
 
@@ -137,11 +138,19 @@ def _finish_hf_load(get, names, shapes, dirname: str, config, dtype,
     params = mapping.assemble_for(config)(get, names, config,
                                           dtype=dtype or config.dtype,
                                           device=device)
-    if os.path.exists(os.path.join(dirname, "tokenizer.json")):
-        tlog.log_warning("tokenizer.json sidecar ignored: the HF tokenizer "
-                         "is not ported to the PyTorch package yet (ROADMAP "
-                         "item 9)")
-    return ModelData(params=params, config=config, tokenizer=None,
+    tokenizer = None
+    try:
+        tokenizer = hf_tok.from_hf_dir(dirname)
+        if tokenizer is not None:
+            tlog.log_info("loaded tokenizer.json sidecar (%s, vocab %d)",
+                          tokenizer.kind, tokenizer.vocab_size)
+    except ImportError:
+        # a missing package (`regex` for ByteLevel/Split patterns) is
+        # not a corrupt sidecar: say so instead of loading without one
+        raise
+    except Exception as e:               # corrupt/unsupported sidecar
+        tlog.log_warning("tokenizer.json sidecar ignored: %s", e)
+    return ModelData(params=params, config=config, tokenizer=tokenizer,
                      source_format=source_format)
 
 

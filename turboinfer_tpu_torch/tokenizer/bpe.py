@@ -3,10 +3,8 @@
 turboinfer_tpu/tokenizer/bpe.py, token for token. The SPM encoder runs
 in the native library (turboinfer_tpu_torch/native.py) when it is
 built, else in the Python merge loop below; both give the same ids.
-
-Chat templates (tokenizer/chat.py of the JAX package) and the HF
-tokenizer.json reader are not ported yet (ROADMAP item 9):
-apply_chat_template raises, and a GGUF's chat template is not attached.
+Chat templates render through tokenizer/chat.py; a GGUF's
+`tokenizer.chat_template` is attached at load.
 """
 
 from __future__ import annotations
@@ -22,7 +20,7 @@ class Tokenizer:
     eos_id: int
     unk_id: int
     pad_id: int
-    chat_template = None      # set by the loaders once chat.py is ported
+    chat_template = None      # Optional[chat.ChatTemplate], set by loaders
 
     def encode(self, text: str, add_bos: bool = False) -> List[int]:
         raise NotImplementedError
@@ -32,9 +30,20 @@ class Tokenizer:
 
     def apply_chat_template(self, messages, add_generation_prompt=True,
                             tokenize=False, add_bos=True, **extra):
-        raise NotImplementedError(
-            "chat templates are not ported to the PyTorch package yet "
-            "(ROADMAP item 9)")
+        """Render a [{"role","content"}...] conversation to the model's
+        prompt (string, or token ids with tokenize=True). Uses the
+        checkpoint's own template; ChatML when it ships none."""
+        from turboinfer_tpu_torch.tokenizer import chat as chat_mod
+        tpl = self.chat_template or chat_mod.ChatTemplate()
+        text = tpl.render(messages,
+                          add_generation_prompt=add_generation_prompt,
+                          **extra)
+        if not tokenize:
+            return text
+        # templates that bake the BOS into the text shouldn't get two
+        if add_bos and tpl.bos_token and text.startswith(tpl.bos_token):
+            add_bos = False
+        return self.encode(text, add_bos=add_bos)
 
 
 # ---------------------------------------------------------------------------
@@ -356,4 +365,7 @@ def from_gguf_metadata(md: Dict[str, Any]) -> Optional[Tokenizer]:
         prefix = bool(md.get("tokenizer.ggml.add_space_prefix", True))
         tok = SPMTokenizer(tokens, scores, types, bos_id=bos, eos_id=eos,
                            unk_id=unk, pad_id=pad, add_space_prefix=prefix)
+    if md.get("tokenizer.chat_template"):
+        from turboinfer_tpu_torch.tokenizer import chat as chat_mod
+        tok.chat_template = chat_mod.from_gguf_metadata(md, list(tokens))
     return tok
