@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port (turboinfer_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,...,17] [--json PATH]
+    python3 chip_smoke.py [--phases 1,2,...,18] [--json PATH]
 
 Phases:
   1. environment: card name and power limit, torch/CUDA versions, and the
@@ -38,7 +38,7 @@ Phases:
   7. paged speculative serving: the same model with its first 2 layers
      as the draft, spec_k=4 (verify G=5), 8 greedy requests; verify
      logits against 5 chained decode steps on the same pages;
-  8. Mixtral-8x7B int4 g=64 at full width, 16 of its 32 layers, random
+  8. Mixtral-8x7B int4 g=64 at full width, 8 of its 32 layers, random
      weights from a seed: generate_batch at B=1 (prompt 1000, 128 new
      tokens; decode through the grouped kernel, traced, one step under
      torch.cuda.set_sync_debug_mode("error")) and at B=8 (prompts 512,
@@ -141,8 +141,8 @@ Phases:
  14. Gemma-3-12B (google/gemma-3-12b-pt's published config: 48 layers,
      hidden 3840, 16:8 heads of 256, FFN 15360, vocab 262208, q/k norms,
      a 1024-key window on five layers of six with a local RoPE base, linear
-     RoPE scaling 8 on the global layers), int4 g=64, bf16, 24 of the 48
-     layers (four global),
+     RoPE scaling 8 on the global layers), int4 g=64, bf16, 12 of the 48
+     layers (two global),
      synthetic weights from a seed, positions cut to 8192: (a)
      generate_batch B=2, prompts of 4500 and 5000, 64 new tokens (launch
      counts of the run and of one decode step, traced prefill and decode,
@@ -221,6 +221,32 @@ Phases:
      constrained slot lives; plain rows as when alone; req/s, tok/s);
      (h) at L=2, beam search and generate_structured through the
      kernels against the plain versions.
+ 18. the server and the command line at Phi-3-mini-4k's full width (int4
+     g=64, all 32 layers, max_seq 4096, phase 17's tokenizer files): (a)
+     the OpenAI-compatible HTTP server in process (ServingEngine over
+     PagedContinuousScheduler, 8 slots, 256-token pages, decode_burst=4,
+     and a beam engine sharing the scheduler's weights through
+     params_are_prepared=True, < 1% of their bytes added): 8 concurrent
+     streamed completions of 500-1000-token prompts, 64 new, whose tokens
+     equal the same requests through the scheduler alone; a chat turn
+     streamed and not (the same text), json_object (parses), n=2, a
+     4-beam search, /health and /metrics; no error finish, no 5xx, the
+     arrival counters back at zero; req/s, tok/s, client TTFT p50/p90;
+     (b) a 3500-token prompt arriving while 4 requests decode, admitted in
+     chunks of 512 and at full width, at exact prompt widths (7 chunks)
+     and at the default power-of-two buckets (8 chunks), every live row
+     one token a step meanwhile: every step's ms, the stall, the long
+     prompt's TTFT, tokens equal under the tie rule; (c) speculative_generate B=2
+     (prompts 1000 and 1500, 32 new, k=4, a 2-layer draft of the same
+     weights) against generate_batch: acceptance, tokens and ms a round;
+     (d) the command line on Phi-3-mini at 2 of 32 layers written as an
+     HF directory (bf16 shards, tokenizer files) in _smoke_files/:
+     `python -m turboinfer_tpu_torch generate` prints the in-process
+     engine's text, `serve --paged` answers /health within 120 s and a
+     chat completion and exits 0 on SIGINT, quantize/inspect/eval through
+     cli.main; (e) at L=2, chunked admission under a 50-key window (a
+     padded query sees no key; slot caches finite) and
+     speculative_generate against the plain versions on the CPU.
 Exits non-zero on any failure (no CPU fallback). The last stdout line is
 {"ok": true, "device": {...}}; before it come a {"kernels": [...]} line
 and the nvidia-smi name/power-limit line.
@@ -2630,7 +2656,7 @@ def kernels_vs_plain(torch, mod, cfg, params, step_want, label: str,
 
 
 def logits_agree(torch, a, b_, what: str, ties: int, all_agree: bool,
-                 decided_agree: bool):
+                 decided_agree: bool, tag: str = "(d)"):
     """Kernel logits a against plain logits b_ [rows, V]: within 5% of
     max|logit|; all_agree: every greedy token equal; decided_agree:
     equal but in tie rows (see TIE_ULPS), at most MAX_TIE_ROWS counting
@@ -2654,7 +2680,7 @@ def logits_agree(torch, a, b_, what: str, ties: int, all_agree: bool,
          f"(plain-logit gaps {gap.tolist()})")
     need(not decided_agree or ties <= MAX_TIE_ROWS,
          f"{what}: {ties} tie rows > {MAX_TIE_ROWS}")
-    say(f"  (d) {what}: logits max_abs_err={err:.4g} (tol {tol:.3g}, "
+    say(f"  {tag} {what}: logits max_abs_err={err:.4g} (tol {tol:.3g}, "
         f"max|logit|={ref:.3g}) greedy agreement {agree:.3f}"
         + (f" ({int(tie.sum())} tie rows within {tie_gap}, plain-logit gaps "
            f"{[round(g, 4) for g in gap[tie].tolist()]})"
@@ -2703,8 +2729,8 @@ def phase_mixtral(torch, report):
     from turboinfer_tpu_torch.kernels.dispatch import prepare_params
     from turboinfer_tpu_torch.loader.synthetic import \
         create_synthetic_quantized_model
-    # every width; 16 of the 32 layers, so phases 1-17 fit the time limit
-    cfg = mixtral_config(num_layers=16, max_seq_len=2048)
+    # every width; 8 of the 32 layers, so phases 1-18 fit the time limit
+    cfg = mixtral_config(num_layers=8, max_seq_len=2048)
     L, E, T = cfg.num_layers, cfg.num_experts, cfg.max_seq_len
     say(f"phase 8: Mixtral-8x7B int4 g=64, L={L} (of 32), bf16, synthetic on "
         "the device")
@@ -3737,7 +3763,7 @@ def phase_gemma3(torch, report):
     norms, a 1024-key window on five layers of six with a local RoPE base
     of 1e4, linear RoPE scaling 8 on the global layers, attn_scale
     256**-0.5, no softcaps, tied embeddings), int4 g=64, bf16, synthetic
-    weights from a seed, 24 of the 48 layers, positions cut to 8192 (the
+    weights from a seed, 12 of the 48 layers, positions cut to 8192 (the
     published 131072): (a) generate_batch B=2, prompts of 4500 and 5000
     (past the window, through the global layers), 64 new tokens (launch
     counts of the run and of one decode step, a traced prefill and 8
@@ -3756,9 +3782,9 @@ def phase_gemma3(torch, report):
     from turboinfer_tpu_torch.loader.synthetic import \
         create_synthetic_quantized_model
     from turboinfer_tpu_torch.models import llama
-    # every width; 24 of the 48 layers (four of its global layers stay),
-    # so phases 1-17 fit the time limit
-    cfg = gemma3_12b_config(num_layers=24, max_seq_len=8192)
+    # every width; 12 of the 48 layers (two of its global layers stay),
+    # so phases 1-18 fit the time limit
+    cfg = gemma3_12b_config(num_layers=12, max_seq_len=8192)
     L, T = cfg.num_layers, cfg.max_seq_len
     windows = [llama.layer_window(cfg, li) for li in range(L)]
     say(f"phase 14: Gemma-3-12B int4 g=64, L={L}, hidden "
@@ -3775,7 +3801,7 @@ def phase_gemma3(torch, report):
     params = prepare_params(create_synthetic_quantized_model(
         cfg, bits=4, group_size=64, device="cuda", seed=0).params)
     torch.cuda.synchronize()
-    out = dict(config="gemma-3-12b-pt int4 g=64 L=24 of 48 bf16 max_seq 8192",
+    out = dict(config="gemma-3-12b-pt int4 g=64 L=12 of 48 bf16 max_seq 8192",
                build_s=time.perf_counter() - t0,
                build_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                allocated_gib=torch.cuda.memory_allocated() / 2**30,
@@ -5226,10 +5252,672 @@ def phase_text(torch, report):
     return total
 
 
+# -- phase 18: the server and the command line -------------------------------
+
+SERVE_LIVE = (500, 500, 500, 500)   # (b): the live decodes' prompt lengths
+SERVE_LONG = 3500                   # (b): the prompt admitted while they run
+SERVE_CHUNK = 512
+
+
+def http_json(port, method, path, obj=None, timeout=300):
+    """(status, parsed JSON body or text) of one request to 127.0.0.1."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, None if obj is None else json.dumps(obj),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        body = r.read().decode()
+        try:
+            return r.status, json.loads(body)
+        except ValueError:
+            return r.status, body
+    finally:
+        conn.close()
+
+
+def http_stream(port, path, obj, timeout=300):
+    """POST with stream=True, read to the end of the chunked body ->
+    (status, [parsed SSE events], seconds to the first event, seconds to
+    the end)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    t0 = time.perf_counter()
+    first = None
+    try:
+        conn.request("POST", path, json.dumps(dict(obj, stream=True)),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        events, buf = [], b""
+        while r.status == 200:
+            chunk = r.read1(65536)
+            if not chunk:
+                break
+            buf += chunk
+            while b"\n\n" in buf:
+                ev, buf = buf.split(b"\n\n", 1)
+                if ev.startswith(b"data: "):
+                    first = first or time.perf_counter() - t0
+                    events.append(ev[6:].decode())
+        done = time.perf_counter() - t0
+        need(r.status == 200 and events and events[-1] == "[DONE]",
+             f"(a) stream {path}: status {r.status}, events {events[-2:]}")
+        return r.status, [json.loads(e) for e in events[:-1]], first, done
+    finally:
+        conn.close()
+
+
+def counters_zero(torch) -> bool:
+    from turboinfer_tpu_torch.kernels import _build
+    torch.cuda.synchronize()
+    return all(int(b.count_nonzero()) == 0 for b in _build._counters.values())
+
+
+def serve_http(torch, kernels, params, cfg, tok, gen, total, out):
+    """(a) of phase 18."""
+    import threading
+    from turboinfer_tpu_torch.config import InferenceConfig
+    from turboinfer_tpu_torch.engine.engine import InferenceEngine
+    from turboinfer_tpu_torch.engine.scheduler import PagedContinuousScheduler
+    from turboinfer_tpu_torch.models.common import param_bytes
+    from turboinfer_tpu_torch.serve import ServingEngine, make_server
+    from turboinfer_tpu_torch.structured import json_fsm
+    from turboinfer_tpu_torch.tokenizer.stream import IncrementalDecoder
+    L = cfg.num_layers
+    icfg = InferenceConfig(max_seq_len=cfg.max_seq_len, temperature=0.0,
+                           seed=0, eos_token_id=-1)
+    lens = (512, 600, 700, 800, 900, 1000, 550, 950)
+    prompts = [torch.randint(1, 32000, (n,), generator=gen).tolist()
+               for n in lens]
+    NEW = 64
+
+    def scheduler():
+        return PagedContinuousScheduler(params, cfg, icfg, batch_slots=8,
+                                        page_size=256, decode_burst=4,
+                                        tokenizer=tok, device="cuda")
+    # the same requests through the scheduler alone (no HTTP, no threads)
+    ref = scheduler()
+    rids = [ref.submit(p, NEW) for p in prompts]
+    res = ref.run()
+    want = [res[r].tokens for r in rids]
+    del ref, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    sched = scheduler()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    beam = InferenceEngine(sched.params, cfg, icfg, tokenizer=tok,
+                           device="cuda", params_are_prepared=True)
+    torch.cuda.synchronize()
+    beam_bytes = torch.cuda.memory_allocated() - mem0
+    wbytes = param_bytes(sched.params)
+    need(beam_bytes < 0.01 * wbytes, f"(a) the beam engine allocated "
+         f"{beam_bytes} bytes beside {wbytes} bytes of weights")
+    eng = ServingEngine(sched, tokenizer=tok, model_name="phi3-mini-4k",
+                        beam_engine=beam)
+    seen = {}                      # prompt -> the serving thread's token ids
+    real_pump = eng._pump
+
+    def pump(rid, req):
+        seen[tuple(req.prompt)] = list(req.out_tokens)
+        real_pump(rid, req)
+    eng._pump = pump
+    srv = make_server(eng, "127.0.0.1", 0)
+    port = srv.server_address[1]
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        results = [None] * len(prompts)
+
+        def one(i):
+            results[i] = http_stream(port, "/v1/completions", {
+                "prompt": prompts[i], "max_tokens": NEW, "temperature": 0})
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        got, texts, ttft = [], [], []
+        for i, r in enumerate(results):
+            need(r is not None, f"(a) request {i} did not finish")
+            _, events, first, _ = r
+            finish = events[-1]["choices"][0]["finish_reason"]
+            need(finish == "length", f"(a) request {i} finished {finish!r}")
+            texts.append("".join(e["choices"][0]["text"] for e in events))
+            ttft.append(first * 1e3)
+            got.append(prompts[i] + seen[tuple(prompts[i])])
+            dec = IncrementalDecoder(tok)
+            need(texts[i] == "".join(dec.push(t) for t in got[i][len(
+                prompts[i]):]), f"(a) request {i}: streamed text is not "
+                "the decode of its tokens")
+        ties = tokens_or_ties(torch, sched, cfg, prompts, got, want,
+                              "(a) HTTP completions vs the scheduler alone")
+        n_new = NEW * len(prompts)
+        # a chat turn streamed and not, JSON mode, n=2, beam search
+        chat = {"messages": TEXT_MESSAGES, "max_tokens": 32,
+                "temperature": 0}
+        st, events, chat_first, _ = http_stream(
+            port, "/v1/chat/completions", chat)
+        streamed = "".join(e["choices"][0]["delta"].get("content", "")
+                           for e in events)
+        st, body = http_json(port, "POST", "/v1/chat/completions", chat)
+        need(st == 200 and body["choices"][0]["message"]["content"]
+             == streamed, f"(a) chat: streamed {streamed!r} vs {body!r}")
+        st, js = http_json(port, "POST", "/v1/chat/completions", {
+            "messages": [{"role": "user",
+                          "content": "Describe a person as JSON."}],
+            "max_tokens": 64, "temperature": 0,
+            "response_format": {"type": "json_object"}})
+        need(st == 200, f"(a) json_object: {st} {js}")
+        jtext = js["choices"][0]["message"]["content"]
+        need(js["choices"][0]["finish_reason"] == "stop"
+             and isinstance(json.loads(jtext), dict)
+             and json_fsm.advance_bytes(json_fsm.initial(True),
+                                        jtext.encode()) is not None,
+             f"(a) json_object output {jtext!r} does not parse")
+        st, nb = http_json(port, "POST", "/v1/completions", {
+            "prompt": prompts[0][:300], "max_tokens": 16, "temperature": 0.8,
+            "n": 2})
+        need(st == 200 and len(nb["choices"]) == 2
+             and nb["usage"]["completion_tokens"] == 32,
+             f"(a) n=2: {st} {nb}")
+        st, bb = http_json(port, "POST", "/v1/completions", {
+            "prompt": prompts[1][:300], "max_tokens": 16,
+            "use_beam_search": True, "best_of": 4, "n": 2})
+        need(st == 200 and len(bb["choices"]) == 2, f"(a) beam: {st} {bb}")
+        st, health = http_json(port, "GET", "/health")
+        need(st == 200 and health["status"] == "ok", f"(a) /health {health}")
+        st, metrics = http_json(port, "GET", "/metrics")
+        need(st == 200 and "turboinfer_requests_total" in metrics,
+             f"(a) /metrics {metrics!r}")
+        finishes = [c["finish_reason"] for b in (body, js, nb, bb)
+                    for c in b["choices"]]
+        need(all(f in ("stop", "length") for f in finishes),
+             f"(a) finish reasons {finishes}")
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        need(counters_zero(torch), "(a) arrival counters left non-zero")
+    finally:
+        srv.shutdown()
+        eng.shutdown()
+    out["http"] = dict(
+        requests=len(prompts), wall_s=wall, req_per_s=len(prompts) / wall,
+        tok_per_s=n_new / wall, ttft_ms=ttft, ttft_p50_ms=pct(ttft, 0.5),
+        ttft_p90_ms=pct(ttft, 0.9), ties=ties, chat_text=streamed,
+        chat_ttft_ms=chat_first * 1e3, json_object=jtext,
+        beam_engine_bytes=beam_bytes, weight_bytes=wbytes,
+        requests_total=health["requests"], launches=counts)
+    say(f"  (a) HTTP server (PagedContinuousScheduler, 8 slots, 256-token "
+        f"pages, decode_burst=4): 8 concurrent streamed completions of "
+        f"500-1000 tokens, {NEW} new: {wall:.3f} s, {len(prompts) / wall:.2f} "
+        f"req/s, {n_new / wall:.1f} tok/s, client TTFT p50 "
+        f"{pct(ttft, 0.5):.1f} ms p90 {pct(ttft, 0.9):.1f} ms; tokens equal to "
+        f"the scheduler alone ({len(ties)} tie rows); chat streamed == not "
+        f"streamed ({len(streamed)} chars, TTFT {chat_first * 1e3:.1f} ms); "
+        f"json_object {jtext!r} parses; n=2 and a 4-beam search answered; "
+        f"/health, /metrics; the beam engine added {beam_bytes} bytes beside "
+        f"{wbytes / 1e9:.3f} GB of weights; arrival counters zero; launches "
+        f"{counts}")
+
+
+def serve_chunked(torch, kernels, params, cfg, gen, total, out):
+    """(b) of phase 18: a 3500-token prompt arrives while 4 requests
+    decode, admitted in chunks of 512 and at full width, each at exact
+    prompt widths (prefill_bucket=False: 7 chunks) and at the default
+    power-of-two buckets (the long prompt in a 4096 slab: 8 chunks, the
+    last one all padding)."""
+    from turboinfer_tpu_torch.engine.engine import _bucket
+    live = [torch.randint(1, 32000, (n,), generator=gen).tolist()
+            for n in SERVE_LIVE]
+    long = torch.randint(1, 32000, (SERVE_LONG,), generator=gen).tolist()
+    # the runs allocate one small cache of the long prompt's width (exact
+    # or bucketed): take those blocks from the CUDA allocator once here, so
+    # no run's timed steps pay the allocation (otherwise the first run's
+    # first chunk does)
+    from turboinfer_tpu_torch.models import llama
+    widths = {bk: _bucket(SERVE_LONG, bk, cap=cfg.max_seq_len)
+              for bk in (False, True)}
+    warm = [llama.init_cache(cfg, 1, max_seq=w, device="cuda")
+            for w in widths.values()]
+    del warm
+    runs, ties = {}, {}
+    for bucket in (False, True):
+        for chunk in (SERVE_CHUNK, 0):
+            runs[chunk, bucket] = chunked_run(
+                torch, kernels, params, cfg, live, long, chunk, bucket,
+                widths[bucket], total)
+        ties[bucket] = tokens_or_ties(
+            torch, runs[0, bucket].pop("sched"), cfg, live + [long],
+            runs[SERVE_CHUNK, bucket]["tokens"], runs[0, bucket]["tokens"],
+            f"(b) chunked vs full-width admission, prefill_bucket={bucket}")
+        runs[SERVE_CHUNK, bucket].pop("sched")
+        gc.collect()
+
+    def summary(bucket):
+        full, ch = runs[0, bucket], runs[SERVE_CHUNK, bucket]
+        return dict(
+            chunk=SERVE_CHUNK, prefill_bucket=bucket, width=widths[bucket],
+            chunks=ch["chunks"],
+            unchunked_stall_ms=next(st["ms"] for st in full["steps"]
+                                    if st["admitted"]),
+            longest_chunked_step_ms=max(st["ms"] for st in ch["steps"]
+                                        if st["chunk"]),
+            decode_step_median_ms=statistics.median(
+                st["ms"] for st in full["steps"] if not st["admitted"]),
+            ttft_long_chunked_ms=ch["ttft_ms"],
+            ttft_long_unchunked_ms=full["ttft_ms"], ties=ties[bucket],
+            step_ms_chunked=[st["ms"] for st in ch["steps"]],
+            step_ms_unchunked=[st["ms"] for st in full["steps"]],
+            launches_chunked=ch["launches"], launches_unchunked=full["launches"])
+    out["chunked"] = summary(False)
+    out["chunked_bucketed"] = summary(True)
+    for bucket in (False, True):
+        o = out["chunked_bucketed" if bucket else "chunked"]
+        say(f"  (b) prefill_bucket={bucket}: 4 live decodes (prompts "
+            f"{SERVE_LIVE[0]}), then a {SERVE_LONG}-token prompt in a "
+            f"{o['width']}-wide slab: chunked ({SERVE_CHUNK}) in "
+            f"{o['chunks']} chunks, every live row one token a step "
+            f"meanwhile, longest chunked step "
+            f"{o['longest_chunked_step_ms']:.2f} ms; full-width admission "
+            f"stalls one step {o['unchunked_stall_ms']:.2f} ms (decode step "
+            f"median {o['decode_step_median_ms']:.2f} ms); the long prompt's "
+            f"TTFT {o['ttft_long_chunked_ms']:.1f} ms chunked, "
+            f"{o['ttft_long_unchunked_ms']:.1f} ms not; tokens equal "
+            f"({len(o['ties'])} tie rows); step ms chunked "
+            f"{[round(x, 1) for x in o['step_ms_chunked']]}, not "
+            f"{[round(x, 1) for x in o['step_ms_unchunked']]}")
+
+
+def chunked_run(torch, kernels, params, cfg, live, long, chunk, bucket,
+                width, total):
+    """One run of (b): the live requests decode 3 steps, then the long
+    prompt arrives; every step is timed until all are done."""
+    from turboinfer_tpu_torch.config import InferenceConfig
+    from turboinfer_tpu_torch.engine.scheduler import \
+        ContinuousBatchingScheduler
+    icfg = InferenceConfig(max_seq_len=cfg.max_seq_len, temperature=0.0,
+                           seed=0, eos_token_id=-1, prefill_bucket=bucket,
+                           prefill_chunk=chunk)
+    s = ContinuousBatchingScheduler(params, cfg, icfg, batch_slots=5,
+                                    device="cuda")
+    chunks = [0]
+    real = s._adm_advance
+
+    def adv():
+        chunks[0] += 1
+        real()
+    s._adm_advance = adv
+    rl = [s.submit(p, 40) for p in live]
+    for _ in range(3):
+        s.step()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t_sub = time.perf_counter()
+    rlong = s.submit(long, 8)
+    steps, ttft = [], None
+    while s.pending:
+        before = [len(s.get_request(r).out_tokens) for r in rl]
+        c0 = chunks[0]
+        t0 = time.perf_counter()
+        s.step()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        after = [len(s.get_request(r).out_tokens) for r in rl]
+        adv_ = [a - b for a, b in zip(after, before)]
+        first = ttft is None and s.get_request(rlong).out_tokens
+        if first:
+            ttft = (t1 - t_sub) * 1e3
+        steps.append(dict(ms=(t1 - t0) * 1e3, chunk=chunks[0] > c0,
+                          admitted=bool(first), live_advance=adv_))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    res = s.run()
+    if chunk:
+        need(chunks[0] == -(-width // chunk), f"(b) prefill_bucket={bucket}: "
+             f"the long prompt admitted in {chunks[0]} chunks, not "
+             f"{-(-width // chunk)}")
+        mid = [st for st in steps if st["chunk"]]
+        need(all(a == 1 for st in mid for a in st["live_advance"]),
+             f"(b) prefill_bucket={bucket}: a live row stalled while the "
+             f"chunks ran: {[st['live_advance'] for st in mid]}")
+    gc.collect()
+    return dict(steps=steps, chunks=chunks[0], ttft_ms=ttft,
+                tokens=[res[r].tokens for r in rl + [rlong]], sched=s,
+                launches=counts)
+
+
+def serve_speculative(torch, kernels, params, cfg, gen, total, out):
+    """(c) of phase 18: speculative_generate with a 2-layer draft of the
+    same weights against generate_batch."""
+    from turboinfer_tpu_torch.config import InferenceConfig
+    from turboinfer_tpu_torch.engine.engine import InferenceEngine
+    from turboinfer_tpu_torch.engine.speculative import speculative_generate
+    icfg = InferenceConfig(max_seq_len=cfg.max_seq_len, temperature=0.0,
+                           seed=0, eos_token_id=-1)
+    prompts = [torch.randint(1, 32000, (n,), generator=gen).tolist()
+               for n in (1000, 1500)]
+    eng = InferenceEngine(params, cfg, icfg, device="cuda",
+                          params_are_prepared=True)
+    want = [r.tokens for r in eng.generate_batch(prompts, 32)]
+    res, counts = counted(torch, kernels, total, lambda: speculative_generate(
+        params, cfg, first_layers(params, 2), cfg.replace(num_layers=2),
+        prompts, 32, k=4, config=icfg))
+    ties = tokens_or_ties(torch, eng, cfg, prompts, res.tokens, want,
+                          "(c) speculative_generate vs generate_batch")
+    ms_round = (res.total_time_ms - res.prefill_ms) / max(res.rounds, 1)
+    out["speculative"] = dict(
+        acceptance=res.acceptance_rate, tokens_per_round=res.tokens_per_round,
+        rounds=res.rounds, total_ms=res.total_time_ms,
+        prefill_ms=res.prefill_ms, ms_per_round=ms_round, ties=ties,
+        launches=counts)
+    say(f"  (c) speculative_generate B=2 (prompts 1000, 1500), 32 new, k=4, "
+        f"draft = the first 2 of 32 layers: acceptance "
+        f"{res.acceptance_rate:.3f}, {res.tokens_per_round:.2f} tokens a "
+        f"round, {res.rounds} rounds, {ms_round:.2f} ms a round after a "
+        f"{res.prefill_ms:.1f} ms prefill of both models; tokens equal to "
+        f"generate_batch's ({len(ties)} tie rows)")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_cli_start(torch, work, out):
+    """(d) of phase 18, first half: Phi-3-mini at 2 of 32 layers written
+    as an HF directory (bf16 shards, config.json, tokenizer files), then
+    `python -m turboinfer_tpu_torch generate` and `serve --paged` started
+    as subprocesses. Returns what serve_cli_finish needs."""
+    import os
+    from turboinfer_tpu_torch.config import phi3_mini_4k_config
+    from turboinfer_tpu_torch.models import llama
+    cfg2 = phi3_mini_4k_config(num_layers=2)
+    hf = os.path.join(work, "phi3-l2")
+    os.makedirs(hf)
+    params = llama.init_params(cfg2, seed=18, device="cuda")
+    size, _ = write_hf_checkpoint(hf, phi3_hf_tensors(params, cfg2),
+                                  dict(PHI3_MINI_4K_CONFIG_JSON,
+                                       num_hidden_layers=2))
+    del params
+    write_phi3_tokenizer(hf)
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    logs = {n: open(os.path.join(work, f"{n}.log"), "w+")
+            for n in ("generate", "serve")}
+    cmd = [sys.executable, "-m", "turboinfer_tpu_torch"]
+    procs = {
+        "generate": subprocess.Popen(
+            cmd + ["generate", hf, SERVE_CLI_TEXT, "--greedy",
+                   "--max-tokens", "16", "--quiet"], cwd=root,
+            stdout=logs["generate"], stderr=subprocess.STDOUT),
+        "serve": subprocess.Popen(
+            cmd + ["serve", hf, "--paged", "--host", "127.0.0.1", "--port",
+                   str(port), "--quiet"], cwd=root,
+            stdout=logs["serve"], stderr=subprocess.STDOUT)}
+    out["cli"] = dict(hf_bytes=size, port=port)
+    t0 = time.perf_counter()
+    health = {}
+
+    def poll():
+        """The seconds from the server's start to its first /health 200
+        (None after 120 s or once the process exited)."""
+        while time.perf_counter() - t0 < 120 and procs["serve"].poll() is None:
+            try:
+                if http_json(port, "GET", "/health", timeout=5)[0] == 200:
+                    health["s"] = time.perf_counter() - t0
+                    return
+            except OSError:
+                pass
+            time.sleep(0.5)
+    import threading
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    return dict(hf=hf, port=port, procs=procs, logs=logs, health=health,
+                poller=poller)
+
+
+SERVE_CLI_TEXT = "The port answers from the command line, too."
+
+
+def serve_cli_finish(torch, work, st, out):
+    """(d) of phase 18, second half: the generate subprocess printed the
+    in-process engine's text; the server answers /health within 120 s and
+    one chat completion, then exits 0 on SIGINT; inspect, quantize to
+    .tinq and eval of that file run in process through cli.main."""
+    import contextlib
+    import io
+    import os
+    import signal
+    from turboinfer_tpu_torch import cli
+    from turboinfer_tpu_torch.loader import load_engine
+    procs, logs, hf, port = st["procs"], st["logs"], st["hf"], st["port"]
+    try:
+        g = procs["generate"]
+        g.wait(timeout=300)
+        logs["generate"].seek(0)
+        printed = logs["generate"].read()
+        need(g.returncode == 0, f"(d) generate exited {g.returncode}: "
+                                f"{printed[-2000:]}")
+        eng = load_engine(hf, device="cuda")
+        ids = eng.encode(SERVE_CLI_TEXT)
+        text = eng.decode(eng.generate(ids, 16, temperature=0.0, top_k=50,
+                                       top_p=0.9).tokens)
+        need(printed.rstrip("\n") == text, f"(d) generate printed "
+             f"{printed!r}, the engine gives {text!r}")
+        del eng
+        s = procs["serve"]
+        st["poller"].join(timeout=130)
+        t_health = st["health"].get("s")
+        need(t_health is not None, f"(d) serve did not answer /health in "
+             f"120 s (exit code {s.poll()})")
+        code, body = http_json(port, "POST", "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "Hello there!"}],
+            "max_tokens": 8, "temperature": 0})
+        need(code == 200 and body["choices"][0]["finish_reason"] in (
+            "stop", "length") and isinstance(
+            body["choices"][0]["message"]["content"], str),
+            f"(d) serve chat: {code} {body}")
+        s.send_signal(signal.SIGINT)
+        s.wait(timeout=60)
+        logs["serve"].seek(0)
+        need(s.returncode == 0, f"(d) serve exited {s.returncode} on SIGINT:"
+                                f" {logs['serve'].read()[-2000:]}")
+        tinq = os.path.join(work, "phi3-l2.tinq")
+        txt = os.path.join(work, "eval.txt")
+        with open(txt, "w", encoding="utf-8") as f:
+            f.write(PHI3_ROUND_TRIP * 8)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rq = cli.main(["quantize", hf, tinq, "--type", "int4",
+                           "--group-size", "64"])
+            ri = cli.main(["inspect", tinq])
+            mark = len(buf.getvalue())
+            re_ = cli.main(["eval", tinq, txt, "--quiet", "--window", "256"])
+        printed = buf.getvalue()
+        ev = json.loads(printed[mark:].strip().splitlines()[-1])
+        need((rq, ri, re_) == (0, 0, 0) and '"int4"' in printed
+             and math.isfinite(ev["perplexity"]) and ev["perplexity"] > 0,
+             f"(d) quantize/inspect/eval gave {(rq, ri, re_)}: "
+             f"{printed[-1500:]}")
+        out["cli"].update(generate_text=text, serve_health_s=t_health,
+                          serve_chat=body["choices"][0]["message"]["content"],
+                          tinq_bytes=os.path.getsize(tinq), eval=ev)
+        say(f"  (d) Phi-3-mini L=2 as an HF directory "
+            f"({out['cli']['hf_bytes'] / 1e9:.3f} GB): `python -m "
+            f"turboinfer_tpu_torch generate` printed the engine's text; "
+            f"`serve --paged` answered /health {t_health:.1f} s after its "
+            f"start, then a chat completion, and exited 0 on SIGINT; "
+            f"quantize -> .tinq ({out['cli']['tinq_bytes'] / 1e6:.1f} MB), "
+            f"inspect, eval perplexity {ev['perplexity']:.2f} over "
+            f"{ev['tokens']} tokens")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs.values():
+            f.close()
+
+
+def serve_vs_plain(torch, cfg, gen, out):
+    """(e) of phase 18: at L=2, chunked admission (a 50-key window: the
+    shorter row's padded queries in the last chunk see no key) and
+    speculative_generate through the kernels against the plain versions
+    on the CPU."""
+    import types
+    from turboinfer_tpu_torch.config import InferenceConfig
+    from turboinfer_tpu_torch.engine.scheduler import \
+        ContinuousBatchingScheduler
+    from turboinfer_tpu_torch.engine.speculative import speculative_generate
+    from turboinfer_tpu_torch.kernels.dispatch import prepare_params
+    from turboinfer_tpu_torch.loader.synthetic import \
+        create_synthetic_quantized_model
+    from turboinfer_tpu_torch.models import llama
+    from turboinfer_tpu_torch.models.common import params_to
+    t0 = time.perf_counter()
+    cfg2 = cfg.replace(num_layers=2)
+    params2 = prepare_params(create_synthetic_quantized_model(
+        cfg2, bits=4, group_size=64, device="cuda", seed=1).params)
+    cpu = params_to(params2, "cpu")
+    cfgw = cfg2.replace(sliding_window=50)
+    icfg = InferenceConfig(max_seq_len=1024, temperature=0.0, seed=0,
+                           eos_token_id=-1, prefill_chunk=128)
+    ps = [torch.randint(1, 32000, (n,), generator=gen).tolist()
+          for n in (40, 300, 450)]
+    got, logits, ties = {}, {}, 0
+    for dev, p in (("cuda", params2), ("cpu", cpu)):
+        s = ContinuousBatchingScheduler(p, cfgw, icfg, batch_slots=3,
+                                        device=dev)
+        seen = []
+        real = s._sample_first
+
+        def grab(last, knobs, real=real, seen=seen):
+            seen.append(last.float().cpu())
+            return real(last, knobs)
+        s._sample_first = grab
+        r0 = s.submit(ps[0], 4)
+        s.step()
+        rids = [s.submit(q, 2) for q in ps[1:]]
+        s.step()
+        need(s._adm is not None and len(s._adm["group"]) == 2,
+             "(e) the two prompts did not admit as one chunked group")
+        res = s.run()
+        got[dev] = [res[r].tokens for r in [r0] + rids]
+        logits[dev] = seen[-1]
+        for name, t in (("k", s.cache.k), ("v", s.cache.v)):
+            need(bool(torch.isfinite(t.float()).all()), f"(e) the {dev} "
+                 f"slot cache's {name} holds NaN or inf")
+        del s
+    agree, ties = logits_agree(
+        torch, logits["cuda"], logits["cpu"], "L=2 chunked admission first "
+        "tokens (window 50, a padded query with no key)", ties, False, True,
+        tag="(e)")
+    view = types.SimpleNamespace(_model=llama, params=params2)
+    tt = tokens_or_ties(torch, view, cfgw, ps, got["cuda"], got["cpu"],
+                        "(e) chunked admission kernels vs plain")
+    sps = [torch.randint(1, 32000, (n,), generator=gen).tolist()
+           for n in (64, 96)]
+    sk = speculative_generate(params2, cfg2, first_layers(params2, 1),
+                              cfg2.replace(num_layers=1), sps, 4, k=2,
+                              config=icfg)
+    sp = speculative_generate(cpu, cfg2, first_layers(cpu, 1),
+                              cfg2.replace(num_layers=1), sps, 4, k=2,
+                              config=icfg, device="cpu")
+    st = tokens_or_ties(torch, types.SimpleNamespace(_model=llama,
+                                                     params=params2),
+                        cfg2, sps, sk.tokens, sp.tokens,
+                        "(e) speculative_generate kernels vs plain")
+    out["vs_plain"] = dict(chunked=agree, chunked_ties=tt, spec_ties=st,
+                           spec_acceptance=[sk.acceptance_rate,
+                                            sp.acceptance_rate],
+                           seconds=time.perf_counter() - t0)
+    say(f"  (e) L=2 vs plain (CPU): chunked admission in chunks of 128 "
+        f"under a 50-key window, tokens equal ({len(tt)} tie rows), both "
+        f"slot caches finite; speculative_generate B=2 tokens equal "
+        f"(prompts 64, 96, 4 new, k=2; {len(st)} tie rows), acceptance "
+        f"{sk.acceptance_rate:.3f} / "
+        f"{sp.acceptance_rate:.3f}; {out['vs_plain']['seconds']:.1f} s")
+
+
+def phase_serve(torch, report):
+    """Phase 18: the server and the command line at Phi-3-mini-4k's full
+    width (int4 g=64, all 32 layers, max_seq 4096, synthetic weights from
+    a seed, the Phi-3-style tokenizer of phase 17): (a) the HTTP server in
+    process over the paged scheduler (8 slots, 256-token pages,
+    decode_burst=4) with a beam engine on the scheduler's own weights: 8
+    concurrent streamed completions of 500-1000 tokens (64 new) whose
+    tokens equal the scheduler alone, a chat turn streamed and not,
+    json_object, n=2, a 4-beam search, /health and /metrics; req/s,
+    tok/s, client TTFT; (b) chunked admission (512) of a 3500-token
+    prompt while 4 requests decode, against full-width admission: step
+    ms, stall, TTFT; (c) speculative_generate with a 2-layer draft
+    against generate_batch; (d) the command line on Phi-3-mini at 2
+    layers written as an HF directory: generate and serve --paged as
+    subprocesses, quantize/inspect/eval through cli.main; (e) at L=2,
+    chunked admission and speculative_generate against the plain
+    versions on the CPU. Returns the launches of (a)-(c)."""
+    import os
+    import shutil
+    from turboinfer_tpu_torch import kernels
+    from turboinfer_tpu_torch.config import phi3_mini_4k_config
+    from turboinfer_tpu_torch.kernels.dispatch import prepare_params
+    from turboinfer_tpu_torch.loader.synthetic import \
+        create_synthetic_quantized_model
+    cfg = phi3_mini_4k_config()
+    L, T = cfg.num_layers, cfg.max_seq_len
+    say(f"phase 18: the server and the command line, Phi-3-mini-4k int4 "
+        f"g=64, L={L}, max_seq {T}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "_smoke_files", "serve")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out, total = {}, {}
+    try:
+        tok, _ = text_load(work)
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = prepare_params(create_synthetic_quantized_model(
+            cfg, bits=4, group_size=64, device="cuda", seed=0).params)
+        gen = torch.Generator().manual_seed(18)
+        serve_http(torch, kernels, params, cfg, tok, gen, total, out)
+        serve_chunked(torch, kernels, params, cfg, gen, total, out)
+        serve_speculative(torch, kernels, params, cfg, gen, total, out)
+        need(all(total.get(k, 0) > 0 for k in (
+            "qmm_int4", "flash_prefill", "cache_write_fresh",
+            "decode_attention", "paged_attention")),
+            f"(a)-(c) launches {total}: a kernel of the serving paths did "
+            "not run")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the subprocesses start up while (e)'s CPU side runs
+        st = serve_cli_start(torch, work, out)
+        try:
+            serve_vs_plain(torch, cfg, gen, out)
+        finally:
+            serve_cli_finish(torch, work, st, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = total
+    report["serve"] = out
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17")
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18")
     ap.add_argument("--json", default=None,
                     help="also write every measurement to this JSON file")
     args = ap.parse_args(argv)
@@ -5308,6 +5996,7 @@ def main(argv=None) -> int:
         phi3_launches = run(15, phase_phi3, {})
         files_launches = run(16, phase_loader, {})
         text_launches = run(17, phase_text, {})
+        serve_launches = run(18, phase_serve, {})
     except (SmokeError, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         if args.json:
@@ -5330,7 +6019,9 @@ def main(argv=None) -> int:
     # from phase 15 (a)'s (head dim 96), launches_files from phase 16
     # (a)'s run of the Phi-3 model loaded from its HF files,
     # launches_text from phase 17 (b)-(g) (chat, streaming, structured,
-    # beam search, scoring and constrained serving)
+    # beam search, scoring and constrained serving), launches_serve from
+    # phase 18 (a)-(c) (the HTTP server, chunked admission and
+    # speculative_generate)
     kern = []
     for name in kernels.wrappers():
         r = results.get(name, {})
@@ -5354,6 +6045,7 @@ def main(argv=None) -> int:
                      "launches_phi3": phi3_launches.get(name, 0),
                      "launches_files": files_launches.get(name, 0),
                      "launches_text": text_launches.get(name, 0),
+                     "launches_serve": serve_launches.get(name, 0),
                      "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
                      "plain_ms": r.get("plain_ms"),
                      "bound_ms": r.get("bound_ms"),

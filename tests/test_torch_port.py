@@ -71,6 +71,14 @@ def test_the_text_slice_is_under_the_import_rule():
         assert f"turboinfer_tpu_torch/{mod}" in names
 
 
+def test_the_server_slice_is_under_the_import_rule():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("serve/__init__.py", "serve/engine.py", "serve/http_server.py",
+                "cli.py", "__main__.py", "utils/profiler.py", "__init__.py",
+                "version.py"):
+        assert f"turboinfer_tpu_torch/{mod}" in names
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -145,3 +153,16 @@ def test_chip_smoke_refuses_without_gpu(tmp_path):
                            capture_output=True, text=True, timeout=120)
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+
+def test_server_slice_entry_points_default_to_cuda(monkeypatch):
+    """speculative_generate runs on the card unless asked for the CPU."""
+    from turboinfer_tpu_torch.engine.speculative import speculative_generate
+    _no_cuda(monkeypatch)
+    cfg = tiny_config(dtype=torch.float32, num_layers=1)
+    params = llama.init_params(cfg, device="cpu")
+    with pytest.raises(DeviceError):
+        speculative_generate(params, cfg, params, cfg, [[1, 2, 3]], 4, k=2)
+    res = speculative_generate(params, cfg, params, cfg, [[1, 2, 3]], 4, k=2,
+                               device="cpu")
+    assert len(res.tokens[0]) == 7

@@ -74,13 +74,18 @@ def models(quant=False):
     return _P[quant]
 
 
-def pair(kind, batch_slots=2, quant=False, **kw):
-    """The JAX and the port scheduler of `kind` with the same settings."""
+def pair(kind, batch_slots=2, quant=False, window=None, **kw):
+    """The JAX and the port scheduler of `kind` with the same settings;
+    window: the same weights as a Mistral-style model whose every layer
+    attends that many keys."""
     J, T, extra = KINDS[kind]
     extra = {**extra, **kw.pop("sched", {})}
     icfg = dict(max_seq_len=96, temperature=0.0, eos_token_id=-1, seed=0)
     icfg.update(kw)
     jcfg, jp, tcfg, tp = models(quant)
+    if window is not None:
+        jcfg, tcfg = (c.replace(architecture="mistral", sliding_window=window)
+                      for c in (jcfg, tcfg))
     return (J(jp, jcfg, ti.InferenceConfig(**icfg), batch_slots=batch_slots,
               **extra),
             T(tp, tcfg, tconfig.InferenceConfig(**icfg),
@@ -217,9 +222,108 @@ def test_unported_modes_raise(kw):
     jcfg, jp, tcfg, tp = models()
     with pytest.raises(NotImplementedError):
         TContinuous(tp, tcfg, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        TPaged(tp, tcfg, tconfig.InferenceConfig(prefill_chunk=16),
-               device="cpu")
+    # the paged scheduler takes prefill_chunk and never chunks, as JAX's
+    js, ts = pair("paged", prefill_chunk=16)
+    same(run_both(js, ts, [(p, 6, {}) for p in prompts(3, seed=4, base=30)]))
+    assert ts._adm is None
+
+
+# -- chunked admission (prefill_chunk > 0) ---------------------------------
+
+def _drive(sched, long_prompt, new=8):
+    """Decode a short request a few steps, then admit a long prompt while
+    it runs (JAX tests/test_scheduler.py's pattern) -> GenerationResults."""
+    r1 = sched.submit([1, 2, 3], 24)
+    for _ in range(4):
+        sched.step()
+    r2 = sched.submit(long_prompt, new)
+    res = sched.run()
+    return [res[r1], res[r2]]
+
+
+@pytest.mark.parametrize("kv", ["model", "int8"])
+def test_chunked_admission_trajectory_identical(kv):
+    """Greedy trajectories with chunked admission equal JAX's chunked
+    scheduler and the port's own full-width admission."""
+    long_prompt = list(range(1, 41))
+    js, ts = pair("contiguous", prefill_chunk=8, kv_cache_dtype=kv)
+    got = _drive(ts, long_prompt)
+    same(list(zip(_drive(js, long_prompt), got)))
+    _, full = pair("contiguous", kv_cache_dtype=kv)
+    assert [r.tokens for r in _drive(full, long_prompt)] == \
+        [r.tokens for r in got]
+
+
+def test_chunked_admission_windowed_mixed_group():
+    """Two prompts of 20 and 27 tokens admit as one group in chunks of 8
+    under a 5-key window, while a decode runs: the shorter row's last
+    chunk runs at length 0, its padded queries past every key of the
+    window. Tokens equal JAX's, and the slot cache holds no NaN."""
+    js, ts = pair("contiguous", batch_slots=3, window=5, prefill_chunk=8)
+    ps = prompts(2, seed=8, base=20, step=7)
+    outs = []
+    for s in (js, ts):
+        r0 = s.submit([4, 5, 6], 20)
+        s.step()
+        rids = [s.submit(p, 8) for p in ps]
+        s.step()
+        if s is ts:
+            assert ts._adm is not None and len(ts._adm["group"]) == 2
+        res = s.run()
+        outs.append([res[r] for r in [r0] + rids])
+    same(list(zip(*outs)))
+    assert torch.isfinite(ts.cache.k).all() and torch.isfinite(ts.cache.v).all()
+
+
+def test_chunked_admission_decodes_keep_flowing():
+    """While a long prompt admits chunk by chunk, the live decode
+    advances every step; step() counts the admitting group while it is
+    the only live work."""
+    _, ts = pair("contiguous", prefill_chunk=8, prefill_bucket=False)
+    r1 = ts.submit([1, 2, 3], 40)
+    ts.step()
+    n0 = len(ts.get_request(r1).out_tokens)
+    r2 = ts.submit(list(range(1, 33)), 4)          # 4 chunks
+    for i in range(4):
+        ts.step()
+        assert ts._adm is not None or i == 3
+        assert ts.pending == 2
+        assert len(ts.get_request(r1).out_tokens) == n0 + i + 1
+        assert ts.get_request(r2).rid == r2
+    assert ts._adm is None and len(ts.get_request(r2).out_tokens) >= 1
+    assert all(r.finished for r in ts.run().values())
+
+
+def test_chunked_admission_cancel_mid_flight():
+    """A request cancelled during its chunked admission finishes with no
+    token and its slot is never activated; the other request goes on."""
+    _, ts = pair("contiguous", prefill_chunk=8, prefill_bucket=False)
+    r1 = ts.submit([1, 2, 3], 16)
+    ts.step()
+    r2 = ts.submit(list(range(1, 33)), 8)
+    ts.step()
+    assert ts._adm is not None
+    assert ts.cancel(r2, reason="client gone")
+    assert not ts.cancel(r2)
+    res = ts.run()
+    assert res[r2].stop_reason == "client gone"
+    assert res[r2].tokens == list(range(1, 33))
+    assert res[r1].finished and len(res[r1].tokens) == 3 + 16
+    assert ts._free_slots() == [0, 1]
+
+
+def test_chunked_admission_queue_behind():
+    """Requests queued behind a chunked admission admit after it; all of
+    them equal JAX's trajectories."""
+    js, ts = pair("contiguous", prefill_chunk=8, prefill_bucket=False)
+    outs = []
+    for s in (js, ts):
+        r0 = s.submit([1, 2, 3], 30)
+        s.step()
+        rids = [s.submit(list(range(1, 33)), 6), s.submit([7, 8], 6)]
+        res = s.run()
+        outs.append([res[r] for r in [r0] + rids])
+    same(list(zip(*outs)))
 
 
 def _jax_empirical(logits, t, k, p, mp, n=4000):

@@ -191,3 +191,80 @@ def test_filtered_probs_match_jax():
                                                    top_p=p))
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    atol=1e-6)
+
+
+# -- speculative_generate (the engine-level rounds) --------------------------
+
+@pytest.mark.parametrize("kv", ["model", "int8"])
+def test_speculative_generate_greedy_matches_jax_and_generate_batch(kv):
+    """Greedy speculative_generate with the truncated draft: tokens and
+    acceptance equal JAX's, and the tokens equal the port's plain
+    generate_batch (lossless)."""
+    from turboinfer_tpu_torch.engine.engine import InferenceEngine
+    m = models()
+    ps = [[1, 5, 42, 7], [9, 3], prompts(1, seed=3)[0]]
+    kw = dict(temperature=0.0, seed=0, eos_token_id=-1, kv_cache_dtype=kv,
+              max_seq_len=96)
+    want = jspec.speculative_generate(
+        m["jp"], m["jcfg"], m["jd"], m["jcfg"].replace(num_layers=1), ps,
+        max_new_tokens=16, k=3, config=ti.InferenceConfig(**kw), max_seq=96)
+    got = tspec.speculative_generate(
+        m["tp"], m["tcfg"], m["td"], m["tcfg"].replace(num_layers=1), ps,
+        max_new_tokens=16, k=3, config=tconfig.InferenceConfig(**kw),
+        max_seq=96, device="cpu")
+    assert got.tokens == want.tokens
+    assert got.acceptance_rate == want.acceptance_rate
+    assert 0.0 < got.acceptance_rate < 1.0
+    assert (got.rounds, got.tokens_per_round) == (want.rounds,
+                                                  want.tokens_per_round)
+    eng = InferenceEngine(m["tp"], m["tcfg"], tconfig.InferenceConfig(**kw),
+                          device="cpu")
+    plain = eng.generate_batch(ps, 16)
+    assert [r.tokens for r in plain] == got.tokens
+
+
+def test_speculative_generate_self_draft_sampled_and_eos():
+    """draft == target accepts every proposal (k+1 tokens a round) under
+    sampling; one seed gives one stream; an EOS ends a row mid-round."""
+    m = models()
+    cfg = tconfig.InferenceConfig(temperature=0.8, top_k=0, top_p=1.0,
+                                  seed=3, max_seq_len=96)
+    runs = [tspec.speculative_generate(m["tp"], m["tcfg"], m["tp"],
+                                       m["tcfg"], [[1, 2, 3]],
+                                       max_new_tokens=12, k=3, config=cfg,
+                                       device="cpu") for _ in range(2)]
+    assert runs[0].acceptance_rate == 1.0 and runs[0].tokens_per_round == 4.0
+    assert runs[0].tokens == runs[1].tokens and len(runs[0].tokens[0]) == 15
+    greedy = dict(temperature=0.0, seed=0, eos_token_id=-1)
+    base = tspec.speculative_generate(
+        m["tp"], m["tcfg"], m["td"], m["tcfg"].replace(num_layers=1),
+        [[1, 5, 42, 7]], max_new_tokens=20, k=3,
+        config=tconfig.InferenceConfig(**greedy), device="cpu").tokens[0]
+    eos = base[4 + 7]
+    got = tspec.speculative_generate(
+        m["tp"], m["tcfg"], m["td"], m["tcfg"].replace(num_layers=1),
+        [[1, 5, 42, 7]], max_new_tokens=20, k=3,
+        config=tconfig.InferenceConfig(**{**greedy, "eos_token_id": eos}),
+        device="cpu").tokens[0]
+    assert got[-1] == eos and got == base[: len(got)] and len(got) < len(base)
+
+
+def test_speculative_generate_validation(monkeypatch):
+    """JAX's errors: no prompts, an empty prompt, max_seq without the
+    draft slack, and an int8 cache on a family that does not thread the
+    scales."""
+    from turboinfer_tpu_torch.models import llama as tllama
+    m = models()
+    args = (m["tp"], m["tcfg"], m["td"], m["tcfg"].replace(num_layers=1))
+    for ps in ([], [[]]):
+        with pytest.raises(ValueError):
+            tspec.speculative_generate(*args, ps, max_new_tokens=4,
+                                       device="cpu")
+    with pytest.raises(ValueError, match="max_seq"):
+        tspec.speculative_generate(*args, [[1, 2]], max_new_tokens=10_000,
+                                   device="cpu")
+    monkeypatch.setattr(tllama, "SUPPORTS_INT8_KV", False)
+    with pytest.raises(ValueError, match="int8"):
+        tspec.speculative_generate(
+            *args, [[1, 2]], max_new_tokens=4, device="cpu",
+            config=tconfig.InferenceConfig(kv_cache_dtype="int8"))

@@ -1,0 +1,3 @@
+from turboinfer_tpu_torch.cli import main
+
+raise SystemExit(main())

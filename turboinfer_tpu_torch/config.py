@@ -126,8 +126,9 @@ class InferenceConfig:
     serving, for the llama and MoE families. GPT-OSS takes every value in
     its contiguous caches and fp8 page pools, and refuses int8 page pools
     as the JAX package does (models/gptoss.py SUPPORTS_INT8_KV_PAGED).
-    The engine and schedulers raise on other values this port does not
-    run yet (e.g. prefill_chunk > 0 in a scheduler)."""
+    prefill_chunk > 0: the engine prefills in chunks of that width, the
+    contiguous scheduler admits long prompts chunk by chunk while decodes
+    are live, and the paged scheduler ignores it, as JAX's does."""
 
     max_seq_len: int = 2048
     max_batch_size: int = 32

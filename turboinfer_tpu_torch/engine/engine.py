@@ -112,11 +112,15 @@ class InferenceEngine:
     cache stores config.kv_cache_dtype (models/common.resolve_kv_dtype:
     "model", "bf16", "int8" with scale planes, "fp8"). tokenizer: the
     text methods' (chat, encode/decode, stream text, structured masks);
-    loader.load_engine passes the file's."""
+    loader.load_engine passes the file's. params_are_prepared=True: the
+    params already went through prepare_params on this device (a live
+    scheduler's weights, say); the engine shares them instead of building
+    a fused copy, so it adds no device memory for weights."""
 
     def __init__(self, params: Dict[str, Any], model_config: ModelConfig,
                  config: Optional[InferenceConfig] = None,
-                 tokenizer=None, device="cuda"):
+                 tokenizer=None, device="cuda",
+                 params_are_prepared: bool = False):
         self.device = resolve_device(device)
         self._model = registry.get_model(model_config.architecture)
         self._model.check_supported(model_config)
@@ -131,7 +135,8 @@ class InferenceEngine:
         if self.config.decode_loop not in ("scan", "host"):
             raise ValueError(f"decode_loop must be 'scan' or 'host', got "
                              f"{self.config.decode_loop!r}")
-        self.params = prepare_params(params_to(params, self.device))
+        self.params = (params if params_are_prepared
+                       else prepare_params(params_to(params, self.device)))
         self.stats = EngineStats()
         self._gen = self._new_generator()
         self._cache_pool: Dict[Tuple[int, int], KVCache] = {}

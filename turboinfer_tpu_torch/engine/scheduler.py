@@ -20,12 +20,20 @@ model every step can be a speculative round: the draft proposes spec_k
 tokens per slot, one target pass verifies them, and rejection sampling
 accepts a prefix; greedy slots keep the plain trajectory exactly.
 
+With config.prefill_chunk > 0 and decodes live, the contiguous
+scheduler admits a long prompt in chunks: one prefill_chunk-wide
+forward into a small cache per step(), each followed by the live slots'
+decode step, so running requests never stall for a whole prompt; the
+last chunk samples the first tokens and copies the small cache into the
+slots. An idle scheduler, a scheduler with a draft model, and the paged
+scheduler (which takes prefill_chunk and never chunks, as JAX's) prefill
+at full width.
+
 The JAX package's jitted programs are plain methods here, run eagerly
 on the scheduler's device. A step moves its results to the host with
 ONE device-to-host copy; the paged block table is uploaded only when
 the host changed it. Not ported yet: meshes and the other parallel
-modes (ROADMAP §1 item 13) and chunked admission (prefill_chunk > 0,
-ROADMAP §1 item 8).
+modes (ROADMAP §1 item 13).
 """
 
 from __future__ import annotations
@@ -158,10 +166,6 @@ class ContinuousBatchingScheduler:
                                           model_config.dtype)
         check_kv_dtype(self._model, model_config.architecture,
                        self._kv_dtype)
-        if self.config.prefill_chunk > 0:
-            raise NotImplementedError(
-                "chunked admission (prefill_chunk > 0) is not ported yet: "
-                "ROADMAP §1 item 8")
         self.params = prepare_params(params_to(params, self.device))
         self.B = batch_slots
         self.T = self.config.max_seq_len
@@ -173,6 +177,7 @@ class ContinuousBatchingScheduler:
         self._active: Dict[int, _Request] = {}       # slot -> request
         self._done: Dict[int, _Request] = {}
         self._next_id = 0
+        self._adm: Optional[Dict[str, Any]] = None   # chunked admission
         # constrained decoding: one TokenMaskCache (token trie + per-state
         # masks) per normalized response_format, built at first use
         self.tokenizer = tokenizer
@@ -322,20 +327,25 @@ class ContinuousBatchingScheduler:
         length[slots] = seq_lens
         return cache._replace(length=length)
 
-    def _prefill_fn(self, tokens, seq_lens, slots, knobs):
-        """Batched admission prefill of m prompts [m, S] into `slots`;
-        samples each row's first token with its own knobs. With a draft
-        model the draft cache is prefilled on the same prompts."""
+    def _sample_first(self, last, knobs):
+        """Each admitted row's first token from its last-position logits
+        [m, V] under its own knobs -> (first, lp, the biased logits)."""
         (t, k, p), (minp, rep, pres, freq), pc_rows, bias_rows = knobs
-        last, small = self._prefill_small(self._model, self.model_config,
-                                          self.params, tokens, seq_lens,
-                                          self._kv_dtype)
         last = last + bias_rows
         first = sampling.sample_per_slot(
             self._gen, last, t, k, p, min_p=minp, repetition_penalty=rep,
             presence_penalty=pres, frequency_penalty=freq, counts=pc_rows,
             out_counts=torch.zeros_like(pc_rows))
-        first_lp = sampling.token_logprob(last, first)
+        return first, sampling.token_logprob(last, first), last
+
+    def _prefill_fn(self, tokens, seq_lens, slots, knobs):
+        """Batched admission prefill of m prompts [m, S] into `slots`;
+        samples each row's first token with its own knobs. With a draft
+        model the draft cache is prefilled on the same prompts."""
+        last, small = self._prefill_small(self._model, self.model_config,
+                                          self.params, tokens, seq_lens,
+                                          self._kv_dtype)
+        first, first_lp, _ = self._sample_first(last, knobs)
         self.cache = self._scatter_into_slots(self.cache, small, slots,
                                               seq_lens)
         if self._dmodel is not None:
@@ -396,13 +406,23 @@ class ContinuousBatchingScheduler:
             if req.rid == rid:
                 self._finish(slot, reason)
                 return True
+        for req in self._adm["group"] if self._adm is not None else ():
+            if req.rid == rid and not req.finished:
+                # mid chunked admission: the group's chunks keep running
+                # at their shapes, but _activate_prefilled skips the row
+                req.finished = True
+                req.finished_at = time.perf_counter()
+                req.stop_reason = reason
+                self._done[rid] = req
+                return True
         return False
 
     def get_request(self, rid: int):
         """Live view of a submitted request."""
         if rid in self._done:
             return self._done[rid]
-        for req in list(self._active.values()) + list(self._queue):
+        adm = self._adm["group"] if self._adm is not None else []
+        for req in list(self._active.values()) + list(self._queue) + adm:
             if req.rid == rid:
                 return req
         return None
@@ -460,16 +480,24 @@ class ContinuousBatchingScheduler:
 
     @property
     def pending(self) -> int:
-        return len(self._queue) + len(self._active)
+        adm = len(self._adm["group"]) if self._adm is not None else 0
+        return len(self._queue) + len(self._active) + adm
 
     def _free_slots(self) -> List[int]:
-        return [s for s in range(self.B) if s not in self._active]
+        held = self._adm["slots"] if self._adm is not None else ()
+        return [s for s in range(self.B)
+                if s not in self._active and s not in held]
 
     def _admit(self):
         """Fill free slots from the queue. Consecutive queued requests
         with the same bucketed prompt width prefill as ONE batched
         forward of a power-of-two count (strict FIFO: only a same-width
-        run at the head of the queue batches)."""
+        run at the head of the queue batches). With prefill_chunk > 0, a
+        group wider than a chunk admits chunk by chunk while decodes are
+        live (one chunk per step(), _adm_advance)."""
+        if self._adm is not None:
+            self._adm_advance()
+            return
         while self._queue:
             free = self._free_slots()
             if not free:
@@ -501,6 +529,17 @@ class ContinuousBatchingScheduler:
                      tuple(torch.cat([s[1][j] for s in sps]) for j in range(4)),
                      torch.cat([s[2] for s in sps]),
                      torch.cat([s[3] for s in sps]))
+            C = self.config.prefill_chunk
+            if 0 < C < S and self._active and self._dmodel is None:
+                # chunked only while decodes are live (an idle scheduler
+                # prefills at full width, which is faster) and without a
+                # draft (its cache prefill is not chunked)
+                self._adm = dict(
+                    group=group, slots=slots, arr=arr, S=S, C=C, pos=0,
+                    t0=t0, knobs=knobs, small=None, out_logits=None,
+                    lens=np.asarray([len(r.prompt) for r in group], np.int64))
+                self._adm_advance()
+                return
             first, first_lp = self._prefill_fn(
                 torch.from_numpy(arr).to(self.device),
                 torch.tensor([len(r.prompt) for r in group], dtype=torch.int32,
@@ -534,11 +573,59 @@ class ContinuousBatchingScheduler:
         first_np, lp_np = _to_host(first, first_lp)   # one batched fetch
         dt_ms = (time.perf_counter() - t0) * 1e3
         for i, req in enumerate(group):
+            if req.finished:              # cancelled mid chunked admission
+                continue
             if self._dmodel is not None:
                 # admission prefilled the draft cache on the prompt
                 self._spec_dlen[slots[i]] = len(req.prompt)
             self._activate(slots[i], req, int(first_np[i]), float(lp_np[i]),
                            dt_ms)
+
+    # -- chunked admission -----------------------------------------------
+
+    def _adm_advance(self):
+        """One prompt chunk of the in-flight admission (once per step(),
+        before the decode step): the m rows' next C tokens go into their
+        small cache, and a row whose prompt ends inside the chunk keeps
+        its last position's logits. A row whose prompt ended earlier
+        runs at chunk length 0: its padded queries sit past its length
+        and their K/V land past it, where nothing reads them. After the
+        last chunk the first tokens are sampled and the small cache is
+        copied into the slots."""
+        a = self._adm
+        group, slots, S, C, pos = a["group"], a["slots"], a["S"], a["C"], \
+            a["pos"]
+        dev, m = self.device, len(group)
+        if a["small"] is None:
+            a["small"] = self._model.init_cache(
+                self.model_config, m, max_seq=S, dtype=self._kv_dtype,
+                device=dev)
+            a["out_logits"] = torch.zeros(
+                (m, self.model_config.vocab_size), dtype=torch.float32,
+                device=dev)
+        c1 = min(pos + C, S)
+        chunk = np.full((m, C), self.config.pad_token_id, np.int32)
+        chunk[:, : c1 - pos] = a["arr"][:, pos:c1]
+        lens = a["lens"]
+        chunk_lens = torch.from_numpy(
+            np.clip(lens - pos, 0, C).astype(np.int32)).to(dev)
+        sel = torch.from_numpy((lens - 1 >= pos) & (lens - 1 < c1)).to(dev)
+        logits, a["small"] = self._model.forward(
+            self.params, self.model_config, torch.from_numpy(chunk).to(dev),
+            a["small"], seq_lens=chunk_lens,
+            logit_idx=(chunk_lens - 1).clamp(min=0), fresh_prefill=pos == 0)
+        a["out_logits"] = torch.where(sel[:, None], logits[:, 0].float(),
+                                      a["out_logits"])
+        a["pos"] = c1
+        if c1 < S:
+            return
+        first, first_lp, _ = self._sample_first(a["out_logits"], a["knobs"])
+        self.cache = self._scatter_into_slots(
+            self.cache, a["small"], torch.tensor(slots, dtype=torch.long,
+                                                 device=dev),
+            torch.from_numpy(lens.astype(np.int32)).to(dev))
+        self._adm = None
+        self._activate_prefilled(group, slots, first, first_lp, a["t0"])
 
     def _finish(self, slot: int, reason: str):
         req = self._active.pop(slot)
@@ -627,11 +714,13 @@ class ContinuousBatchingScheduler:
                         <= self.T for r in self._active.values()))
 
     def step(self) -> int:
-        """Admit, then one decode step (or one burst, or one speculative
-        round). Returns the number of live slots."""
+        """Admit (or run one chunk of a chunked admission), then one
+        decode step (or one burst, or one speculative round). Returns the
+        number of live slots, or the admitting group's size while only a
+        chunked admission is live."""
         self._admit()
         if not self._active:
-            return 0
+            return 0 if self._adm is None else len(self._adm["group"])
         if self._spec_ready():
             self._spec_catchup()
             return self._step_spec()
@@ -988,7 +1077,6 @@ class PagedContinuousScheduler(ContinuousBatchingScheduler):
         K/V (and scales) then goes to the slot's fresh pages.
         Returns (first token, its logprob, the biased logits row)."""
         cfg, page, dev = self.model_config, self.page, self.device
-        (t, k, p), (minp, rep, pres, freq), pc_row, bias_row = knobs
         L, _, Hkv, _, D = self.cache.k_pages.shape
         pre, n_new = m * page, S_suf // page
         plen = len(req.prompt)
@@ -1015,12 +1103,7 @@ class PagedContinuousScheduler(ContinuousBatchingScheduler):
         logits, small = self._model.forward(
             self.params, cfg, torch.from_numpy(arr).to(dev), small,
             seq_lens=suf_len, logit_idx=(suf_len - 1).clamp(min=0))
-        last = logits[:, 0] + bias_row
-        first = sampling.sample_per_slot(
-            self._gen, last, t, k, p, min_p=minp, repetition_penalty=rep,
-            presence_penalty=pres, frequency_penalty=freq, counts=pc_row,
-            out_counts=torch.zeros_like(pc_row))
-        first_lp = sampling.token_logprob(last, first)
+        first, first_lp, last = self._sample_first(logits[:, 0], knobs)
         # [L, 1, Hkv, n_new * page(, D)] suffix -> [L, n_new, Hkv, page(, D)]
         for pages, buf in pairs:
             pages[:, fresh] = buf[:, 0, :, pre:].reshape(
