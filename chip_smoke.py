@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port (turboinfer_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,...,18] [--json PATH]
+    python3 chip_smoke.py [--phases 1,2,...,19] [--json PATH]
 
 Phases:
   1. environment: card name and power limit, torch/CUDA versions, and the
@@ -38,14 +38,14 @@ Phases:
   7. paged speculative serving: the same model with its first 2 layers
      as the draft, spec_k=4 (verify G=5), 8 greedy requests; verify
      logits against 5 chained decode steps on the same pages;
-  8. Mixtral-8x7B int4 g=64 at full width, 8 of its 32 layers, random
+  8. Mixtral-8x7B int4 g=64 at full width, 4 of its 32 layers, random
      weights from a seed: generate_batch at B=1 (prompt 1000, 128 new
      tokens; decode through the grouped kernel, traced, one step under
      torch.cuda.set_sync_debug_mode("error")) and at B=8 (prompts 512,
      64 new; the E-loop), PagedContinuousScheduler with 12 requests, and
      kernels against plain versions at L=1 (B=1 and B=2); launch counts
      checked against the structure;
-  9. GPT-OSS-20B at full width, 6 of its 24 layers (a depth cut so
+  9. GPT-OSS-20B at full width, 2 of its 24 layers (a depth cut so
      phase 17 fits the time limit; both kinds of layer stay), E=32 top-4,
      V=201088, random weights from a seed, bf16 experts, attention and
      head int4
@@ -84,10 +84,10 @@ Phases:
      decode, stacked-prefill and paged kernels, at phase 10's own
      prefill, decode and admission shapes too.
  11. int8 and zero-point weights: (a) the 7B at the default
-     QuantizationConfig() (int8, symmetric, g=64), L=8 (of 32), through
+     QuantizationConfig() (int8, symmetric, g=64), L=4 (of 32), through
      generate_batch as phase 3, every product on qmm_int8 (traced, peak
      memory); (b) paged serving of 8 requests, 4 sharing a 512-token
-     prefix; (c) Mixtral-8x7B int8 g=64 at L=8 (of 32), B=1 prompt 1000,
+     prefix; (c) Mixtral-8x7B int8 g=64 at L=4 (of 32), B=1 prompt 1000,
      64 new tokens, decode through qmm_int8_grouped, one step sync-free, peak
      < 70 GiB; (d) weights quantized on the card from seeded bf16,
      kernels against plain versions: 7B int8, int8 and int4 with zero
@@ -107,7 +107,7 @@ Phases:
      the env unset (no W4A8 launch, prefill traced too), interleaved with
      (a) so their prefill times compare; (b) B=16, prompts 128, 32 new:
      every product on qmm_int4_a8; (c) paged speculative rounds as phase
-     7, the verify (M=40) on qmm_int4_a8; (e) at L=2 kernels against plain
+     7, the verify (M=40) on qmm_int4_a8; (e) at L=1 kernels against plain
      versions, W4A8 on both sides, within 5% of max|logit| and phase 11's
      tie rule. Phase 2 also holds a8_quantize_rows byte for byte and
      qmm_int4_a8 bit for bit against their plain versions at the 7B's
@@ -117,7 +117,7 @@ Phases:
  13. Gemma-2-27B (google/gemma-2-27b's published config: 46 layers,
      hidden 4608, 32:16 heads of 128, FFN 36864, vocab 256000, a 4096-key
      window on every even layer, attention and final softcaps 50 and 30),
-     int4 g=64, bf16, 6 of the 46 layers, synthetic
+     int4 g=64, bf16, 4 of the 46 layers, synthetic
      weights from a seed, build peak printed: (a) generate_batch B=2,
      prompts of 4500 and 5000 (past the window), 64 new tokens, max_seq
      8192 (launch counts of the run and of one decode step: L decode
@@ -141,8 +141,8 @@ Phases:
  14. Gemma-3-12B (google/gemma-3-12b-pt's published config: 48 layers,
      hidden 3840, 16:8 heads of 256, FFN 15360, vocab 262208, q/k norms,
      a 1024-key window on five layers of six with a local RoPE base, linear
-     RoPE scaling 8 on the global layers), int4 g=64, bf16, 12 of the 48
-     layers (two global),
+     RoPE scaling 8 on the global layers), int4 g=64, bf16, 6 of the 48
+     layers (one global),
      synthetic weights from a seed, positions cut to 8192: (a)
      generate_batch B=2, prompts of 4500 and 5000, 64 new tokens (launch
      counts of the run and of one decode step, traced prefill and decode,
@@ -159,7 +159,7 @@ Phases:
  15. Phi-3-mini-4k (microsoft/Phi-3-mini-4k-instruct's published config:
      32 layers, hidden 3072, 32:32 heads of 96, FFN 8192, vocab 32064,
      4096 positions, a 2047-key window on every layer), int4 g=64, bf16,
-     16 of the 32 layers (phases 16 and 17 run all 32), synthetic weights
+     16 of the 32 layers (as phases 17-18; phase 16 runs all 32), synthetic weights
      from a seed: (a) generate_batch
      B=2, prompts of 3000 and 3500, 64 new tokens (launch counts of the
      run and of one decode step, traced prefill and decode, cache and
@@ -168,7 +168,7 @@ Phases:
      prefix hits, no page leaked); (e) generate_batch with
      use_cache=False (B=2, prompts 200 and 300, 8 new: one prefill a
      token) against the cached path's tokens under phase 11's tie rule;
-     (d) at L=2, kernels against plain versions within 5% of max|logit|
+     (d) at L=1, kernels against plain versions within 5% of max|logit|
      and the tie rule. Phase 2 also holds every attention and cache
      kernel at head dim 96 (the lone-head decode and paged kernels,
      windowed and global, bf16, int8, fp8; a GQA decode; flash fresh,
@@ -219,10 +219,10 @@ Phases:
      a tokenizer, 2 json_object, 2 schema and 4 plain requests of
      500-1000 tokens at decode_burst=4 (single steps while a
      constrained slot lives; plain rows as when alone; req/s, tok/s);
-     (h) at L=2, beam search and generate_structured through the
+     (h) at L=1, beam search and generate_structured through the
      kernels against the plain versions.
  18. the server and the command line at Phi-3-mini-4k's full width (int4
-     g=64, all 32 layers, max_seq 4096, phase 17's tokenizer files): (a)
+     g=64, 16 of the 32 layers, max_seq 4096, phase 17's tokenizer files): (a)
      the OpenAI-compatible HTTP server in process (ServingEngine over
      PagedContinuousScheduler, 8 slots, 256-token pages, decode_burst=4,
      and a beam engine sharing the scheduler's weights through
@@ -247,6 +247,25 @@ Phases:
      cli.main; (e) at L=2, chunked admission under a 50-key window (a
      padded query sees no key; slot caches finite) and
      speculative_generate against the plain versions on the CPU.
+ 19. the GPT-2 and NeoX families: Falcon-7B (tiiuae/falcon-7b's published
+     config: 32 layers, hidden 4544, 71 query heads on one kv head of
+     64, FFN 18176, vocab 65024, the parallel block) through
+     models/neox.py, int4 g=64, all 32 layers, synthetic weights from a
+     seed: (a) generate_batch B=2, prompts of 1024 and 1536, 128 new
+     tokens (launch counts of the run and of one decode step, every
+     decode step on the decode kernel at a group of 71, a traced prefill
+     and 8 traced decode steps, cache bytes a token, peak memory); (b)
+     the contiguous scheduler answering 8 requests (the paged one refuses
+     the model: no paged forward, as in the JAX package); (c) (a) over
+     int8 and fp8 caches, 32 new; (d) at L=1, kernels against plain
+     versions for Falcon-7B, GPT-2-XL (its 50257-wide head fp: qmm
+     takes N % 8 == 0 only), Pythia-6.9B and BLOOM-7b1 (ALiBi: no
+     attention kernel) at their published widths; (e) a Phi-2-width
+     model (head dim 80) refused on the card, the error naming the head
+     dim. Phase 2 also holds the decode kernel at the group of 71
+     (bf16, int8, fp8) and Falcon-40B's 16, the flash kernel at 71:1,
+     the cache writes at one kv head, and qmm at K=4544 and 18176
+     (check_falcon_shapes).
 Exits non-zero on any failure (no CPU fallback). The last stdout line is
 {"ok": true, "device": {...}}; before it come a {"kernels": [...]} line
 and the nvidia-smi name/power-limit line.
@@ -1177,7 +1196,7 @@ def check_encode_writes(torch, rows, results):
 
 def check_decode(torch, F, rows, results, B, Hq, Hkv, T, D, lens,
                  record: bool, window=None, sinks: bool = False, kind=None,
-                 softcap=None, qscale=1.0):
+                 softcap=None, qscale=1.0, lib_expand: bool = False):
     """decode_attention against decode_plain on layer 0 of a stacked
     cache, optionally with a window and per-head sinks (from a seed), or
     compressed to kind "int8"/"fp8" (SDPA then reads K/V dequantized
@@ -1186,7 +1205,9 @@ def check_decode(torch, F, rows, results, B, Hq, Hkv, T, D, lens,
     The library yardstick is SDPA with a float mask on the same keys
     plus one appended key column (K = 0, V = 0, mask value = the head's
     sink), which computes exactly the sink softmax; K/V extension and
-    mask are built beforehand."""
+    mask are built beforehand. lib_expand: SDPA reads K/V expanded to the
+    Hq query heads beforehand (repeat_interleave, not timed) instead of
+    its enable_gqa form."""
     from turboinfer_tpu_torch.kernels import decode_attention as da
     gen = torch.Generator(device="cuda").manual_seed(4)
     L = 4 if record else 1
@@ -1221,6 +1242,11 @@ def check_decode(torch, F, rows, results, B, Hq, Hkv, T, D, lens,
     if kind is not None:
         kc = dequant(torch, kc, ks)
         vc = dequant(torch, vc, vs)
+    gqa = Hq != Hkv
+    if lib_expand and gqa:
+        kc = kc.repeat_interleave(Hq // Hkv, 2)
+        vc = vc.repeat_interleave(Hq // Hkv, 2)
+        gqa = False
     kvc = kv_len.clamp(1, T)
     lo = (kvc - window).clamp(min=0) if window else torch.zeros_like(kvc)
     t = torch.arange(T, device="cuda")[None, :]
@@ -1231,21 +1257,21 @@ def check_decode(torch, F, rows, results, B, Hq, Hkv, T, D, lens,
                             device="cuda")
         fmask[..., :T].masked_fill_(~mask[:, None, None], float("-inf"))
         fmask[..., T] = snk[None, :, None]
-        zero = torch.zeros((B, Hkv, 1, D), dtype=torch.bfloat16, device="cuda")
+        zero = torch.zeros((B, kc.shape[2], 1, D), dtype=torch.bfloat16,
+                           device="cuda")
         kx = [torch.cat([kc[li], zero], 2) for li in range(L)]
         vx = [torch.cat([vc[li], zero], 2) for li in range(L)]
 
         def lib(i):
             return F.scaled_dot_product_attention(
-                qh, kx[i % L], vx[i % L], attn_mask=fmask,
-                enable_gqa=Hq != Hkv)
+                qh, kx[i % L], vx[i % L], attn_mask=fmask, enable_gqa=gqa)
     else:
         kx, vx = kc, vc
 
         def lib(i):
             return F.scaled_dot_product_attention(
                 qh, kc[i % L], vc[i % L], attn_mask=mask[:, None, None],
-                enable_gqa=Hq != Hkv)
+                enable_gqa=gqa)
     lib_err = (lib(0)[:, :, 0].float() - want.float()).abs().max().item()
     lib_ms = cuda_ms(torch, lib, 20)
     del kx, vx
@@ -1261,12 +1287,14 @@ def check_decode(torch, F, rows, results, B, Hq, Hkv, T, D, lens,
                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                library_max_abs_err=lib_err, bound_ms=b, bound_by=by,
                library_ratio=ms / lib_ms, window=window, softcap=softcap,
-               library_same_function=softcap is None)
+               library_same_function=softcap is None,
+               library_kv_expanded=lib_expand and Hq != Hkv)
     rows.append(row)
     say(f"  decode_attention {row['shape']}: max_abs_err={err:.4g} "
         f"(tol {tol}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"bound_ms={b:.4f} ({by}) library_ms={lib_ms:.4f} (SDPA"
         f"{', sink column' if sinks else ''}"
+        f"{', K/V expanded beforehand' if row['library_kv_expanded'] else ''}"
         f"{', no softcap: not the same function' if softcap else ''}; its "
         f"max_abs_err {lib_err:.4g}) kernel/library={ms / lib_ms:.2f}")
     if record:
@@ -1568,6 +1596,7 @@ def phase_kernels(torch, report):
     check_gemma2_attention(torch, F, rows, results)
     check_head_dim_256(torch, F, rows, results)
     check_head_dim_96(torch, F, rows, results)
+    check_falcon_shapes(torch, F, rows, results)
     report["kernel_rows"] = rows
     return results
 
@@ -1747,6 +1776,51 @@ def check_head_dim_96(torch, F, rows, results):
                            S=2047, Hkv=Hkv, D=D, Hq=Hq)
         check_encode_write(torch, rows, results, kind, "paged", False, B=7,
                            Hkv=Hkv, D=D)
+
+
+# Falcon-7B (phase 19): 71 query heads on one kv head of 64 (MQA), hidden
+# 4544 (71 groups of 64: a prime group count for the qmm's K), FFN 18176,
+# vocab 65024; and Falcon-40B's 128:8 grouping (16 a kv head).
+FALCON_ATTN = (71, 1, 64)
+
+
+def check_falcon_shapes(torch, F, rows, results):
+    """Phase 2's rows at Falcon's shapes, each against its plain version
+    at the existing tolerances: (8g) decode at the group of 71 (nine head
+    tiles of 8), B=8 T=2048, kv_len 1..2048, bf16, int8 and fp8, and at
+    Falcon-40B's 16 a kv head (Hq=128, Hkv=8), SDPA reading K/V expanded
+    to the query heads beforehand; (5g) the flash prefill of phase 19
+    (a)'s B=2 prompts (1536 and 1024 tokens; a block takes one head, 71
+    being prime), (6g) the 8-bit prefill read back from the cache; (7g) the cache write of that
+    prefill at Hkv=1, (7eg) the encode-and-write of a decode step and a
+    1536-token slab; (1f) int4 qmm at K=4544 (w_qkv N=4672, wo, w_fc
+    N=18176) and w_proj's K=18176, at M=2 (decode) and 1536 (a prompt),
+    and the head (N=65024) at M=2."""
+    Hq, Hkv, D = FALCON_ATTN
+    T = 2048
+    lens = [1, 2048, 1024, 1025, 1536, 129, 777, 2047]
+    for kind in (None, *KV_KINDS):
+        check_decode(torch, F, rows, results, 8, Hq, Hkv, T, D, lens, False,
+                     kind=kind, lib_expand=True)
+    check_decode(torch, F, rows, results, 8, 128, 8, T, D, lens, False,
+                 lib_expand=True)
+    check_flash(torch, F, rows, results, 2, Hq, Hkv, 1536, D, [1536, 1024],
+                False)
+    for kind in KV_KINDS:
+        check_flash(torch, F, rows, results, 2, Hq, Hkv, 1536, D,
+                    [1536, 1024], False, q_start=[0, 0], T=T, kind=kind)
+    check_cache_write(torch, rows, results, 2, Hkv, 1536, T, D, False)
+    for kind in KV_KINDS:
+        check_encode_write(torch, rows, results, kind, "decode", False, B=8,
+                           Hkv=Hkv, D=D, Hq=Hq)
+        check_encode_write(torch, rows, results, kind, "prefill", False, B=2,
+                           S=1536, Hkv=Hkv, D=D, Hq=Hq)
+    shapes = [("falcon w_qkv", 4544, 4672), ("falcon wo", 4544, 4544),
+              ("falcon w_fc", 4544, 18176), ("falcon w_proj", 18176, 4544)]
+    check_qmm(torch, rows, results, shapes=shapes, Ms=(2, 1536),
+              record=False)
+    check_qmm(torch, rows, results, shapes=[("falcon lm_head", 4544, 65024)],
+              Ms=(2,), record=False)
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -2729,8 +2803,8 @@ def phase_mixtral(torch, report):
     from turboinfer_tpu_torch.kernels.dispatch import prepare_params
     from turboinfer_tpu_torch.loader.synthetic import \
         create_synthetic_quantized_model
-    # every width; 8 of the 32 layers, so phases 1-18 fit the time limit
-    cfg = mixtral_config(num_layers=8, max_seq_len=2048)
+    # every width; 4 of the 32 layers, so phases 1-19 fit the time limit
+    cfg = mixtral_config(num_layers=4, max_seq_len=2048)
     L, E, T = cfg.num_layers, cfg.num_experts, cfg.max_seq_len
     say(f"phase 8: Mixtral-8x7B int4 g=64, L={L} (of 32), bf16, synthetic on "
         "the device")
@@ -2877,9 +2951,9 @@ def phase_gptoss(torch, report):
     from turboinfer_tpu_torch.kernels.dispatch import prepare_params
     from turboinfer_tpu_torch.models import gptoss
     from turboinfer_tpu_torch.quant.quantizer import quantize_params
-    # every width; 6 of the 24 layers (sliding and full alternate, so
-    # both kinds stay), so phases 1-17 fit the time limit
-    cfg = gptoss20b_config(num_layers=6, max_seq_len=2048)
+    # every width; 2 of the 24 layers (a sliding and a full one, so both
+    # kinds stay), so phases 1-19 fit the time limit
+    cfg = gptoss20b_config(num_layers=2, max_seq_len=2048)
     L, E, T = cfg.num_layers, cfg.num_experts, cfg.max_seq_len
     say(f"phase 9: GPT-OSS-20B, L={L} (of 24), E={E} "
         f"top-{cfg.experts_per_token}, "
@@ -3210,17 +3284,17 @@ def vs_plain_routed(torch, mod, cfg, params, step_want, label, seed, out,
 def phase_int8_weights(torch, report):
     """Phase 11: int8 and zero-point weights through the qmm kernels. (a)
     the 7B at the default QuantizationConfig() (int8, symmetric, g=64),
-    L=8 of 32 (a depth cut, so phase 17 fits the time limit;
+    L=4 of 32 (a depth cut, so phase 19 fits the time limit;
     the kernels' shapes do not depend on it), through generate_batch as
     phase 3 (B=8, prompts 512, 128 new, greedy and sampled; every product
     on qmm_int8, traced); (b) the same weights through
     PagedContinuousScheduler, 8 requests, 4 sharing a 512-token prefix;
     (c) Mixtral-8x7B int8 g=64 (gate and up experts drawn fused: the
-    split stacks and their fused copy would not fit side by side), L=8
+    split stacks and their fused copy would not fit side by side), L=4
     of 32 (the same cut), B=1 prompt 1000, 64 new, decode through
     qmm_int8_grouped, one step sync-free, peak < 70 GiB; (d) bf16
     weights drawn on the card and quantized there, kernels against plain
-    versions: at L=2 the 7B int8, int8 with zero points and int4 with
+    versions: at L=1 the 7B int8, int8 with zero points and int4 with
     zero points, at L=1 Mixtral int4 with zero points (grouped B=1,
     E-loop B=2), at L=2 GPT-OSS-20B with int8 attention and head
     (K=2880, wo's 64-column tail), all within 5% of max|logit| and with
@@ -3240,7 +3314,7 @@ def phase_int8_weights(torch, report):
     qdef = QuantizationConfig()
     need(qdef.type == QuantType.INT8 and qdef.symmetric
          and qdef.group_size == 64, f"default QuantizationConfig {qdef}")
-    L, B, S, NEW, T = 8, 8, 512, 128, 1024
+    L, B, S, NEW, T = 4, 8, 512, 128, 1024
     say(f"phase 11: int8 and zero-point weights; (a) 7B shape at the default "
         f"QuantizationConfig() (int{qdef.bits} g={qdef.group_size}, "
         f"symmetric), L={L}, B={B}, prompt {S}, {NEW} new tokens")
@@ -3290,7 +3364,7 @@ def phase_int8_weights(torch, report):
     gc.collect()
     torch.cuda.empty_cache()
     # (c) Mixtral-8x7B int8 at B=1
-    mcfg = mixtral_config(num_layers=8, max_seq_len=2048)
+    mcfg = mixtral_config(num_layers=4, max_seq_len=2048)
     ML, E = mcfg.num_layers, mcfg.num_experts
     say(f"  (c) Mixtral-8x7B int8 g=64, L={ML}, B=1, prompt 1000, 64 new")
     torch.cuda.reset_peak_memory_stats()
@@ -3332,9 +3406,10 @@ def phase_int8_weights(torch, report):
     gc.collect()
     torch.cuda.empty_cache()
     # (d) kernels against plain versions on weights quantized on the card
-    # from bf16 drawn from a seed: the 7B and GPT-OSS at L=2, Mixtral at
-    # L=1 (a depth cut: its CPU E-loop costs ~20 s a layer)
-    cfg2 = llama7b_config(num_layers=2, max_seq_len=256)
+    # from bf16 drawn from a seed: GPT-OSS at L=2 (both kinds of layer),
+    # the 7B and Mixtral at L=1 (depth cuts: their CPU sides cost ~5 s and
+    # ~20 s a layer)
+    cfg2 = llama7b_config(num_layers=1, max_seq_len=256)
     fp = llama.init_params(cfg2, seed=2, device="cuda", dtype=torch.bfloat16)
     for label, qtype, sym in (("int8", QuantType.INT8, True),
                               ("int8 zp", QuantType.INT8, False),
@@ -3346,7 +3421,7 @@ def phase_int8_weights(torch, report):
              "points lost")
         kname = f"qmm_int{lw['wqkv'].bits}"
         out[f"vs_plain 7B {label}"] = kernels_vs_plain(
-            torch, llama, cfg2, params, lambda B: {kname: 4 * 2 + 1},
+            torch, llama, cfg2, params, lambda B: {kname: 4 * 1 + 1},
             f"7B {label}", 15, decided_agree=True)
         del params
     del fp
@@ -3393,7 +3468,7 @@ def phase_w4a8(torch, report):
     prompts of 128, 32 new: every product of the prefill, the head and
     each decode step (M=16) on qmm_int4_a8.
     (c) paged speculative rounds as phase 7 (spec_k=4): the verify at
-    M=40 on qmm_int4_a8, the draft's decode at M=8 not. (e) at L=2,
+    M=40 on qmm_int4_a8, the draft's decode at M=8 not. (e) at L=1,
     kernels against plain versions (the plain side runs W4A8 too):
     logits within 5% of max|logit|, greedy tokens equal under phase 11's
     tie rule."""
@@ -3512,12 +3587,13 @@ def phase_w4a8(torch, report):
         del params
         gc.collect()
         torch.cuda.empty_cache()
-        # (e) L=2, kernels against plain versions, W4A8 on both sides
-        cfg2 = llama7b_config(num_layers=2, max_seq_len=256)
+        # (e) L=1 (a depth cut), kernels against plain versions, W4A8 on
+        # both sides
+        cfg2 = llama7b_config(num_layers=1, max_seq_len=256)
         p2l = prepare_params(create_synthetic_quantized_model(
             cfg2, bits=4, group_size=G, device="cuda", seed=1).params)
         out["vs_plain"] = kernels_vs_plain(
-            torch, llama, cfg2, p2l, lambda B: {"qmm_int4": 4 * 2 + 1,
+            torch, llama, cfg2, p2l, lambda B: {"qmm_int4": 4 * 1 + 1,
                                                 "qmm_int4_a8": 0},
             "7B W4A8", 17, decided_agree=True)
         del p2l
@@ -3551,13 +3627,14 @@ def decode_step_launches(torch, kernels, eng, prompts, want):
     return counts
 
 
-def gemma_batch(torch, kernels, params, cfg, kv: str, runs, report_out):
+def gemma_batch(torch, kernels, params, cfg, kv: str, runs, report_out,
+                trace: bool = True):
     """(a), (b) and (e) of phase 13, (a) and (b) of phase 14:
     generate_batch on one engine of
     kv_cache_dtype kv (max_seq 8192, greedy) for each (label, prompts,
     new tokens) of runs: logits finite, launch counts, tokens, peak
     memory, the cache's bytes; the first run also one decode step
-    counted alone and traced (a prefill, 8 decode steps)."""
+    counted alone and (trace) traced (a prefill, 8 decode steps)."""
     from turboinfer_tpu_torch.config import InferenceConfig
     from turboinfer_tpu_torch.engine.engine import InferenceEngine
     L, T = cfg.num_layers, cfg.max_seq_len
@@ -3589,6 +3666,7 @@ def gemma_batch(torch, kernels, params, cfg, kv: str, runs, report_out):
             stats["step_launches"] = decode_step_launches(
                 torch, kernels, eng, prompts, expected_launches(
                     L, 1, prefills=0, compressed=compressed))
+        if i == 0 and trace:
             stats["prefill_trace"] = trace_prefill(
                 torch, eng, prompts, f"{label} {kv} prefill", steps=1)
             stats["decode_trace"] = trace_decode(torch, eng, prompts)
@@ -3686,7 +3764,7 @@ def phase_gemma2(torch, report):
     32:16 heads of 128, FFN 36864 GeGLU, vocab 256000, 8192 positions,
     a 4096-key window on every even layer, softcaps 50 / 30, attn_scale
     144**-0.5, (1 + w) and sandwich norms, tied embeddings), int4 g=64,
-    bf16, synthetic weights from a seed, 6 of its 46 layers (a depth
+    bf16, synthetic weights from a seed, 4 of its 46 layers (a depth
     cut, so phases 14-17 fit the time limit; every kernel shape and
     both kinds of layer stay: the windowed and global layers alternate): (a) generate_batch B=2, prompts of 4500
     and 5000 (past the window), 64 new tokens, max_seq 8192, launch
@@ -3703,7 +3781,7 @@ def phase_gemma2(torch, report):
     from turboinfer_tpu_torch.loader.synthetic import \
         create_synthetic_quantized_model
     from turboinfer_tpu_torch.models import llama
-    cfg = gemma2_27b_config(num_layers=6)
+    cfg = gemma2_27b_config(num_layers=4)
     L, T = cfg.num_layers, cfg.max_seq_len
     say(f"phase 13: Gemma-2-27B int4 g=64, L={L} (of 46), hidden "
         f"{cfg.hidden_size}, Hq={cfg.num_heads} Hkv={cfg.kv_heads} "
@@ -3717,7 +3795,7 @@ def phase_gemma2(torch, report):
     params = prepare_params(create_synthetic_quantized_model(
         cfg, bits=4, group_size=64, device="cuda", seed=0).params)
     torch.cuda.synchronize()
-    out = dict(config="gemma-2-27b int4 g=64 L=6 of 46 bf16 max_seq 8192",
+    out = dict(config="gemma-2-27b int4 g=64 L=4 of 46 bf16 max_seq 8192",
                build_s=time.perf_counter() - t0,
                build_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                allocated_gib=torch.cuda.memory_allocated() / 2**30,
@@ -3763,7 +3841,7 @@ def phase_gemma3(torch, report):
     norms, a 1024-key window on five layers of six with a local RoPE base
     of 1e4, linear RoPE scaling 8 on the global layers, attn_scale
     256**-0.5, no softcaps, tied embeddings), int4 g=64, bf16, synthetic
-    weights from a seed, 12 of the 48 layers, positions cut to 8192 (the
+    weights from a seed, 6 of the 48 layers, positions cut to 8192 (the
     published 131072): (a) generate_batch B=2, prompts of 4500 and 5000
     (past the window, through the global layers), 64 new tokens (launch
     counts of the run and of one decode step, a traced prefill and 8
@@ -3782,9 +3860,9 @@ def phase_gemma3(torch, report):
     from turboinfer_tpu_torch.loader.synthetic import \
         create_synthetic_quantized_model
     from turboinfer_tpu_torch.models import llama
-    # every width; 12 of the 48 layers (two of its global layers stay),
-    # so phases 1-18 fit the time limit
-    cfg = gemma3_12b_config(num_layers=12, max_seq_len=8192)
+    # every width; 6 of the 48 layers (its first global layer, 5, stays),
+    # so phases 1-19 fit the time limit
+    cfg = gemma3_12b_config(num_layers=6, max_seq_len=8192)
     L, T = cfg.num_layers, cfg.max_seq_len
     windows = [llama.layer_window(cfg, li) for li in range(L)]
     say(f"phase 14: Gemma-3-12B int4 g=64, L={L}, hidden "
@@ -3801,7 +3879,7 @@ def phase_gemma3(torch, report):
     params = prepare_params(create_synthetic_quantized_model(
         cfg, bits=4, group_size=64, device="cuda", seed=0).params)
     torch.cuda.synchronize()
-    out = dict(config="gemma-3-12b-pt int4 g=64 L=12 of 48 bf16 max_seq 8192",
+    out = dict(config="gemma-3-12b-pt int4 g=64 L=6 of 48 bf16 max_seq 8192",
                build_s=time.perf_counter() - t0,
                build_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                allocated_gib=torch.cuda.memory_allocated() / 2**30,
@@ -3908,8 +3986,8 @@ def phase_phi3(torch, report):
     hidden 3072, 32:32 heads of 96, FFN 8192 SiLU, vocab 32064, 4096
     positions, a 2047-key window on every layer, untied embeddings),
     int4 g=64, bf16, synthetic weights from a seed, 16 of the 32 layers
-    (a depth cut so phase 17 fits the time limit; phases 16 and 17 run
-    all 32) at published widths: (a) generate_batch B=2, prompts of 3000
+    (a depth cut so phase 19 fits the time limit, as phases 17 and 18;
+    phase 16 runs all 32) at published widths: (a) generate_batch B=2, prompts of 3000
     and 3500
     (past the window; bucket 4096), 64 new tokens (launch counts of the
     run and of one decode step, a traced prefill and 8 traced decode
@@ -3917,7 +3995,7 @@ def phase_phi3(torch, report):
     paged serving with speculative verify, 4 of 8 requests on a
     2200-token prefix (24 prefix hits, no page leaked); (e) generate_batch
     with use_cache=False (B=2, prompts 200 and 300, 8 new) against the
-    cached path (nocache_vs_cached); (d) at L=2, kernels against plain
+    cached path (nocache_vs_cached); (d) at L=1, kernels against plain
     versions: a 2100-token prompt's prefill and decode step (past the
     window), paged decode and verify over pools filled to 2100 and 3001,
     within 5% of max|logit| and under phase 11's tie rule."""
@@ -3964,12 +4042,12 @@ def phase_phi3(torch, report):
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    # (d) L=2: both layers windowed, as every Phi-3 layer
-    cfg2 = cfg.replace(num_layers=2)
+    # (d) L=1 (a depth cut): windowed, as every Phi-3 layer
+    cfg2 = cfg.replace(num_layers=1)
     params2 = prepare_params(create_synthetic_quantized_model(
         cfg2, bits=4, group_size=64, device="cuda", seed=1).params)
     out["vs_plain"] = kernels_vs_plain(
-        torch, llama, cfg2, params2, lambda B: {"decode_attention": 2},
+        torch, llama, cfg2, params2, lambda B: {"decode_attention": 1},
         "Phi-3-mini", 16, decided_agree=True, batches=((1, [2100]),))
     out["vs_plain"].update(paged_vs_plain(
         torch, cfg2, params2, None, PAGE=256, T=T, lens=(2100, 3001),
@@ -4661,20 +4739,20 @@ def loader_lora(torch, kernels, work, out):
     del sched, eng
     gc.collect()
     torch.cuda.empty_cache()
-    # L=2: kernels against plain with the adapter
-    cfg2 = cfg.replace(num_layers=2)
+    # L=1 (a depth cut): kernels against plain with the adapter
+    cfg2 = cfg.replace(num_layers=1)
     p2 = create_synthetic_quantized_model(cfg2, bits=4, group_size=64,
                                           device="cuda", seed=1).params
     ad2 = os.path.join(work, "adapter2")
     os.makedirs(ad2)
     write_safetensors(os.path.join(ad2, "adapter_model.safetensors"),
-                      random_adapter(torch, gen, cfg2, R, 2))
+                      random_adapter(torch, gen, cfg2, R, cfg2.num_layers))
     with open(os.path.join(ad2, "adapter_config.json"), "w") as f:
         json.dump({"r": R, "lora_alpha": 32}, f)
     p2["layers"].update(load_lora(ad2, cfg2, device="cuda"))
     res["vs_plain"] = kernels_vs_plain(
         torch, llama, cfg2, prepare_params(p2),
-        lambda B: {"decode_attention": 2}, "7B + LoRA", 17,
+        lambda B: {"decode_attention": 1}, "7B + LoRA", 17,
         decided_agree=True)
     out["lora"] = res
 
@@ -5130,9 +5208,9 @@ def text_serving(torch, kernels, params, cfg, icfg, tok, gen, total, out):
 
 
 def text_vs_plain(torch, cfg, tok, gen, out):
-    """(h) of phase 17: at L=2, beam search and generate_structured
-    through the kernels against the plain versions (the engine on the
-    CPU): tokens equal or tied."""
+    """(h) of phase 17: at L=1 (Phi-3 has one kind of layer), beam search
+    and generate_structured through the kernels against the plain
+    versions (the engine on the CPU): tokens equal or tied."""
     from turboinfer_tpu_torch.config import InferenceConfig
     from turboinfer_tpu_torch.engine.engine import InferenceEngine
     from turboinfer_tpu_torch.kernels.dispatch import prepare_params
@@ -5140,7 +5218,7 @@ def text_vs_plain(torch, cfg, tok, gen, out):
         create_synthetic_quantized_model
     from turboinfer_tpu_torch.models.common import params_to
     t0 = time.perf_counter()
-    cfg2 = cfg.replace(num_layers=2)
+    cfg2 = cfg.replace(num_layers=1)
     params2 = prepare_params(create_synthetic_quantized_model(
         cfg2, bits=4, group_size=64, device="cuda", seed=1).params)
     icfg = InferenceConfig(max_seq_len=256, temperature=0.0, seed=0,
@@ -5167,7 +5245,7 @@ def text_vs_plain(torch, cfg, tok, gen, out):
         "(h) generate_structured kernels vs plain")
     res["seconds"] = time.perf_counter() - t0
     out["vs_plain"] = res
-    say(f"  (h) L=2 kernels vs plain (CPU): beam 4 x 6 new top beams "
+    say(f"  (h) L=1 kernels vs plain (CPU): beam 4 x 6 new top beams "
         f"{'equal' if res['beam_equal'] else 'tied'}; generate_structured "
         f"json_object 12 tokens equal ({len(res['structured_ties'])} tie "
         f"rows); {res['seconds']:.1f} s, the CPU side included")
@@ -5175,7 +5253,7 @@ def text_vs_plain(torch, cfg, tok, gen, out):
 
 def phase_text(torch, report):
     """Phase 17: text in and out at Phi-3-mini-4k's full width (int4
-    g=64, all 32 layers, bf16 cache, max_seq 4096, synthetic weights from
+    g=64, 16 of the 32 layers, bf16 cache, max_seq 4096, synthetic weights from
     a seed) with the Phi-3-style tokenizer files this script writes: (a)
     from_hf_dir reads them (an HFTokenizer with Phi-3's chat template; a
     non-ASCII round trip); (b) engine.chat on a system/user/assistant/user
@@ -5194,7 +5272,7 @@ def phase_text(torch, report):
     PagedContinuousScheduler(tokenizer=...) with 8 requests (2
     json_object, 2 schema, 4 plain), decode_burst=4: outputs legal and
     conforming, single steps while a constrained slot lives, the plain
-    rows equal to a run of them alone, req/s and tok/s; (h) at L=2, beam
+    rows equal to a run of them alone, req/s and tok/s; (h) at L=1, beam
     search and generate_structured through the kernels against the
     plain versions. Returns the launches of (b)-(g)."""
     import os
@@ -5207,7 +5285,9 @@ def phase_text(torch, report):
     from turboinfer_tpu_torch.kernels.dispatch import prepare_params
     from turboinfer_tpu_torch.loader.synthetic import \
         create_synthetic_quantized_model
-    cfg = phi3_mini_4k_config()
+    # every width; 16 of the 32 layers (as phase 15), so phases 1-19 fit
+    # the time limit
+    cfg = phi3_mini_4k_config(num_layers=16)
     L, T = cfg.num_layers, cfg.max_seq_len
     say(f"phase 17: text in and out, Phi-3-mini-4k int4 g=64, L={L}, max_seq "
         f"{T}, bf16 cache; jinja2 {jinja2.__version__}")
@@ -5620,7 +5700,7 @@ def serve_speculative(torch, kernels, params, cfg, gen, total, out):
         prefill_ms=res.prefill_ms, ms_per_round=ms_round, ties=ties,
         launches=counts)
     say(f"  (c) speculative_generate B=2 (prompts 1000, 1500), 32 new, k=4, "
-        f"draft = the first 2 of 32 layers: acceptance "
+        f"draft = the first 2 of {cfg.num_layers} layers: acceptance "
         f"{res.acceptance_rate:.3f}, {res.tokens_per_round:.2f} tokens a "
         f"round, {res.rounds} rounds, {ms_round:.2f} ms a round after a "
         f"{res.prefill_ms:.1f} ms prefill of both models; tokens equal to "
@@ -5852,7 +5932,7 @@ def serve_vs_plain(torch, cfg, gen, out):
 
 def phase_serve(torch, report):
     """Phase 18: the server and the command line at Phi-3-mini-4k's full
-    width (int4 g=64, all 32 layers, max_seq 4096, synthetic weights from
+    width (int4 g=64, 16 of the 32 layers, max_seq 4096, synthetic weights from
     a seed, the Phi-3-style tokenizer of phase 17): (a) the HTTP server in
     process over the paged scheduler (8 slots, 256-token pages,
     decode_burst=4) with a beam engine on the scheduler's own weights: 8
@@ -5874,7 +5954,9 @@ def phase_serve(torch, report):
     from turboinfer_tpu_torch.kernels.dispatch import prepare_params
     from turboinfer_tpu_torch.loader.synthetic import \
         create_synthetic_quantized_model
-    cfg = phi3_mini_4k_config()
+    # every width; 16 of the 32 layers (as phase 15), so phases 1-19 fit
+    # the time limit
+    cfg = phi3_mini_4k_config(num_layers=16)
     L, T = cfg.num_layers, cfg.max_seq_len
     say(f"phase 18: the server and the command line, Phi-3-mini-4k int4 "
         f"g=64, L={L}, max_seq {T}")
@@ -5914,10 +5996,206 @@ def phase_serve(torch, report):
     return total
 
 
+# -- phase 19: the GPT-2 and NeoX families ---------------------------------
+
+def falcon_scheduler(torch, kernels, params, cfg, gen, report_out):
+    """(b) of phase 19: ContinuousBatchingScheduler (the contiguous one,
+    8 slots, max_seq the config's) answering 8 greedy requests of
+    300-1500 tokens, 32 new each: every request finishes by length,
+    every decode step on the decode kernel (group 71), no paged launch;
+    the paged scheduler refuses the model at construction (no paged
+    forward, as in the JAX package)."""
+    from turboinfer_tpu_torch.config import InferenceConfig
+    from turboinfer_tpu_torch.engine.scheduler import (
+        ContinuousBatchingScheduler, PagedContinuousScheduler)
+    T, NEW = cfg.max_seq_len, 32
+    icfg = InferenceConfig(max_seq_len=T, temperature=0.0, seed=0,
+                           eos_token_id=-1)
+    try:
+        PagedContinuousScheduler(params, cfg, icfg, batch_slots=2,
+                                 page_size=256, device="cuda")
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    need(refused is not None and "forward_paged_decode" in refused,
+         "(b) the paged scheduler took a model without a paged forward")
+    sched = ContinuousBatchingScheduler(params, cfg, icfg, batch_slots=8,
+                                        device="cuda")
+    lens = (300, 1500, 700, 1100, 450, 1300, 900, 600)
+    reqs = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+            for n in lens]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [sched.submit(r, NEW) for r in reqs]
+    res = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    need(all(res[i].finished and res[i].stop_reason == "length"
+             and len(res[i].tokens) == len(r) + NEW
+             and all(0 <= t < cfg.vocab_size for t in res[i].tokens)
+             for i, r in zip(rids, reqs)), "(b) wrong tokens or stop")
+    need(counts["decode_attention"] > 0 and counts["flash_prefill"] > 0
+         and counts["paged_attention"] == 0
+         and counts["decode_attention"] % cfg.num_layers == 0,
+         f"(b) launches {counts}")
+    out = dict(requests=len(reqs), new_tokens=len(reqs) * NEW, wall_s=wall,
+               req_per_s=len(reqs) / wall, tok_per_s=len(reqs) * NEW / wall,
+               launches=counts, paged_refused=refused)
+    say(f"  (b) contiguous scheduler: 8 requests ({min(lens)}-{max(lens)} "
+        f"tokens, {NEW} new) in {wall:.3f} s, {out['req_per_s']:.2f} req/s, "
+        f"{out['tok_per_s']:.1f} tok/s; launches {counts}; the paged "
+        f"scheduler refuses it ({refused})")
+    report_out["scheduler"] = out
+    del sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def neox_vs_plain(torch, report_out):
+    """(d) of phase 19: the kernels against the plain versions at L=1 (a
+    depth cut: these bodies have one kind of layer) for four published
+    configurations at full width, int4 g=64 from a seed: Falcon-7B (MQA
+    71:1, D=64), GPT-2-XL (25 heads of 64; its 50257-wide head fp),
+    Pythia-6.9B (rotary_pct 0.25, parallel residual) and BLOOM-7b1 (ALiBi:
+    no attention kernel, as in the JAX package), each at B=1: prefill and
+    decode-step logits within 5% of max|logit| and phase 11's tie rule,
+    the decode step's launches as the body's structure."""
+    from turboinfer_tpu_torch.config import (bloom_7b1_config,
+                                             falcon7b_config, gpt2_xl_config,
+                                             pythia_6_9b_config)
+    from turboinfer_tpu_torch.core.qtensor import QTensor
+    from turboinfer_tpu_torch.kernels.dispatch import prepare_params
+    from turboinfer_tpu_torch.loader.synthetic import \
+        create_synthetic_quantized_model
+    from turboinfer_tpu_torch.models import registry
+    for label, fn in (("Falcon-7B", falcon7b_config),
+                      ("GPT-2-XL", gpt2_xl_config),
+                      ("Pythia-6.9B", pythia_6_9b_config),
+                      ("BLOOM-7b1", bloom_7b1_config)):
+        cfg = fn(num_layers=1)
+        attn = 0 if cfg.alibi else 1
+        params = prepare_params(create_synthetic_quantized_model(
+            cfg, bits=4, group_size=64, device="cuda", seed=1).params)
+        # GPT-2's 50257-wide head stays fp (qmm takes N % 8 == 0 only)
+        qmm = 4 + isinstance(params["lm_head"], QTensor)
+        report_out[f"vs_plain {label}"] = kernels_vs_plain(
+            torch, registry.get_model(cfg.architecture), cfg, params,
+            lambda B: {"decode_attention": attn, "flash_prefill": 0,
+                       "qmm_int4": qmm},
+            label, 19, decided_agree=True, batches=((1, [61]),))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phi2_refused(torch, kernels, report_out):
+    """(e) of phase 19: a Phi-2-width model (microsoft/phi-2: 32 heads of
+    80, partial rotary 0.4) at L=1 raises on the card, the error naming
+    head dim 80 (no kernel instance takes it), and no attention kernel
+    launches."""
+    from turboinfer_tpu_torch.config import InferenceConfig, phi2_config
+    from turboinfer_tpu_torch.engine.engine import InferenceEngine
+    from turboinfer_tpu_torch.loader.synthetic import \
+        create_synthetic_quantized_model
+    from turboinfer_tpu_torch.utils.errors import KernelError
+    cfg = phi2_config(num_layers=1)
+    params = create_synthetic_quantized_model(cfg, bits=4, group_size=64,
+                                              device="cuda", seed=2).params
+    eng = InferenceEngine(params, cfg, InferenceConfig(
+        max_seq_len=cfg.max_seq_len, temperature=0.0, eos_token_id=-1),
+        device="cuda")
+    kernels.reset_launch_counts()
+    try:
+        eng.generate_batch([[1, 2, 3, 4, 5]], 4)
+        err = None
+    except KernelError as e:
+        err = str(e)
+    counts = kernels.launch_counts()
+    need(err is not None and "head dim 80" in err,
+         f"(e) Phi-2 (D=80) on the card: {err!r}")
+    need(counts["flash_prefill"] == 0 and counts["decode_attention"] == 0,
+         f"(e) an attention kernel ran at D=80: {counts}")
+    say(f"  (e) Phi-2 width (D=80) refused on the card: {err}")
+    report_out["phi2_refused"] = err
+    del eng, params
+    torch.cuda.empty_cache()
+
+
+def phase_falcon(torch, report):
+    """Phase 19: Falcon-7B (tiiuae/falcon-7b's config.json, as
+    config.falcon7b_config transcribes it: 32 layers, hidden 4544, 71
+    query heads on one kv head of 64, FFN 18176 GELU, vocab 65024, 2048
+    positions, the parallel block, tied embeddings) through
+    models/neox.py, int4 g=64, bf16, synthetic weights from a seed, all 32
+    layers at published widths: (a) generate_batch B=2, prompts of 1024
+    and 1536, 128 new tokens over a model-dtype cache (launch counts of
+    the run and of one decode step: every decode step on the group-71
+    decode kernel; a traced prefill and 8 traced decode steps; cache bytes
+    a token; peak memory); (b) the contiguous scheduler answering 8
+    requests, the paged one refusing the model (falcon_scheduler); (c)
+    (a) over int8 and fp8 caches, 32 new; (d) at L=1, the kernels against
+    the plain versions for Falcon-7B, GPT-2-XL, Pythia-6.9B and BLOOM-7b1
+    (neox_vs_plain); (e) a Phi-2-width model refused on the card
+    (phi2_refused)."""
+    from turboinfer_tpu_torch import kernels
+    from turboinfer_tpu_torch.config import falcon7b_config
+    from turboinfer_tpu_torch.kernels.dispatch import prepare_params
+    from turboinfer_tpu_torch.loader.synthetic import \
+        create_synthetic_quantized_model
+    cfg = falcon7b_config()
+    L, T = cfg.num_layers, cfg.max_seq_len
+    say(f"phase 19: Falcon-7B int4 g=64, L={L}, hidden {cfg.hidden_size}, "
+        f"Hq={cfg.num_heads} Hkv={cfg.kv_heads} D={cfg.head_dim_}, FFN "
+        f"{cfg.ffn_dim}, V={cfg.vocab_size}, parallel block, max_seq {T}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = prepare_params(create_synthetic_quantized_model(
+        cfg, bits=4, group_size=64, device="cuda", seed=0).params)
+    torch.cuda.synchronize()
+    out = dict(config="falcon-7b int4 g=64 L=32 bf16 max_seq 2048",
+               build_s=time.perf_counter() - t0,
+               build_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               allocated_gib=torch.cuda.memory_allocated() / 2**30,
+               weight_bytes=qtensor_bytes(params))
+    say(f"  model built in {out['build_s']:.1f} s: int4 weights "
+        f"{out['weight_bytes'] / 1e9:.2f} GB, {out['allocated_gib']:.2f} GiB "
+        f"allocated, build peak {out['build_peak_gib']:.2f} GiB")
+    gen = torch.Generator().manual_seed(19)
+
+    def rand(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+    prompts = [rand(1024), rand(1536)]
+    launches = gemma_batch(torch, kernels, params, cfg, "model",
+                           [("(a)", prompts, 128)], out)
+    a = out["(a) model"]
+    a["cache_bytes_per_token"] = a["cache_bytes"] / (2 * T)
+    need(a["cache_bytes_per_token"] == 2 * L * cfg.kv_heads
+         * cfg.head_dim_ * 2, f"(a) cache bytes a token "
+         f"{a['cache_bytes_per_token']}")
+    say(f"  (a) cache {a['cache_bytes_per_token']:.0f} bytes a token (MQA: "
+        f"2 x {L} layers x 1 kv head x {cfg.head_dim_} x bf16)")
+    falcon_scheduler(torch, kernels, params, cfg, gen, out)
+    for kv in KV_KINDS:
+        gemma_batch(torch, kernels, params, cfg, kv, [("(c)", prompts, 32)],
+                    out, trace=False)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    neox_vs_plain(torch, out)
+    phi2_refused(torch, kernels, out)
+    report["falcon"] = out
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18")
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19")
     ap.add_argument("--json", default=None,
                     help="also write every measurement to this JSON file")
     args = ap.parse_args(argv)
@@ -5997,6 +6275,7 @@ def main(argv=None) -> int:
         files_launches = run(16, phase_loader, {})
         text_launches = run(17, phase_text, {})
         serve_launches = run(18, phase_serve, {})
+        falcon_launches = run(19, phase_falcon, {})
     except (SmokeError, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         if args.json:
@@ -6021,7 +6300,8 @@ def main(argv=None) -> int:
     # launches_text from phase 17 (b)-(g) (chat, streaming, structured,
     # beam search, scoring and constrained serving), launches_serve from
     # phase 18 (a)-(c) (the HTTP server, chunked admission and
-    # speculative_generate)
+    # speculative_generate), launches_falcon from phase 19 (a) (Falcon-7B
+    # through the NeoX body: every decode on the group-71 decode kernel)
     kern = []
     for name in kernels.wrappers():
         r = results.get(name, {})
@@ -6046,6 +6326,7 @@ def main(argv=None) -> int:
                      "launches_files": files_launches.get(name, 0),
                      "launches_text": text_launches.get(name, 0),
                      "launches_serve": serve_launches.get(name, 0),
+                     "launches_falcon": falcon_launches.get(name, 0),
                      "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
                      "plain_ms": r.get("plain_ms"),
                      "bound_ms": r.get("bound_ms"),

@@ -2065,3 +2065,255 @@ def test_cuda_params_are_prepared_shares_the_weights():
         0.01 * param_bytes(s.params)
     assert eng.params is s.params
     assert eng.generate([1, 2, 3], 4).tokens[:3] == [1, 2, 3]
+
+
+# -- the GPT-2 and NeoX families (Falcon's query groups) ---------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [None, *KINDS], ids=["bf16", *KINDS])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G,Hkv", [(9, 2), (16, 1), (29, 2), (71, 1)],
+                         ids=["g9", "g16", "g29", "g71"])
+def test_cuda_decode_large_groups_match_plain(kind, D, G, Hkv):
+    """Groups above 8 query heads a kv head (Falcon-7B's 71:1, -40B's
+    16, -180B's 29, and 9: one head past a tile) run as head tiles of 8,
+    a block each, the last one padded: layer 1 against decode_plain, kv
+    lengths across slices (1, 255, 640) so each tile merges its own
+    partials; repeat calls bit-identical and the arrival counters back
+    at zero."""
+    _need_cuda()
+    from turboinfer_tpu_torch.kernels import _build
+    gen = torch.Generator(device="cuda").manual_seed(G * D + Hkv)
+    L, B, T, Hq = 2, 3, 640, G * Hkv
+    if kind is None:
+        kc = torch.randn((L, B, Hkv, T, D), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        vc = torch.randn((L, B, Hkv, T, D), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        ks = vs = None
+    else:
+        kc, ks = _compressed(gen, (L, B, Hkv, T, D), kind)
+        vc, vs = _compressed(gen, (L, B, Hkv, T, D), kind)
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+    kv_len = torch.tensor([1, 255, 640], dtype=torch.int32, device="cuda")
+    before = decode_attention.decode_attention.launches
+    got = decode_attention.decode_attention(q, kc, vc, kv_len, 1, None, None,
+                                            ks, vs)
+    again = decode_attention.decode_attention(q, kc, vc, kv_len, 1, None,
+                                              None, ks, vs)
+    want = decode_attention.decode_plain(q, kc, vc, kv_len, 1, None, None,
+                                         ks, vs)
+    torch.cuda.synchronize()
+    assert decode_attention.decode_attention.launches == before + 2
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                               rtol=2.0 ** -7)
+    assert torch.equal(got, again)
+    assert not _build.counters(q.device, 1).any()
+
+
+@pytest.mark.cuda
+def test_cuda_decode_refuses_groups_above_its_bound():
+    """129 query heads on one kv head is past MAX_GROUP (128): the
+    wrapper raises naming the bound and launches nothing."""
+    _need_cuda()
+    from turboinfer_tpu_torch.utils.errors import KernelError
+    bound = decode_attention.MAX_GROUP
+    assert bound >= 128
+    cache = torch.zeros((1, 1, 1, 64, 64), dtype=torch.bfloat16,
+                        device="cuda")
+    lens = torch.tensor([5], dtype=torch.int32, device="cuda")
+    before = decode_attention.decode_attention.launches
+    q = torch.zeros((1, bound + 1, 64), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(KernelError, match=str(bound)):
+        decode_attention.decode_attention(q, cache, cache, lens, 0)
+    assert decode_attention.decode_attention.launches == before
+    out = decode_attention.decode_attention(q[:, :bound], cache, cache,
+                                            lens, 0)
+    assert out.shape == (1, bound, 64) and torch.isfinite(out.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [None, *KINDS], ids=["bf16", *KINDS])
+def test_cuda_flash_prefill_falcon_group(kind):
+    """Falcon-7B's attention in the flash kernel: 71 query heads on one
+    kv head, D=64 (a block takes one head: 71 is prime), fresh from the
+    new K/V (bf16) and over the stacked cache of each kind, a chunk at
+    q_start 100."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    L, B, S, T, Hq, Hkv, D = 2, 2, 96, 256, 71, 1, 64
+    q = torch.randn((B, S, Hq, D), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    if kind is None:
+        kc = torch.randn((L, B, Hkv, T, D), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        vc = torch.randn((L, B, Hkv, T, D), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        sc = (None, None)
+        k0, v0 = kc[1, :, :, :S], vc[1, :, :, :S]
+        zero = torch.zeros((B,), dtype=torch.int32, device="cuda")
+        lens = torch.tensor([96, 41], dtype=torch.int32, device="cuda")
+        got = flash_attention.flash_prefill(q, k0, v0, lens, zero)
+        want = flash_attention.prefill_plain(q, k0, v0, lens, zero)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2.0 ** -7)
+        # a lone kv head's stride is free: K a contiguous [B, S, 1, D]
+        # slab and V a view of a fused product read with one layout
+        qkv = torch.randn((B, S, 73 * D), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        kn = torch.randn((B, S, 1, D), generator=gen,
+                         device="cuda").to(torch.bfloat16).transpose(1, 2)
+        vn = qkv[..., 72 * D:].reshape(B, S, 1, D).transpose(1, 2)
+        got = flash_attention.flash_prefill(q, kn, vn, lens, zero)
+        want = flash_attention.prefill_plain(q, kn, vn, lens, zero)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2.0 ** -7)
+    else:
+        kc, ks = _compressed(gen, (L, B, Hkv, T, D), kind)
+        vc, vs = _compressed(gen, (L, B, Hkv, T, D), kind)
+        sc = (None, None) if ks is None else (ks[1], vs[1])
+    q_start = torch.tensor([100, 3], dtype=torch.int32, device="cuda")
+    kv_len = torch.tensor([196, 60], dtype=torch.int32, device="cuda")
+    got = flash_attention.flash_prefill(q, kc[1], vc[1], kv_len, q_start, *sc)
+    want = flash_attention.prefill_plain(q, kc[1], vc[1], kv_len, q_start,
+                                         *sc)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("M,K,N", [(1, 4544, 4672), (2, 4544, 4672),
+                                   (16, 4544, 4544), (17, 4544, 18176),
+                                   (40, 18176, 4544), (1536, 4544, 4672),
+                                   (1536, 18176, 4544), (2, 4544, 65024)])
+def test_cuda_qmm_falcon_widths_match_plain(bits, M, K, N):
+    """Falcon-7B's products: K = 4544, 71 groups of 64 (a prime count,
+    for the GEMV's split-K and the tensor-core K tiling), and w_proj's
+    18176 = 284 groups, at decode (M 1, 2, 16), the 17/40-token edges and
+    a 1536-token prefill; the head's N = 65024 at M = 2."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(M + K + N + bits)
+    qt = _qtensor(gen, (2,), K, N, bits, False, 64)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    wrapper = qmm.qmm_int8 if bits == 8 else qmm.qmm_int4
+    before = wrapper.launches
+    got = wrapper(x, qt, 1)
+    again = wrapper(x, qt, 1)
+    want = qmm.qmatmul_plain(x, qt, 1).float()
+    assert wrapper.launches == before + 2 and torch.equal(got, again)
+    got = got.float()
+    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [None, *KINDS], ids=["bf16", *KINDS])
+def test_cuda_cache_writes_one_kv_head(kind):
+    """The cache writes at Falcon-7B's one kv head of 64: cache_write_fresh
+    of a [B, S, 1, 64] slab (bf16) and kv_encode_write of a prefill slab
+    and a decode step (int8, fp8), byte for byte with their plain forms."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    L, B, S, T, Hkv, D = 3, 2, 300, 512, 1, 64
+    qkv = torch.randn((B, S, 73 * D), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    k = qkv[..., 71 * D:72 * D].reshape(B, S, Hkv, D)
+    v = qkv[..., 72 * D:].reshape(B, S, Hkv, D)
+    if kind is None:
+        kc = torch.zeros((L, B, Hkv, T, D), dtype=torch.bfloat16,
+                         device="cuda")
+        vc, kc2, vc2 = kc.clone(), kc.clone(), kc.clone()
+        cache_write.cache_write_fresh(kc, vc, k, v, 1)
+        cache_write.cache_write_plain(kc2, vc2, k, v, 1)
+        assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+        return
+    dt = KINDS[kind]
+    shape = (L, B, Hkv, T, D)
+    kc = torch.zeros(shape, dtype=dt, device="cuda")
+    vc = kc.clone()
+    ks = vs = None
+    if kind == "int8":
+        ks = torch.zeros(shape[:-1], device="cuda")
+        vs = ks.clone()
+    ref = [t.clone() if t is not None else None for t in (kc, vc, ks, vs)]
+    for n, start in ((S, [0, 0]), (1, [300, 17])):
+        st = torch.tensor(start, device="cuda")[:, None]
+        pos = st + torch.arange(n, device="cuda")[None, :]
+        rows = (torch.arange(B, device="cuda")[:, None] * (Hkv * T)
+                + pos).reshape(-1)
+        kk = k[:, :n].reshape(B * n, Hkv, D)
+        vv = v[:, :n].reshape(B * n, Hkv, D)
+        cache_write.kv_encode_write(kk, vv, kc, vc, ks, vs, rows,
+                                    1 * B * Hkv * T, T)
+        cache_write.kv_encode_write_plain(kk, vv, *ref, rows,
+                                          1 * B * Hkv * T, T)
+    torch.cuda.synchronize()
+    assert torch.equal(kc, ref[0]) and torch.equal(vc, ref[1])
+    if kind == "int8":
+        assert torch.equal(ks.view(torch.int32), ref[2].view(torch.int32))
+        assert torch.equal(vs.view(torch.int32), ref[3].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["falcon", "bloom", "gpt2", "phi"])
+def test_cuda_neox_family_kernels_vs_plain(arch):
+    """A 2-layer model of each body at a narrow width, int4 g=64 from the
+    synthetic fixture: the card's prefill and first decode-step logits
+    against the plain versions on the CPU (5% of max|logit|), with the
+    launches of the structure: Falcon (MQA 16:1, D=64) and GPT-2 through
+    flash and decode, BLOOM (ALiBi) through neither, and Phi at D=80
+    refused on the card, naming the head dim."""
+    _need_cuda()
+    from turboinfer_tpu_torch import kernels
+    from turboinfer_tpu_torch.config import ModelConfig
+    from turboinfer_tpu_torch.kernels.dispatch import prepare_params
+    from turboinfer_tpu_torch.loader.synthetic import \
+        create_synthetic_quantized_model
+    from turboinfer_tpu_torch.models import registry
+    from turboinfer_tpu_torch.models.common import params_to
+    from turboinfer_tpu_torch.utils.errors import KernelError
+    kw = dict(falcon=dict(num_heads=16, num_kv_heads=1, hidden_size=1024,
+                          parallel_residual=True),
+              bloom=dict(num_heads=8, hidden_size=1024, alibi=True,
+                         rotary_pct=0.0),
+              gpt2=dict(num_heads=16, hidden_size=1024),
+              phi=dict(num_heads=8, hidden_size=640, rotary_pct=0.4,
+                       parallel_residual=True))[arch]
+    cfg = ModelConfig(vocab_size=4096, num_layers=2, intermediate_size=2048,
+                      max_seq_len=256, architecture=arch, **kw)
+    mod = registry.get_model(arch)
+    params = prepare_params(create_synthetic_quantized_model(
+        cfg, device="cuda", seed=3).params)
+    gen = torch.Generator().manual_seed(4)
+    tok = torch.randint(1, cfg.vocab_size, (2, 61), generator=gen,
+                        dtype=torch.int32)
+    seq = torch.tensor([61, 40], dtype=torch.int32)
+    if arch == "phi":
+        cache = mod.init_cache(cfg, 2, device="cuda")
+        with pytest.raises(KernelError, match="head dim 80"):
+            mod.forward(params, cfg, tok.cuda(), cache, seq_lens=seq.cuda(),
+                        fresh_prefill=True)
+        return
+    out = {}
+    for dev, p in (("cuda", params), ("cpu", params_to(params, "cpu"))):
+        cache = mod.init_cache(cfg, 2, device=dev)
+        kernels.reset_launch_counts()
+        lg, cache = mod.forward(p, cfg, tok.to(dev), cache,
+                                seq_lens=seq.to(dev),
+                                logit_idx=(seq - 1).to(dev),
+                                fresh_prefill=True)
+        nxt = lg[:, 0].argmax(-1).to(torch.int32)[:, None]
+        if dev == "cuda":
+            nxt_c = nxt.cpu()
+        step, _ = mod.forward(p, cfg, nxt_c.to(dev), cache)
+        out[dev] = (lg.float().cpu(), step.float().cpu(),
+                    kernels.launch_counts())
+    counts = out["cuda"][2]
+    attn = 0 if arch == "bloom" else 2
+    assert counts["qmm_int4"] == 2 * (4 * 2 + 1)
+    assert counts["flash_prefill"] == attn
+    assert counts["decode_attention"] == attn
+    assert counts["cache_write_fresh"] == 2
+    for i in (0, 1):
+        a, b = out["cuda"][i], out["cpu"][i]
+        assert (a - b).abs().max().item() <= 5e-2 * b.abs().max().item()

@@ -503,7 +503,9 @@ def test_registry_names():
     assert registry.get_model("mixtral") is tmoe
     assert registry.get_model("moe") is tmoe
     assert registry.get_model("llama") is tllama
-    for name in ("qwen2_moe", "qwen3_moe", "olmoe", "deepseek", "gpt2"):
+    from turboinfer_tpu_torch.models import gpt2 as tgpt2
+    assert registry.get_model("gpt2") is tgpt2
+    for name in ("qwen2_moe", "qwen3_moe", "olmoe", "deepseek"):
         with pytest.raises(ConfigError):
             registry.get_model(name)
 

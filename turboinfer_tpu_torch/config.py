@@ -279,3 +279,81 @@ def phi3_mini_4k_config(**kw) -> ModelConfig:
                 name="microsoft/Phi-3-mini-4k-instruct")
     base.update(kw)
     return ModelConfig(**base)
+
+
+def falcon7b_config(**kw) -> ModelConfig:
+    """tiiuae/falcon-7b's published config.json as the loader maps it
+    (loader/mapping.py config_from_hf_dict, the falcon branch): 32
+    layers, hidden 4544, 71 query heads on one kv head (multi_query) of
+    64, FFN 4 x 4544 = 18176 (GELU), vocab 65024, 2048 positions, the
+    parallel block (parallel_attn), no biases, RoPE (alibi false, theta
+    1e4) on every dim, layer_norm_epsilon 1e-5, tied embeddings."""
+    base = dict(vocab_size=65024, hidden_size=4544, num_layers=32,
+                num_heads=71, num_kv_heads=1, head_dim=64,
+                intermediate_size=18176, rope_theta=10000.0,
+                rope_mode=RopeMode.HALF, rms_norm_eps=1e-5,
+                max_seq_len=2048, parallel_residual=True, alibi=False,
+                rotary_pct=1.0, tie_embeddings=True, architecture="falcon",
+                name="tiiuae/falcon-7b")
+    base.update(kw)
+    return ModelConfig(**base)
+
+
+def gpt2_xl_config(**kw) -> ModelConfig:
+    """openai-community/gpt2-xl's published config.json as the loader maps
+    it (the gpt2 branch): 48 layers, n_embd 1600, 25 heads of 64, FFN
+    4 x 1600 (n_inner null), vocab 50257, 1024 positions, layer_norm_epsilon
+    1e-5, tied embeddings."""
+    base = dict(vocab_size=50257, hidden_size=1600, num_layers=48,
+                num_heads=25, num_kv_heads=25, head_dim=64,
+                intermediate_size=6400, rms_norm_eps=1e-5, max_seq_len=1024,
+                tie_embeddings=True, architecture="gpt2", name="gpt2-xl")
+    base.update(kw)
+    return ModelConfig(**base)
+
+
+def pythia_6_9b_config(**kw) -> ModelConfig:
+    """EleutherAI/pythia-6.9b's published config.json as the loader maps
+    it (the generic HF branch): 32 layers, hidden 4096, 32 heads of 128,
+    FFN 16384, vocab 50432, 2048 positions, rotary_pct 0.25 (rotary base
+    1e4), the parallel residual, layer_norm_eps 1e-5, untied embed_out."""
+    base = dict(vocab_size=50432, hidden_size=4096, num_layers=32,
+                num_heads=32, num_kv_heads=32, intermediate_size=16384,
+                rope_theta=10000.0, rope_mode=RopeMode.HALF,
+                rms_norm_eps=1e-5, max_seq_len=2048, rotary_pct=0.25,
+                parallel_residual=True, tie_embeddings=False,
+                architecture="gpt_neox", name="EleutherAI/pythia-6.9b")
+    base.update(kw)
+    return ModelConfig(**base)
+
+
+def bloom_7b1_config(**kw) -> ModelConfig:
+    """bigscience/bloom-7b1's published config.json as the loader maps it
+    (the bloom branch): 30 layers, hidden 4096, 32 heads of 128, FFN 4 x
+    4096, vocab 250880, ALiBi and no rotary, sequential blocks, the
+    embedding LayerNorm, layer_norm_epsilon 1e-5, tied embeddings, 2048
+    positions (the branch's default: the config names none)."""
+    base = dict(vocab_size=250880, hidden_size=4096, num_layers=30,
+                num_heads=32, num_kv_heads=32, head_dim=128,
+                intermediate_size=16384, rms_norm_eps=1e-5, max_seq_len=2048,
+                parallel_residual=False, alibi=True, rotary_pct=0.0,
+                tie_embeddings=True, architecture="bloom",
+                name="bigscience/bloom-7b1")
+    base.update(kw)
+    return ModelConfig(**base)
+
+
+def phi2_config(**kw) -> ModelConfig:
+    """microsoft/phi-2's published config.json as the loader maps it (the
+    generic HF branch): 32 layers, hidden 2560, 32 heads of 80, FFN
+    10240, vocab 51200, 2048 positions, partial_rotary_factor 0.4 (rope
+    theta 1e4), the parallel block, layer_norm_eps 1e-5, untied head (with
+    its bias). Head dim 80 has no kernel instance on the card."""
+    base = dict(vocab_size=51200, hidden_size=2560, num_layers=32,
+                num_heads=32, num_kv_heads=32, intermediate_size=10240,
+                rope_theta=10000.0, rope_mode=RopeMode.HALF,
+                rms_norm_eps=1e-5, max_seq_len=2048, rotary_pct=0.4,
+                parallel_residual=True, tie_embeddings=False,
+                architecture="phi", name="microsoft/phi-2")
+    base.update(kw)
+    return ModelConfig(**base)

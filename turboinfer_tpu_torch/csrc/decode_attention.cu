@@ -40,15 +40,26 @@
 //    (with the int8 scale rows), then of its V rows, as two groups;
 //    scores start when K has landed while V is still on its way. K/V
 //    rows of one (b, kv head) are contiguous, so the copies coalesce.
-//  * A GQA group (gh 2..8, decode_gqa_kernel) runs on the tensor cores:
-//    S^T = K Q^T and O^T = V^T P^T as mma.sync m16n8k16 bf16 products,
-//    16 keys or 16 d by the group's heads (up to 8, padded), K and V^T
+//  * A GQA group (gh 2..kMaxGroup, decode_gqa_kernel) runs on the tensor
+//    cores: S^T = K Q^T and O^T = V^T P^T as mma.sync m16n8k16 bf16
+//    products, 16 keys or 16 d by 8 of the group's heads (padded), K and V^T
 //    through ldmatrix from bf16 rows laid out with an XOR swizzle; 8-bit
 //    rows are widened to bf16 in shared memory first (exact). The
 //    probabilities enter P V as bf16, as the flash prefill's do. A lone
 //    head (gh = 1, decode_row_kernel) runs on the CUDA cores: D / kE
 //    lanes a row and 16-byte reads for the scores, then P V with each
 //    thread owning kE outputs over a share of the rows.
+//  * A group above 8 heads (Falcon-7B's 71:1, Falcon-40B's 16, Falcon-180B's
+//    29) is split into head tiles of 8, the mma's n, and each tile is a
+//    block of its own: the grid's y is (kv head, head tile), so a tile has
+//    its own slices, arrival counter and merge, and every block is the
+//    8-head block above with a head offset (the last tile padded). The
+//    tiles of one (b, kv head, slice) read the same K/V rows; they run at
+//    the same time, so all but the first read comes from L2 (the K/V of a
+//    batch-8, 2048-token MQA layer is 4 MB), and the split keeps ceil(gh /
+//    8) times the blocks busy where one block walking every tile over
+//    its staged rows would leave a batch-2 MQA decode on 2 x nslices
+//    blocks of 132 SMs.
 //  * Head dim 96 (Phi-3), whose row is 12 16-byte chunks of bf16 or 6 of
 //    8-bit codes: the lone head's score lanes come in groups of 16 (or
 //    8), the chunks in the first 12 (or 6) and zeros in the rest, so the
@@ -212,7 +223,7 @@ struct Params {
   int* counters;
   const int* kv_len;
   __nv_bfloat16* out;
-  int Hq, Hkv, T, gh, R, S, nslices, window;
+  int Hq, Hkv, T, gh, tiles, R, S, nslices, window;
   long long qsb, qsh, csb, csh;
   float scale;
   float softcap, cap2;   // softcap (0: none) and 2 log2(e) / softcap
@@ -372,7 +383,7 @@ decode_row_kernel(const KV* __restrict__ kc, const KV* __restrict__ vc,
                sl.nlive, p.Hq);
 }
 
-// ---- a GQA group (gh = 2..8): the tensor cores -------------------------
+// ---- a GQA group (gh = 2..kMaxGroup): the tensor cores, 8 heads a block --
 
 // Shared memory at R rows: the K and V rows as copied (8-bit caches
 // only), their bf16 form (bf16 rows are copied straight into it; K's
@@ -420,9 +431,13 @@ decode_gqa_kernel(const KV* __restrict__ kc, const KV* __restrict__ vc,
   float* ml = reinterpret_cast<float*>(smem + L::ml(R));   // [8][2]
   int* flag = reinterpret_cast<int*>(ml + 2 * kHeads);
 
-  const int s = blockIdx.x, hk = blockIdx.y, b = blockIdx.z, gh = p.gh;
+  const int s = blockIdx.x, b = blockIdx.z;
+  const int hk = blockIdx.y / p.tiles, tile = blockIdx.y % p.tiles;
+  // this block's heads: group heads 8 tile .. + gh (at most kHeads)
+  const int gh = min(kHeads, p.gh - tile * kHeads);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gi = lane >> 2, q4 = lane & 3;
+  int* counter = p.counters + (long long)b * gridDim.y + blockIdx.y;
 
   // The query heads as the B operand of S^T = K Q^T: head gi, d = 16 k +
   // 2 q4 (+ 1) and + 8; heads past gh are zeros. In flight beside
@@ -431,7 +446,8 @@ decode_gqa_kernel(const KV* __restrict__ kc, const KV* __restrict__ vc,
 #pragma unroll
   for (int k = 0; k < kDs; ++k) qb[k][0] = qb[k][1] = 0u;
   if (gi < gh) {
-    const __nv_bfloat16* qr = p.q + b * p.qsb + (hk * gh + gi) * p.qsh;
+    const __nv_bfloat16* qr =
+        p.q + b * p.qsb + (hk * p.gh + tile * kHeads + gi) * p.qsh;
 #pragma unroll
     for (int k = 0; k < kDs; ++k) {
       qb[k][0] = *reinterpret_cast<const uint32_t*>(qr + 16 * k + 2 * q4);
@@ -550,7 +566,8 @@ decode_gqa_kernel(const KV* __restrict__ kc, const KV* __restrict__ vc,
         O[k][e] = f[e & 1].x * O[k][e] + f[e & 1].y * acc[e];
     }
   } while (sl.next(R));
-  const long long row0 = (long long)b * p.Hq + hk * gh;   // first head row
+  // first head row
+  const long long row0 = (long long)b * p.Hq + hk * p.gh + tile * kHeads;
 #pragma unroll
   for (int k = 0; k < kDt; ++k) {
     const int dt = warp + k * kWarps;
@@ -563,12 +580,8 @@ decode_gqa_kernel(const KV* __restrict__ kc, const KV* __restrict__ vc,
              p.nslices, p.Hq, p.sinks, p.po, p.pml, p.out);
     }
   }
-  if (sl.nlive == 1 ||
-      !ti::last_to_arrive(p.counters + (long long)b * p.Hkv + hk, sl.nlive,
-                          flag))
-    return;
-  merge_slices(p.po, p.pml, p.sinks, p.out,
-               p.counters + (long long)b * p.Hkv + hk,
+  if (sl.nlive == 1 || !ti::last_to_arrive(counter, sl.nlive, flag)) return;
+  merge_slices(p.po, p.pml, p.sinks, p.out, counter,
                reinterpret_cast<float*>(smem), row0, gh, D, p.nslices,
                sl.nlive, p.Hq);
 }
@@ -576,7 +589,7 @@ decode_gqa_kernel(const KV* __restrict__ kc, const KV* __restrict__ vc,
 template <typename KV, int D, bool kCap>
 int launch_c(const void* kc, const void* vc, const Params& p, int B,
              cudaStream_t stream) {
-  const dim3 grid(p.nslices, p.Hkv, B);
+  const dim3 grid(p.nslices, p.Hkv * p.tiles, B);
   const bool rows = p.gh == 1;
   const int smem = rows ? RowLayout<KV, D>::total(p.R)
                         : GqaLayout<KV, D>::total(p.R);
@@ -638,6 +651,14 @@ struct Plan {
   int rows, S, nslices;
 };
 
+// Query heads a kv head may have: 128 is 16 head tiles, past Falcon-180B's
+// 29 (the tiles are independent blocks, so the bound is a choice;
+// kernels/decode_attention.py MAX_GROUP holds the same number).
+constexpr int kMaxGroup = 128;
+
+// Head tiles of a group: 1 for a lone head or up to 8 heads.
+int tiles_of(int gh) { return (gh + kHeads - 1) / kHeads; }
+
 Plan plan_of(int Hq, int Hkv, int T, int D, int window) {
   const int span = window > 0 && window < T ? window : T;
   const int rows = Hq > Hkv && D <= 128 ? 128 : 64;
@@ -659,6 +680,11 @@ long long ti_decode_workspace(int B, int Hq, int Hkv, int T, int D,
   return pl.nslices > 1 ? (long long)B * Hq * pl.nslices * (D + 2) : 0;
 }
 
+// The arrival counters a call uses: one a (b, kv head, head tile).
+long long ti_decode_counters(int B, int Hq, int Hkv) {
+  return (long long)B * Hkv * tiles_of(Hq / Hkv);
+}
+
 // q: bf16 [B, Hq, D] with strides {qsb, qsh}; k_cache, v_cache: the
 // [B, Hkv, T, D] plane of layer li with strides {csb, csh} (elements)
 // and contiguous [T, D] rows, of bf16 (kv_dtype 0), int8 codes (1) or
@@ -667,9 +693,9 @@ long long ti_decode_workspace(int B, int Hq, int Hkv, int T, int D,
 // out: bf16 [B, Hq, D] contiguous; kv_len: int32 [B] on the device;
 // sinks: f32 [Hq] on the device, or null; window: rows before kv_len -
 // window are masked, 0 for none; work: ti_decode_workspace(B, Hq, Hkv,
-// T, D, window) f32 elements; counters: B * Hkv int32 zeros, left
-// zeros. strides = {qsb, qsh, csb, csh}. D in {32, 64, 96, 128, 256};
-// Hq / Hkv <= 8. softcap: scores s become softcap * tanh(s / softcap), 0
+// T, D, window) f32 elements; counters: ti_decode_counters(B, Hq, Hkv)
+// int32 zeros, left zeros. strides = {qsb, qsh, csb, csh}. D in {32, 64,
+// 96, 128, 256}; Hq / Hkv <= kMaxGroup. softcap: scores s become softcap * tanh(s / softcap), 0
 // for none.
 int ti_decode_attention(const void* q, const void* k_cache,
                         const void* v_cache, const void* k_scale,
@@ -679,7 +705,7 @@ int ti_decode_attention(const void* q, const void* k_cache,
                         int window, const long long* strides, float scale,
                         float softcap, void* stream) {
   const int gh = Hq / Hkv;
-  if (gh > 8 || Hq % Hkv || window < 0 || !(softcap >= 0.f) ||
+  if (gh > kMaxGroup || Hq % Hkv || window < 0 || !(softcap >= 0.f) ||
       kv_dtype < 0 || kv_dtype > 2 ||
       (kv_dtype == 1) != (k_scale != nullptr && v_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -693,7 +719,7 @@ int ti_decode_attention(const void* q, const void* k_cache,
            static_cast<int*>(counters),
            static_cast<const int*>(kv_len),
            static_cast<__nv_bfloat16*>(out),
-           Hq, Hkv, T, gh, pl.rows, pl.S, pl.nslices, window,
+           Hq, Hkv, T, gh, tiles_of(gh), pl.rows, pl.S, pl.nslices, window,
            strides[0], strides[1], strides[2], strides[3], scale,
            softcap, softcap > 0.f ? 2.8853900817779268f / softcap : 0.f};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

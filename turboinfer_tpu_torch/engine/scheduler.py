@@ -964,6 +964,11 @@ class PagedContinuousScheduler(ContinuousBatchingScheduler):
             raise NotImplementedError(
                 f"{model_config.architecture} has no forward_paged_verify "
                 "(speculative paged serving)")
+        if not hasattr(model, "forward_paged_decode"):
+            # GPT-2 and the NeoX family have no paged body, as in the JAX
+            # package (its scheduler refuses them at construction too)
+            raise NotImplementedError(
+                f"{model_config.architecture} has no forward_paged_decode")
         cfg = config or InferenceConfig(max_seq_len=model_config.max_seq_len)
         check_kv_dtype(model, model_config.architecture, resolve_kv_dtype(
             cfg.kv_cache_dtype, model_config.dtype), paged=True)

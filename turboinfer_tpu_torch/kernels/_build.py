@@ -46,6 +46,7 @@ SIGNATURES = {
     "ti_cache_write_fresh": ([_VP] * 4 + [_I] * 5 + [_LLP, _VP], _I),
     "ti_kv_encode_write": ([_VP] * 7 + [_I] * 4 + [_LL, _LL, _LLP, _VP], _I),
     "ti_decode_workspace": ([_I] * 6, _LL),
+    "ti_decode_counters": ([_I] * 3, _LL),
     "ti_decode_attention": ([_VP] * 10 + [_I] * 7 + [_LLP, _F, _F, _VP],
                             _I),
     "ti_paged_workspace": ([_I] * 5, _LL),

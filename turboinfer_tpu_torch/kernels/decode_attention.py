@@ -24,7 +24,9 @@ from turboinfer_tpu_torch.kernels import _build, ops
 from turboinfer_tpu_torch.utils.errors import KernelError
 
 HEAD_DIMS = (32, 64, 96, 128, 256)
-MAX_GROUP = 8        # query heads per kv head one block computes
+# query heads a kv head may have (csrc/decode_attention.cu kMaxGroup): a
+# group above 8 runs as head tiles of 8, a block each
+MAX_GROUP = 128
 # cache storage dtype -> the kernel's element-type code
 KV_DTYPES = {torch.bfloat16: 0, torch.int8: 1, torch.uint8: 2}
 
@@ -101,11 +103,17 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                           f"int8 or fp8 (uint8) cache, got {q.dtype}, "
                           f"{k_cache.dtype}, {v_cache.dtype}")
     check_scales(k_cache, v_cache, k_scale, v_scale, "decode_attention")
-    if (D not in HEAD_DIMS or Dc != D or Bc != B or Hq % Hkv
-            or Hq // Hkv > MAX_GROUP or v_cache.shape != k_cache.shape
+    if D not in HEAD_DIMS:
+        raise KernelError(f"decode_attention: head dim {D} has no kernel "
+                          f"instance (head dims {HEAD_DIMS})")
+    if (Dc != D or Bc != B or Hq % Hkv
+            or v_cache.shape != k_cache.shape
             or not 0 <= int(layer_index) < L):
         raise KernelError(f"decode_attention: unsupported shapes q "
                           f"{tuple(q.shape)} cache {tuple(k_cache.shape)}")
+    if Hq // Hkv > MAX_GROUP:
+        raise KernelError(f"decode_attention: {Hq // Hkv} query heads a kv "
+                          f"head, above the kernel's bound of {MAX_GROUP}")
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()) \
             or q.stride(-1) != 1 or any(s % 8 for s in q.stride()[:-1]) \
             or q.data_ptr() % 16 or k_cache.device != q.device:
@@ -132,7 +140,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                                kc.stride(1))
     status = lib.ti_decode_attention(
         q.data_ptr(), kc.data_ptr(), vc.data_ptr(), ks, vs, out.data_ptr(),
-        work.data_ptr(), _build.counters(q.device, B * Hkv).data_ptr(),
+        work.data_ptr(),
+        _build.counters(q.device, lib.ti_decode_counters(B, Hq, Hkv)).data_ptr(),
         kv_len.data_ptr(), None if sinks is None else sinks.data_ptr(), B,
         Hq, Hkv, T, D, KV_DTYPES[k_cache.dtype], win, strides,
         1.0 / math.sqrt(D), cap,

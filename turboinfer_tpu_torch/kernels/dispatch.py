@@ -49,30 +49,66 @@ def qmatmul_grouped(x: torch.Tensor, qt: QTensor,
 
 
 def attention_prefill(q, k, v, *, kv_len, q_start, layer_index=None,
-                      k_scale=None, v_scale=None, window=None, softcap=None):
+                      k_scale=None, v_scale=None, window=None, softcap=None,
+                      alibi=None):
     """q: [B, S, Hq, D]; k/v: [B, Hkv, T, D] views, or the stacked
     [L, B, Hkv, T, D] cache with `layer_index` (read in place), int8
     with its scale planes k_scale/v_scale ([..., Hkv, T] f32) or fp8
     (uint8 e4m3 bits) too. window: a query at p sees keys > p - window;
-    softcap: cap * tanh(s / cap) on the scaled scores."""
+    softcap: cap * tanh(s / cap) on the scaled scores. alibi: [Hq] f32
+    slopes (Falcon-RW, BLOOM); the flash kernel carries no per-head
+    score bias, as the JAX package's Pallas kernels do not, so such a
+    call runs the torch reference attention (alibi_prefill), on the card
+    too."""
     from turboinfer_tpu_torch.kernels import flash_attention
     if layer_index is not None:
         k, v = k[layer_index], v[layer_index]
         if k_scale is not None:
             k_scale, v_scale = k_scale[layer_index], v_scale[layer_index]
+    if alibi is not None:
+        return alibi_prefill(q, k, v, kv_len, q_start, k_scale, v_scale,
+                             window, softcap, alibi)
     return flash_attention.flash_prefill(q, k, v, kv_len, q_start, k_scale,
                                          v_scale, window, softcap)
 
 
+def alibi_prefill(q, k, v, kv_len, q_start, k_scale, v_scale, window,
+                  softcap, alibi):
+    """The JAX package's ALiBi prefill (dispatch.attention_prefill with
+    alibi): K/V decoded to q.dtype, then ops.attention_prefill_ref."""
+    from turboinfer_tpu_torch.kernels import ops
+    from turboinfer_tpu_torch.models.common import decode_kv
+    S = q.shape[1]
+    positions = q_start[:, None] + torch.arange(S, device=q.device)[None, :]
+    return ops.attention_prefill_ref(
+        q, decode_kv(k, q.dtype, k_scale), decode_kv(v, q.dtype, v_scale),
+        causal=True, positions=positions, kv_len=kv_len, window=window,
+        softcap=softcap, alibi=alibi)
+
+
 def attention_decode(q, k_cache, v_cache, kv_len, layer_index=None,
                      window=None, sinks=None, k_scale=None, v_scale=None,
-                     softcap=None):
+                     softcap=None, alibi=None):
     """q: [B, Hq, D]; caches stacked [L, B, Hkv, T, D] with
     `layer_index`, or one layer [B, Hkv, T, D]. window: the last
     `window` keys only; sinks: [Hq] per-head sink logits; k_scale/
     v_scale: an int8 cache's scale planes ([..., Hkv, T] f32); softcap:
-    cap * tanh(s / cap) on the scaled scores."""
+    cap * tanh(s / cap) on the scaled scores. alibi: [Hq] f32 slopes; as
+    in attention_prefill, such a call runs the torch reference
+    (ops.attention_decode_ref over the layer decoded to q.dtype, as the
+    JAX package's jnp path)."""
     from turboinfer_tpu_torch.kernels import decode_attention
+    if alibi is not None:
+        from turboinfer_tpu_torch.kernels import ops
+        from turboinfer_tpu_torch.models.common import decode_kv
+        if layer_index is not None:
+            k_cache, v_cache = k_cache[layer_index], v_cache[layer_index]
+            if k_scale is not None:
+                k_scale, v_scale = k_scale[layer_index], v_scale[layer_index]
+        return ops.attention_decode_ref(
+            q, decode_kv(k_cache, q.dtype, k_scale),
+            decode_kv(v_cache, q.dtype, v_scale), kv_len, window=window,
+            sinks=sinks, softcap=softcap, alibi=alibi)
     if layer_index is None:
         k_cache, v_cache, layer_index = k_cache[None], v_cache[None], 0
         if k_scale is not None:

@@ -70,7 +70,10 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           f"(uint8) k/v, got {q.dtype}, {k.dtype}, {v.dtype}")
     check_scales(k, v, k_scale, v_scale, "flash_prefill")
     int8 = k_scale is not None
-    if D not in HEAD_DIMS or Hq % Hkv or k.shape != v.shape \
+    if D not in HEAD_DIMS:
+        raise KernelError(f"flash_prefill: head dim {D} has no kernel "
+                          f"instance (head dims {HEAD_DIMS})")
+    if Hq % Hkv or k.shape != v.shape \
             or k.shape[0] != B or k.shape[3] != D:
         raise KernelError(f"flash_prefill: unsupported shapes q "
                           f"{tuple(q.shape)} k {tuple(k.shape)} "
@@ -84,10 +87,15 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
     q_start = q_start.to(device=q.device, dtype=torch.int32).contiguous()
     o = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
+    # a lone kv head's stride is free: take it past the positions for K
+    # and V alike, so one layout reads both (the kernel takes the head or
+    # the position axis as the outer one by comparing the two strides)
+    ks_h, vs_h = ((k.stride(2) * T, v.stride(2) * T) if Hkv == 1
+                  else (k.stride(1), v.stride(1)))
     strides = _build.longlongs(
         q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
+        k.stride(0), ks_h, k.stride(2),
+        v.stride(0), vs_h, v.stride(2),
         o.stride(0), o.stride(1), o.stride(2),
         *(k_scale.stride()[:2] if int8 else (0, 0)))
     lib = _build.library()

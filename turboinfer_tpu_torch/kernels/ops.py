@@ -49,6 +49,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5,
     return F.rms_norm(x.to(torch.float32), (x.shape[-1],), w, eps).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor,
+               bias: Optional[torch.Tensor] = None, eps: float = 1e-5
+               ) -> torch.Tensor:
+    """LayerNorm over the last axis: (x - mean) * rsqrt(var + eps) * w
+    (+ b), statistics in f32, output in x.dtype."""
+    f32 = torch.float32
+    return F.layer_norm(x.to(f32), (x.shape[-1],), weight.to(f32),
+                        None if bias is None else bias.to(f32), eps
+                        ).to(x.dtype)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
@@ -71,6 +82,28 @@ def apply_softcap(s: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return s
     return cap * torch.tanh(s / cap)
+
+
+def alibi_slopes(num_heads: int) -> torch.Tensor:
+    """Per-head ALiBi slopes [num_heads] f32 (HF build_alibi_tensor, as
+    Falcon-RW and BLOOM use them): 2^(-8i/n) over the largest power of
+    two n <= num_heads, then the odd slopes of the next power of two for
+    the heads past n. The score bias is slope * key position; softmax
+    cancels the per-row constant that separates it from slope * (j - i)."""
+    closest = 2 ** math.floor(math.log2(num_heads))
+    base = 2.0 ** -(2.0 ** -(math.log2(closest) - 3))
+    slopes = [base ** i for i in range(1, closest + 1)]
+    if closest != num_heads:
+        extra = 2.0 ** -(2.0 ** -(math.log2(2 * closest) - 3))
+        slopes += [extra ** i
+                   for i in range(1, 2 * (num_heads - closest) + 1, 2)]
+    return torch.tensor(slopes, dtype=torch.float32)
+
+
+def _alibi_bias(alibi: torch.Tensor, T: int, device) -> torch.Tensor:
+    """slope * key position [Hq, T] f32."""
+    return (alibi.to(device=device, dtype=torch.float32)[:, None]
+            * torch.arange(T, dtype=torch.float32, device=device))
 
 
 def rope_freqs(head_dim: int, theta: float = 10000.0, device=None,
@@ -254,18 +287,22 @@ def attention_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           positions: Optional[torch.Tensor] = None,
                           kv_len: Optional[torch.Tensor] = None,
                           window: Optional[int] = None,
-                          softcap: Optional[float] = None
+                          softcap: Optional[float] = None,
+                          alibi: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """Full attention. q: [B, S, Hq, D], k/v: [B, Hkv, T, D] -> [B, S, Hq, D].
     Query s sits at positions[b, s] (default s); keys >= kv_len masked.
     softcap: cap * tanh(s / cap) on the scaled scores, before the mask;
-    window (causal only): a query at p sees keys > p - window."""
+    window (causal only): a query at p sees keys > p - window; alibi:
+    [Hq] slopes, slope * key position added after the softcap."""
     B, S, Hq, D = q.shape
     T = k.shape[2]
     k = _repeat_kv(k, Hq).to(torch.float32)
     v = _repeat_kv(v, Hq).to(torch.float32)
     qf = q.to(torch.float32) * (1.0 / math.sqrt(D))
     scores = apply_softcap(torch.einsum("bshd,bhtd->bhst", qf, k), softcap)
+    if alibi is not None:
+        scores = scores + _alibi_bias(alibi, T, q.device)[None, :, None, :]
     kpos = torch.arange(T, device=q.device)
     mask = None
     if window is not None and not causal:
@@ -291,20 +328,24 @@ def attention_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, kv_len: torch.Tensor,
                          window: Optional[int] = None,
                          sinks: Optional[torch.Tensor] = None,
-                         softcap: Optional[float] = None
+                         softcap: Optional[float] = None,
+                         alibi: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """Single-token attention. q: [B, Hq, D]; k/v: [B, Hkv, T, D];
     kv_len: [B] valid slots (the current token included). window: keys
     [kv_len - window, kv_len) only. sinks: [Hq] per-head sink logits
     (GPT-OSS): the softmax runs over [scores, sink] and the sink adds no
     value (attention_decode_fused_ref of the JAX package, head-major).
-    softcap: cap * tanh(s / cap) on the scaled scores, before the mask."""
+    softcap: cap * tanh(s / cap) on the scaled scores, before the mask;
+    alibi: [Hq] slopes, slope * key position added after the softcap."""
     B, Hq, D = q.shape
     T = k_cache.shape[2]
     k = _repeat_kv(k_cache, Hq).to(torch.float32)
     v = _repeat_kv(v_cache, Hq).to(torch.float32)
     qf = q.to(torch.float32) * (1.0 / math.sqrt(D))
     scores = apply_softcap(torch.einsum("bhd,bhtd->bht", qf, k), softcap)
+    if alibi is not None:
+        scores = scores + _alibi_bias(alibi, T, q.device)[None]
     t = torch.arange(T, device=q.device)[None, None, :]
     valid = t < kv_len[:, None, None]
     if window is not None:

@@ -13,9 +13,11 @@ the device in its file dtype and is cast there, by way of f32). The
 config functions (GGUF metadata, HF config.json, the TINQ dict) are the
 JAX package's, whole.
 
-The GPT-2, GPT-NeoX, Phi-1/2, Falcon, BLOOM and DeepSeek assemblers
-wait for their model families (ROADMAP item 12): assemble_for raises
-ModelFormatError for those architectures.
+assemble_params_gpt2, _neox, _phi, _falcon and _bloom build the GPT-2
+and NeoX-family dicts (models/gpt2.py, models/neox.py), de-interleaving
+the checkpoints' fused per-head q/k/v rows to q|k|v. The DeepSeek
+assembler waits for its model family (ROADMAP item 12): assemble_for
+raises ModelFormatError for deepseek_v2/v3.
 """
 
 from __future__ import annotations
@@ -425,12 +427,409 @@ def assemble_params_gptoss(get: Callable[[str], Any], names: Sequence[str],
     }
 
 
-# architecture -> the JAX assembler that waits for its model family
-_UNPORTED_ASSEMBLERS = {
-    "gpt2": "assemble_params_gpt2", "gpt_neox": "assemble_params_neox",
-    "falcon": "assemble_params_falcon", "bloom": "assemble_params_bloom",
-    "phi": "assemble_params_phi", "deepseek_v2": "assemble_params_deepseek",
-    "deepseek_v3": "assemble_params_deepseek"}
+# ---------------------------------------------------------------------------
+# GPT-2 assembly. Template entries are (name_template, transpose): HF
+# GPT-2 uses Conv1D, so its weights are already [in, out]; GGUF stores
+# [out, in] like the llama tensors (transpose).
+# ---------------------------------------------------------------------------
+
+GPT2_SLOTS: Dict[str, List[Tuple[str, bool]]] = {
+    "embed": [("token_embd.weight", False),
+              ("transformer.wte.weight", False), ("wte.weight", False)],
+    "pos_embed": [("position_embd.weight", False),
+                  ("transformer.wpe.weight", False), ("wpe.weight", False)],
+    "ln1_w": [("blk.{i}.attn_norm.weight", False),
+              ("transformer.h.{i}.ln_1.weight", False),
+              ("h.{i}.ln_1.weight", False)],
+    "ln1_b": [("blk.{i}.attn_norm.bias", False),
+              ("transformer.h.{i}.ln_1.bias", False),
+              ("h.{i}.ln_1.bias", False)],
+    "w_qkv": [("blk.{i}.attn_qkv.weight", True),
+              ("transformer.h.{i}.attn.c_attn.weight", False),
+              ("h.{i}.attn.c_attn.weight", False)],
+    "b_qkv": [("blk.{i}.attn_qkv.bias", False),
+              ("transformer.h.{i}.attn.c_attn.bias", False),
+              ("h.{i}.attn.c_attn.bias", False)],
+    "wo": [("blk.{i}.attn_output.weight", True),
+           ("transformer.h.{i}.attn.c_proj.weight", False),
+           ("h.{i}.attn.c_proj.weight", False)],
+    "bo": [("blk.{i}.attn_output.bias", False),
+           ("transformer.h.{i}.attn.c_proj.bias", False),
+           ("h.{i}.attn.c_proj.bias", False)],
+    "ln2_w": [("blk.{i}.ffn_norm.weight", False),
+              ("transformer.h.{i}.ln_2.weight", False),
+              ("h.{i}.ln_2.weight", False)],
+    "ln2_b": [("blk.{i}.ffn_norm.bias", False),
+              ("transformer.h.{i}.ln_2.bias", False),
+              ("h.{i}.ln_2.bias", False)],
+    "w_fc": [("blk.{i}.ffn_up.weight", True),
+             ("transformer.h.{i}.mlp.c_fc.weight", False),
+             ("h.{i}.mlp.c_fc.weight", False)],
+    "b_fc": [("blk.{i}.ffn_up.bias", False),
+             ("transformer.h.{i}.mlp.c_fc.bias", False),
+             ("h.{i}.mlp.c_fc.bias", False)],
+    "w_proj": [("blk.{i}.ffn_down.weight", True),
+               ("transformer.h.{i}.mlp.c_proj.weight", False),
+               ("h.{i}.mlp.c_proj.weight", False)],
+    "b_proj": [("blk.{i}.ffn_down.bias", False),
+               ("transformer.h.{i}.mlp.c_proj.bias", False),
+               ("h.{i}.mlp.c_proj.bias", False)],
+    "final_norm_w": [("output_norm.weight", False),
+                     ("transformer.ln_f.weight", False),
+                     ("ln_f.weight", False)],
+    "final_norm_b": [("output_norm.bias", False),
+                     ("transformer.ln_f.bias", False),
+                     ("ln_f.bias", False)],
+    "lm_head": [("output.weight", True), ("lm_head.weight", True)],
+}
+
+_GPT2_PER_LAYER = {"ln1_w", "ln1_b", "w_qkv", "b_qkv", "wo", "bo",
+                   "ln2_w", "ln2_b", "w_fc", "b_fc", "w_proj", "b_proj"}
+
+
+def assemble_params_gpt2(get: Callable[[str], Any], names: Sequence[str],
+                         config: ModelConfig, dtype=None,
+                         device="cuda") -> Dict[str, Any]:
+    """The GPT-2 stacked parameter dict (models/gpt2.py structure) from
+    HF or GGUF names (GPT2_SLOTS); a missing head ties to the embedding."""
+    dtype = dtype or config.dtype
+    dev = resolve_device(device)
+    nameset = set(names)
+
+    def fetch(slot: str, layer: Optional[int] = None,
+              required: bool = True) -> Optional[torch.Tensor]:
+        for tmpl, transpose in GPT2_SLOTS[slot]:
+            cand = tmpl.format(i=layer) if "{i}" in tmpl else tmpl
+            if cand in nameset:
+                arr = as_torch(get(cand)).to(dev)
+                return arr.T if transpose else arr
+        if required:
+            raise KeyError(f"no tensor for gpt2 slot '{slot}' "
+                           f"(layer {layer})")
+        return None
+
+    def stack(slot: str) -> torch.Tensor:
+        return _stack([fetch(slot, i) for i in range(config.num_layers)],
+                      dtype, dev)
+
+    embed = _cast(fetch("embed"), dtype).contiguous()
+    params: Dict[str, Any] = {
+        "embed": embed,
+        "pos_embed": _cast(fetch("pos_embed"), dtype).contiguous(),
+        "layers": {s: stack(s) for s in sorted(_GPT2_PER_LAYER)},
+        "final_norm_w": _cast(fetch("final_norm_w"), dtype).contiguous(),
+        "final_norm_b": _cast(fetch("final_norm_b"), dtype).contiguous(),
+    }
+    head = fetch("lm_head", required=False)
+    params["lm_head"] = (embed.T if head is None
+                         else _cast(head, dtype).contiguous())
+    return params
+
+
+def _family_fetch(get: Callable[[str], Any], names: Sequence[str], dev,
+                  family: str, root: str, blocks: str):
+    """fetch(suffix, layer=None, required=True) of the NeoX-family
+    checkpoints: "<root>.<blocks>.<layer>.<suffix>" (or "<root>.<suffix>"
+    without a layer), then the same name without "<root>.", moved to dev
+    in its file dtype; None for a missing optional tensor."""
+    nameset = set(names)
+
+    def fetch(suffix: str, layer: Optional[int] = None,
+              required: bool = True) -> Optional[torch.Tensor]:
+        cand = (f"{root}.{blocks}.{layer}.{suffix}" if layer is not None
+                else f"{root}.{suffix}")
+        for name in (cand, cand.replace(f"{root}.", "", 1)):
+            if name in nameset:
+                return as_torch(get(name)).to(dev)
+        if required:
+            raise KeyError(f"no tensor for {family} slot '{suffix}' "
+                           f"(layer {layer})")
+        return None
+    return fetch
+
+
+def _deinterleave(w: torch.Tensor, Hq: int, D: int) -> torch.Tensor:
+    """HF's head-interleaved fused qkv rows, grouped [Hq, 3, D] (a weight
+    [3 Hq D, in] or a bias [3 Hq D]) -> the q|k|v contiguous rows."""
+    g = w.reshape(Hq, 3, D, -1)
+    return torch.cat([g[:, j].reshape(Hq * D, -1) for j in range(3)]
+                     ).reshape(w.shape)
+
+
+def _head(fetch_head, embed: torch.Tensor, dtype) -> torch.Tensor:
+    """lm_head [H, V] from a file's [V, H] head, or the tied embedding."""
+    return embed.T if fetch_head is None else \
+        _cast(fetch_head.T, dtype).contiguous()
+
+
+def assemble_params_neox(get: Callable[[str], Any], names: Sequence[str],
+                         config: ModelConfig, dtype=None,
+                         device="cuda") -> Dict[str, Any]:
+    """GPT-NeoX / Pythia -> the models/neox.py structure. HF's fused
+    query_key_value is head-interleaved ([Hq, 3, D] rows); it is
+    de-interleaved to q|k|v once, here."""
+    dtype = dtype or config.dtype
+    dev = resolve_device(device)
+    nameset = set(names)
+    L, Hq, D = config.num_layers, config.num_heads, config.head_dim_
+    fetch = _family_fetch(get, names, dev, "neox", "gpt_neox", "layers")
+
+    def stack(fn, suffix):
+        return _stack([fn(fetch(suffix, i)) for i in range(L)], dtype, dev)
+
+    def ident(t):
+        return t
+
+    def tr(t):
+        return t.T
+    layers = {
+        "ln1_w": stack(ident, "input_layernorm.weight"),
+        "ln1_b": stack(ident, "input_layernorm.bias"),
+        "ln2_w": stack(ident, "post_attention_layernorm.weight"),
+        "ln2_b": stack(ident, "post_attention_layernorm.bias"),
+        "w_qkv": stack(lambda w: _deinterleave(w, Hq, D).T,
+                       "attention.query_key_value.weight"),
+        "b_qkv": stack(lambda b: _deinterleave(b, Hq, D),
+                       "attention.query_key_value.bias"),
+        "wo": stack(tr, "attention.dense.weight"),
+        "bo": stack(ident, "attention.dense.bias"),
+        "w_fc": stack(tr, "mlp.dense_h_to_4h.weight"),
+        "b_fc": stack(ident, "mlp.dense_h_to_4h.bias"),
+        "w_proj": stack(tr, "mlp.dense_4h_to_h.weight"),
+        "b_proj": stack(ident, "mlp.dense_4h_to_h.bias"),
+    }
+    embed = _cast(fetch("embed_in.weight"), dtype).contiguous()
+    head = None
+    for name in ("embed_out.weight", "lm_head.weight"):
+        if name in nameset:
+            head = as_torch(get(name)).to(dev)
+            break
+    return {
+        "embed": embed,
+        "layers": layers,
+        "final_norm_w": _cast(fetch("final_layer_norm.weight"),
+                              dtype).contiguous(),
+        "final_norm_b": _cast(fetch("final_layer_norm.bias"),
+                              dtype).contiguous(),
+        "lm_head": _head(head, embed, dtype),
+    }
+
+
+def assemble_params_phi(get: Callable[[str], Any], names: Sequence[str],
+                        config: ModelConfig, dtype=None,
+                        device="cuda") -> Dict[str, Any]:
+    """Phi-1/1.5/2 -> the models/neox.py structure. Phi's parallel block
+    has ONE LayerNorm that attention and MLP both read, so ln2 is ln1;
+    q/k/v are separate biased projections (concatenated to q|k|v); the
+    head carries a bias (lm_head_b)."""
+    dtype = dtype or config.dtype
+    dev = resolve_device(device)
+    nameset = set(names)
+    L = config.num_layers
+    fetch = _family_fetch(get, names, dev, "phi", "model", "layers")
+
+    def stack(rows):
+        return _stack(rows, dtype, dev)
+
+    def per_layer(fn, suffix):
+        return stack([fn(fetch(suffix, i)) for i in range(L)])
+
+    def ident(t):
+        return t
+
+    def tr(t):
+        return t.T
+    qkv = ("q", "k", "v")
+    ln_w = per_layer(ident, "input_layernorm.weight")
+    ln_b = per_layer(ident, "input_layernorm.bias")
+    layers = {
+        "ln1_w": ln_w, "ln1_b": ln_b,
+        "ln2_w": ln_w, "ln2_b": ln_b,       # one LayerNorm (Phi parallel)
+        "w_qkv": stack([torch.cat([fetch(f"self_attn.{n}_proj.weight", i).T
+                                   for n in qkv], 1) for i in range(L)]),
+        "b_qkv": stack([torch.cat([fetch(f"self_attn.{n}_proj.bias", i)
+                                   for n in qkv], 0) for i in range(L)]),
+        "wo": per_layer(tr, "self_attn.dense.weight"),
+        "bo": per_layer(ident, "self_attn.dense.bias"),
+        "w_fc": per_layer(tr, "mlp.fc1.weight"),
+        "b_fc": per_layer(ident, "mlp.fc1.bias"),
+        "w_proj": per_layer(tr, "mlp.fc2.weight"),
+        "b_proj": per_layer(ident, "mlp.fc2.bias"),
+    }
+    params = {
+        "embed": _cast(fetch("embed_tokens.weight"), dtype).contiguous(),
+        "layers": layers,
+        "final_norm_w": _cast(fetch("final_layernorm.weight"),
+                              dtype).contiguous(),
+        "final_norm_b": _cast(fetch("final_layernorm.bias"),
+                              dtype).contiguous(),
+        "lm_head": _cast(as_torch(get("lm_head.weight")).to(dev).T,
+                         dtype).contiguous(),
+    }
+    if "lm_head.bias" in nameset:
+        params["lm_head_b"] = _cast(as_torch(get("lm_head.bias")).to(dev),
+                                    dtype).contiguous()
+    return params
+
+
+def assemble_params_falcon(get: Callable[[str], Any], names: Sequence[str],
+                           config: ModelConfig, dtype=None,
+                           device="cuda") -> Dict[str, Any]:
+    """Falcon (7B/40B/180B/RW) -> the models/neox.py structure. The fused
+    query_key_value comes in three layouts:
+      - new_decoder_architecture (40B/180B): rows grouped PER KV HEAD as
+        [m query heads | k | v], m = Hq / Hkv, de-grouped to q|k|v here;
+      - legacy multi_query (7B): [Hq query heads | k | v], already q|k|v;
+      - legacy MHA (RW): head-interleaved [Hq, 3, D] like GPT-NeoX.
+    Norms: ln_attn / ln_mlp (new architecture, parallel), or the legacy
+    input_layernorm, which 7B's parallel block shares between both slots
+    and the sequential RW models pair with post_attention_layernorm.
+    Products carry biases only where the checkpoint has them (config.bias,
+    RW); zeros elsewhere keep one layout."""
+    dtype = dtype or config.dtype
+    dev = resolve_device(device)
+    nameset = set(names)
+    L = config.num_layers
+    Hq, Hkv, D = config.num_heads, config.kv_heads, config.head_dim_
+    H, F = config.hidden_size, config.ffn_dim
+    fetch = _family_fetch(get, names, dev, "falcon", "transformer", "h")
+
+    def qkv_rows(w: torch.Tensor) -> torch.Tensor:
+        """Fused rows [(Hq + 2 Hkv) D, ...] -> q|k|v contiguous rows."""
+        if Hkv == Hq and w.shape[0] == 3 * Hq * D:
+            return _deinterleave(w, Hq, D)          # legacy MHA
+        if w.shape[0] == (Hq + 2 * Hkv) * D and Hkv > 1:
+            m = Hq // Hkv                           # new arch: kv groups
+            g = w.reshape(Hkv, m + 2, D, -1)
+            return torch.cat([g[:, :m].reshape(Hq * D, -1),
+                              g[:, m].reshape(Hkv * D, -1),
+                              g[:, m + 1].reshape(Hkv * D, -1)])
+        return w                                    # legacy multi_query
+
+    def qkv_b(i: int) -> torch.Tensor:
+        b = fetch("self_attention.query_key_value.bias", i, required=False)
+        if b is None:
+            return torch.zeros((Hq + 2 * Hkv) * D, dtype=torch.float32,
+                               device=dev)
+        return qkv_rows(b[:, None])[:, 0] if b.dim() == 1 else b
+
+    def bias_or_zero(suffix: str, i: int, n: int) -> torch.Tensor:
+        b = fetch(suffix, i, required=False)
+        return b if b is not None else torch.zeros(n, dtype=torch.float32,
+                                                   device=dev)
+
+    def ln(i: int):
+        """(ln1_w, ln1_b, ln2_w, ln2_b) per the checkpoint's norms."""
+        w = fetch("ln_attn.weight", i, required=False)
+        if w is not None:                       # new arch: two parallel LNs
+            return (w, fetch("ln_attn.bias", i),
+                    fetch("ln_mlp.weight", i), fetch("ln_mlp.bias", i))
+        w = fetch("input_layernorm.weight", i)
+        b = fetch("input_layernorm.bias", i)
+        w2 = fetch("post_attention_layernorm.weight", i, required=False)
+        if w2 is not None:                      # RW sequential
+            return (w, b, w2, fetch("post_attention_layernorm.bias", i))
+        return (w, b, w, b)                     # 7B: one shared LN
+
+    lns = [ln(i) for i in range(L)]
+
+    def stack(rows):
+        return _stack(rows, dtype, dev)
+    layers = {
+        "ln1_w": stack([r[0] for r in lns]),
+        "ln1_b": stack([r[1] for r in lns]),
+        "ln2_w": stack([r[2] for r in lns]),
+        "ln2_b": stack([r[3] for r in lns]),
+        "w_qkv": stack([qkv_rows(
+            fetch("self_attention.query_key_value.weight", i)).T
+            for i in range(L)]),
+        "b_qkv": stack([qkv_b(i) for i in range(L)]),
+        "wo": stack([fetch("self_attention.dense.weight", i).T
+                     for i in range(L)]),
+        "bo": stack([bias_or_zero("self_attention.dense.bias", i, H)
+                     for i in range(L)]),
+        "w_fc": stack([fetch("mlp.dense_h_to_4h.weight", i).T
+                       for i in range(L)]),
+        "b_fc": stack([bias_or_zero("mlp.dense_h_to_4h.bias", i, F)
+                       for i in range(L)]),
+        "w_proj": stack([fetch("mlp.dense_4h_to_h.weight", i).T
+                         for i in range(L)]),
+        "b_proj": stack([bias_or_zero("mlp.dense_4h_to_h.bias", i, H)
+                         for i in range(L)]),
+    }
+    embed = _cast(fetch("word_embeddings.weight"), dtype).contiguous()
+    head = (as_torch(get("lm_head.weight")).to(dev)
+            if "lm_head.weight" in nameset else None)
+    return {
+        "embed": embed,
+        "layers": layers,
+        "final_norm_w": _cast(fetch("ln_f.weight"), dtype).contiguous(),
+        "final_norm_b": _cast(fetch("ln_f.bias"), dtype).contiguous(),
+        "lm_head": _head(head, embed, dtype),
+    }
+
+
+def assemble_params_bloom(get: Callable[[str], Any], names: Sequence[str],
+                          config: ModelConfig, dtype=None,
+                          device="cuda") -> Dict[str, Any]:
+    """BLOOM -> the models/neox.py structure: sequential pre-LN blocks, a
+    head-interleaved fused qkv (de-interleaved as GPT-NeoX's), ALiBi (the
+    config's), a GELU MLP, and the LayerNorm over the embeddings
+    (word_embeddings_layernorm -> embed_norm_w / embed_norm_b)."""
+    dtype = dtype or config.dtype
+    dev = resolve_device(device)
+    nameset = set(names)
+    L, Hq, D = config.num_layers, config.num_heads, config.head_dim_
+    fetch = _family_fetch(get, names, dev, "bloom", "transformer", "h")
+
+    def stack(fn, suffix):
+        return _stack([fn(fetch(suffix, i)) for i in range(L)], dtype, dev)
+
+    def ident(t):
+        return t
+
+    def tr(t):
+        return t.T
+    layers = {
+        "ln1_w": stack(ident, "input_layernorm.weight"),
+        "ln1_b": stack(ident, "input_layernorm.bias"),
+        "ln2_w": stack(ident, "post_attention_layernorm.weight"),
+        "ln2_b": stack(ident, "post_attention_layernorm.bias"),
+        "w_qkv": stack(lambda w: _deinterleave(w, Hq, D).T,
+                       "self_attention.query_key_value.weight"),
+        "b_qkv": stack(lambda b: _deinterleave(b, Hq, D),
+                       "self_attention.query_key_value.bias"),
+        "wo": stack(tr, "self_attention.dense.weight"),
+        "bo": stack(ident, "self_attention.dense.bias"),
+        "w_fc": stack(tr, "mlp.dense_h_to_4h.weight"),
+        "b_fc": stack(ident, "mlp.dense_h_to_4h.bias"),
+        "w_proj": stack(tr, "mlp.dense_4h_to_h.weight"),
+        "b_proj": stack(ident, "mlp.dense_4h_to_h.bias"),
+    }
+    embed = _cast(fetch("word_embeddings.weight"), dtype).contiguous()
+    head = (as_torch(get("lm_head.weight")).to(dev)
+            if "lm_head.weight" in nameset else None)
+    return {
+        "embed": embed,
+        "embed_norm_w": _cast(fetch("word_embeddings_layernorm.weight"),
+                              dtype).contiguous(),
+        "embed_norm_b": _cast(fetch("word_embeddings_layernorm.bias"),
+                              dtype).contiguous(),
+        "layers": layers,
+        "final_norm_w": _cast(fetch("ln_f.weight"), dtype).contiguous(),
+        "final_norm_b": _cast(fetch("ln_f.bias"), dtype).contiguous(),
+        "lm_head": _head(head, embed, dtype),
+    }
+
+
+# architecture -> its assembler (anything else: assemble_params); the
+# DeepSeek assembler waits for its model family
+_ASSEMBLERS = {"gpt2": assemble_params_gpt2, "gpt_neox": assemble_params_neox,
+               "falcon": assemble_params_falcon,
+               "bloom": assemble_params_bloom, "phi": assemble_params_phi,
+               "gpt_oss": assemble_params_gptoss}
+_UNPORTED_ASSEMBLERS = {"deepseek_v2": "assemble_params_deepseek",
+                        "deepseek_v3": "assemble_params_deepseek"}
 
 
 def assemble_for(config: ModelConfig):
@@ -440,9 +839,7 @@ def assemble_for(config: ModelConfig):
             f"architecture {config.architecture!r}: its model family and "
             f"{_UNPORTED_ASSEMBLERS[config.architecture]} are not ported to "
             "the PyTorch package yet (ROADMAP item 12)")
-    if config.architecture == "gpt_oss":
-        return assemble_params_gptoss
-    return assemble_params
+    return _ASSEMBLERS.get(config.architecture, assemble_params)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Synthetic models, the counterparts of turboinfer_tpu/loader/synthetic.py:
 create_synthetic_model, a random fp LLaMA-class model, and
-create_synthetic_quantized_model, a random-weight quantized LLaMA-class
-or MoE model built directly in the packed format on the device: a
-7B, Mixtral or Gemma-2-27B fixture never exists in fp. Values are random
+create_synthetic_quantized_model, a random-weight quantized model of any
+ported family built directly in the packed format on the device: a
+7B, Mixtral, Gemma-2-27B or Falcon-7B fixture never exists in fp. Values are random
 (uniform bytes, scales 0.01; a bf16 router for MoE); use it to measure
 speed, not accuracy. Each stacked weight is drawn in place into its
 packed storage (randint writes the uint8/int8 tensor itself), so no
@@ -12,7 +12,13 @@ head: q/k/v biases (attn_bias, N(0, 0.02^2) bf16), q/k norms
 (qk_norm, [L, D]) and sandwich norms (post_norms, [L, H]); every norm is
 ones, or zeros under norm_offset (Gemma's w - 1), as the JAX package's
 init_params makes them. A tied model keeps its own quantized lm_head,
-as quant/quantizer.py makes one from the tied table.
+as quant/quantizer.py makes one from the tied table. GPT-2 and the NeoX
+family (GPT-NeoX, Phi, Falcon, BLOOM) are drawn by their module's
+init_params (through the registry) with its products taken from the
+same packed draws: LayerNorm weights ones, biases zeros, the bf16
+embedding (and GPT-2's positions) from init_params' own seeded stream;
+a head whose vocab is not a multiple of 8 (GPT-2's 50257) stays fp, as
+the qmm kernels take N % 8 == 0 only.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ def create_synthetic_quantized_model(config: ModelConfig, bits: int = 4,
     split stacks and their fused copy never live side by side
     (Mixtral-8x7B int8: 2 x 15 GB each); the values differ from the
     split draw's."""
+    from turboinfer_tpu_torch.models import gpt2, neox, registry
     dev = resolve_device(device)
     c = config
     if c.kv_lora_rank or c.shared_expert_size:
@@ -82,6 +89,24 @@ def create_synthetic_quantized_model(config: ModelConfig, bits: int = 4,
                             device=dev)
         return QTensor(data=data, scales=scales, zero_points=None,
                        bits=bits, group_size=G, shape=(K, N))
+
+    model = registry.get_model(c.architecture)
+    if model in (gpt2, neox):
+        # the family's own tree, every [.., K, N] product a packed draw
+        params = model.init_params(
+            c, seed=seed, device=dev, dtype=torch.bfloat16,
+            matmul=lambda shape, fan_in: rq(shape[-2], shape[-1],
+                                            lead=tuple(shape[:-2])))
+        if V % 8:
+            # the qmm kernels take N % 8 == 0 only (GPT-2's 50257): the
+            # head stays fp, the tied table or a bf16 draw
+            if isinstance(params["lm_head"], QTensor):
+                params["lm_head"] = (0.02 * torch.randn(
+                    (H, V), generator=gen, device=dev)).to(torch.bfloat16)
+        elif not isinstance(params["lm_head"], QTensor):   # tied: its own
+            params["lm_head"] = rq(H, V, lead=())
+        return ModelData(params=params, config=config,
+                         source_format="synthetic-quantized")
 
     def ones(*shape):
         # Gemma stores norm weights as w - 1

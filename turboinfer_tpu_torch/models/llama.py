@@ -368,51 +368,57 @@ def _layer_forward(config: ModelConfig, x: torch.Tensor, lw: Dict[str, Any],
     cache_rows); else (rows, positions) of a decode step's cache writes,
     or the host list of a chunked prefill's row starts. The layer's
     window and the attention softcap go to every attention kernel."""
-    S = x.shape[1]
-    T = cache.max_seq
     q, k, v = _attn_inputs(config, x, lw, li, rope)
-    mask = dict(window=layer_window(config, li),
-                softcap=config.attn_logit_softcap)
+    attn = attend(q, k, v, li, cache, start, kv_len, fresh_prefill, slots,
+                  window=layer_window(config, li),
+                  softcap=config.attn_logit_softcap)
+    return _attn_out_ffn(config, x, attn, lw, li, ffn_fn)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, li: int,
+           cache: KVCache, start: torch.Tensor, kv_len: torch.Tensor,
+           fresh_prefill: bool, slots, **mask) -> torch.Tensor:
+    """Write layer li's new k, v [B, S, Hkv, D] into the stacked cache in
+    place and attend q [B, S, Hq, D] to the layer -> [B, S, Hq, D].
+    slots: cache_slots(...) of the forward; mask: window, softcap and
+    alibi, handed to the attention dispatch."""
+    S = q.shape[1]
+    T = cache.max_seq
     if cache.k.dtype in COMPRESSED_KV:
         encode_write(cache.k, cache.v, cache.k_scale, cache.v_scale, k, v,
                      slots, li)
         if S == 1:
-            attn = dispatch.attention_decode(
+            return dispatch.attention_decode(
                 q[:, 0], cache.k, cache.v, kv_len, layer_index=li,
                 k_scale=cache.k_scale, v_scale=cache.v_scale,
                 **mask)[:, None]
-        else:
-            # fresh or chunked: attend the quantized K/V in the cache
-            attn = dispatch.attention_prefill(
-                q, cache.k, cache.v, kv_len=kv_len, q_start=start,
-                layer_index=li, k_scale=cache.k_scale, v_scale=cache.v_scale,
-                **mask)
-        return _attn_out_ffn(config, x, attn, lw, li, ffn_fn)
+        # fresh or chunked: attend the quantized K/V in the cache
+        return dispatch.attention_prefill(
+            q, cache.k, cache.v, kv_len=kv_len, q_start=start,
+            layer_index=li, k_scale=cache.k_scale, v_scale=cache.v_scale,
+            **mask)
     k, v = k.to(cache.k.dtype), v.to(cache.k.dtype)
     if S == 1:
         rows, pos = slots
         cache.k[li, rows, :, pos] = k[:, 0]
         cache.v[li, rows, :, pos] = v[:, 0]
-        attn = dispatch.attention_decode(q[:, 0], cache.k, cache.v, kv_len,
+        return dispatch.attention_decode(q[:, 0], cache.k, cache.v, kv_len,
                                          layer_index=li, **mask)[:, None]
-    elif fresh_prefill:
+    if fresh_prefill:
         # Cold prefill (cache.length == 0): write the slab at T offset 0
         # and attend the just-computed K/V, transposed by strides.
         cache_write.cache_write_fresh(cache.k, cache.v, k, v, li)
-        attn = dispatch.attention_prefill(q, k.transpose(1, 2),
+        return dispatch.attention_prefill(q, k.transpose(1, 2),
                                           v.transpose(1, 2), kv_len=kv_len,
                                           q_start=start, **mask)
-    else:
-        # Chunked prefill: per-row writes at start[b], then attend the
-        # stacked cache's layer li in place.
-        for b, s0 in enumerate(slots):
-            n = min(S, T - s0)
-            cache.k[li, b, :, s0:s0 + n] = k[b, :n].transpose(0, 1)
-            cache.v[li, b, :, s0:s0 + n] = v[b, :n].transpose(0, 1)
-        attn = dispatch.attention_prefill(q, cache.k, cache.v, kv_len=kv_len,
-                                          q_start=start, layer_index=li,
-                                          **mask)
-    return _attn_out_ffn(config, x, attn, lw, li, ffn_fn)
+    # Chunked prefill: per-row writes at start[b], then attend the
+    # stacked cache's layer li in place.
+    for b, s0 in enumerate(slots):
+        n = min(S, T - s0)
+        cache.k[li, b, :, s0:s0 + n] = k[b, :n].transpose(0, 1)
+        cache.v[li, b, :, s0:s0 + n] = v[b, :n].transpose(0, 1)
+    return dispatch.attention_prefill(q, cache.k, cache.v, kv_len=kv_len,
+                                      q_start=start, layer_index=li, **mask)
 
 
 def cache_rows(cache: KVCache, start: torch.Tensor, S: int) -> torch.Tensor:
@@ -428,6 +434,21 @@ def cache_rows(cache: KVCache, start: torch.Tensor, S: int) -> torch.Tensor:
         pos = pos.clamp(max=T - 1)
     rows = torch.arange(B, device=dev)[:, None] * (Hkv * T) + pos
     return torch.where(pos < T, rows, -1).reshape(-1)
+
+
+def cache_slots(cache: KVCache, start: torch.Tensor, S: int,
+                fresh_prefill: bool):
+    """Where a forward of S tokens a row writes its K/V (attend's slots):
+    for a compressed cache the layer-0 rows (cache_rows); else for decode
+    (rows, positions), start clamped into the cache as JAX's
+    dynamic_update_slice clamps it; for a chunked prefill the host list
+    of row starts (read once); for a fresh prefill None."""
+    if cache.k.dtype in COMPRESSED_KV:
+        return cache_rows(cache, start, S)
+    if S == 1:
+        return (torch.arange(start.shape[0], device=start.device),
+                start.clamp(max=cache.max_seq - 1).long())
+    return None if fresh_prefill else start.tolist()
 
 
 def _resolve_ffn(config: ModelConfig, ffn_fn):
@@ -471,16 +492,7 @@ def forward(params: Dict[str, Any], config: ModelConfig, tokens: torch.Tensor,
 
     x = embed(config, params, tokens)
     rope = rope_for(config, positions)
-    # Decode writes one token per row at start[b]; JAX's
-    # dynamic_update_slice clamps the offset into the cache, and so does
-    # this indexed write. A chunked prefill reads the row starts once.
-    if cache.k.dtype in COMPRESSED_KV:
-        slots = cache_rows(cache, start, S)
-    elif S == 1:
-        slots = (torch.arange(B, device=tokens.device),
-                 start.clamp(max=cache.max_seq - 1).long())
-    else:
-        slots = None if fresh_prefill else start.tolist()
+    slots = cache_slots(cache, start, S, fresh_prefill)
     layers = params["layers"]
     for li in range(config.num_layers):
         x = layer_fn(config, x, layers, li, rope, cache, start, kv_len,

@@ -1,7 +1,7 @@
 """Model-level quantizer (counterpart of turboinfer_tpu/quant/quantizer.py
-quantize_params): int4/int8 of every llama or MoE matmul weight,
-group-wise along K, symmetric (absmax or "mse" scales) or asymmetric
-(with zero points), byte-identical to the JAX package's.
+quantize_params): int4/int8 of every llama, MoE, GPT-2 or NeoX-family
+matmul weight, group-wise along K, symmetric (absmax or "mse" scales)
+or asymmetric (with zero points), byte-identical to the JAX package's.
 MoE expert weights [L, E, K, N] become 4-D QTensors; the router stays
 fp, and so do GPT-OSS's biased experts (marked by a "be_gate" slot),
 as in the JAX package. Unless skip_embeddings, lm_head quantizes like
@@ -28,9 +28,12 @@ from turboinfer_tpu_torch.core.qtensor import (QEmbed, QTensor, dequantize,
                                                dequantize_embed, quantize,
                                                quantize_embed)
 
-# Per-layer [L, K, N] matmul slots; a MoE layer holds only the first
-# four (its experts are the 4-D slots below, its router stays fp).
-_LAYER_MATMULS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# Per-layer [L, K, N] matmul slots, picked by what the tree holds (the
+# JAX package's _matmul_slots): the llama family's seven; a MoE layer's
+# first four (its experts are the 4-D slots below, its router stays
+# fp); GPT-2 and the NeoX family's fused w_qkv, wo, w_fc and w_proj.
+_LAYER_MATMULS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                  "w_qkv", "w_fc", "w_proj")
 _MOE_EXPERT_SLOTS = ("we_gate", "we_up", "we_down")
 
 
