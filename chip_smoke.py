@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port (turboinfer_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,...,19] [--json PATH]
+    python3 chip_smoke.py [--phases 1,2,...,20] [--json PATH]
 
 Phases:
   1. environment: card name and power limit, torch/CUDA versions, and the
@@ -38,7 +38,7 @@ Phases:
   7. paged speculative serving: the same model with its first 2 layers
      as the draft, spec_k=4 (verify G=5), 8 greedy requests; verify
      logits against 5 chained decode steps on the same pages;
-  8. Mixtral-8x7B int4 g=64 at full width, 4 of its 32 layers, random
+  8. Mixtral-8x7B int4 g=64 at full width, 2 of its 32 layers, random
      weights from a seed: generate_batch at B=1 (prompt 1000, 128 new
      tokens; decode through the grouped kernel, traced, one step under
      torch.cuda.set_sync_debug_mode("error")) and at B=8 (prompts 512,
@@ -84,10 +84,10 @@ Phases:
      decode, stacked-prefill and paged kernels, at phase 10's own
      prefill, decode and admission shapes too.
  11. int8 and zero-point weights: (a) the 7B at the default
-     QuantizationConfig() (int8, symmetric, g=64), L=4 (of 32), through
+     QuantizationConfig() (int8, symmetric, g=64), L=2 (of 32), through
      generate_batch as phase 3, every product on qmm_int8 (traced, peak
      memory); (b) paged serving of 8 requests, 4 sharing a 512-token
-     prefix; (c) Mixtral-8x7B int8 g=64 at L=4 (of 32), B=1 prompt 1000,
+     prefix; (c) Mixtral-8x7B int8 g=64 at L=2 (of 32), B=1 prompt 1000,
      64 new tokens, decode through qmm_int8_grouped, one step sync-free, peak
      < 70 GiB; (d) weights quantized on the card from seeded bf16,
      kernels against plain versions: 7B int8, int8 and int4 with zero
@@ -117,7 +117,7 @@ Phases:
  13. Gemma-2-27B (google/gemma-2-27b's published config: 46 layers,
      hidden 4608, 32:16 heads of 128, FFN 36864, vocab 256000, a 4096-key
      window on every even layer, attention and final softcaps 50 and 30),
-     int4 g=64, bf16, 4 of the 46 layers, synthetic
+     int4 g=64, bf16, 2 of the 46 layers (one windowed, one global), synthetic
      weights from a seed, build peak printed: (a) generate_batch B=2,
      prompts of 4500 and 5000 (past the window), 64 new tokens, max_seq
      8192 (launch counts of the run and of one decode step: L decode
@@ -159,7 +159,7 @@ Phases:
  15. Phi-3-mini-4k (microsoft/Phi-3-mini-4k-instruct's published config:
      32 layers, hidden 3072, 32:32 heads of 96, FFN 8192, vocab 32064,
      4096 positions, a 2047-key window on every layer), int4 g=64, bf16,
-     16 of the 32 layers (as phases 17-18; phase 16 runs all 32), synthetic weights
+     16 of the 32 layers (as phase 18; phase 17 runs 8, phase 16 all 32), synthetic weights
      from a seed: (a) generate_batch
      B=2, prompts of 3000 and 3500, 64 new tokens (launch counts of the
      run and of one decode step, traced prefill and decode, cache and
@@ -189,7 +189,7 @@ Phases:
      llama.cpp's names (attn_qkv, double-width ffn_up), f32 logits
      against the in-memory params within 5% of max|logit| (the last
      position under the tie rule), and the native Q4_0/Q8_0/Q4_K/Q6_K
-     dequantizers against numpy at w_gateup's size; (d) the 7B int4 L=16
+     dequantizers against numpy at w_gateup's size; (d) the 7B int4 L=8
      as .tinq under an r=16 PEFT adapter on all seven modules through
      load_engine(lora=): decode ms/step with and without it, interleaved
      (B=8 prompts 512, 64 new), the paged scheduler's tokens against
@@ -200,7 +200,7 @@ Phases:
      the shards: load_model_data attaches an HFTokenizer with Phi-3's
      chat template, and one engine.chat turn of 8 tokens runs on the
      loaded model.
- 17. text in and out at Phi-3-mini-4k's full width (int4 g=64, all 32
+ 17. text in and out at Phi-3-mini-4k's full width (int4 g=64, 8 of 32
      layers, bf16 cache, max_seq 4096), with Phi-3-style tokenizer
      files this script writes (a Llama-2-style BPE with byte_fallback
      whose merges it learns in pure Python from a fixed text, Phi-3's
@@ -266,6 +266,25 @@ Phases:
      (bf16, int8, fp8) and Falcon-40B's 16, the flash kernel at 71:1,
      the cache writes at one kv head, and qmm at K=4544 and 18176
      (check_falcon_shapes).
+ 20. the MoE variants and DeepSeek: DeepSeek-V2-Lite (the JAX package's
+     deepseek_v2_lite_config: 27 layers, hidden 2048, 16 heads, MLA with
+     kv_lora_rank 512, 64 experts top-6 of width 1408 and two shared
+     experts, the first layer dense, vocab 102400) through
+     models/deepseek.py, int4 g=64, all 27 layers, synthetic weights from
+     a seed, max_seq 2048: (a) generate_batch B=1, a 1024-token prompt,
+     64 new tokens (launch counts of the run and of one sync-free decode
+     step: the routed experts on the grouped kernel at G=6; a traced
+     decode; cache bytes a token, 31104), and a prefill and a decode
+     step over an int8 latent cache (15768 bytes a token); (b) the contiguous scheduler, 4 requests
+     (the E-loop); (c) the paged scheduler over int8 latent pools, a
+     shared 512-token prefix (2 prefix hits); (d) at L=2 (dense + MoE)
+     the kernels against the plain versions, and at L=1 and published
+     widths Qwen1.5-MoE-A2.7B, Qwen3-30B-A3B and OLMoE-1B-7B, each with
+     a paged decode and verify, within 5% of max|logit| and phase 11's
+     tie rule. Phase 2 also holds qmm at DeepSeek-V2-Lite's products
+     (wkv_a N=576 at M=1, 4 and 1024), the grouped product at G=6 on the
+     1664-plane stacks (4.8 GB of codes), G=4 and G=8 (K=1408, 768), and
+     the attention kernels at Qwen3's 32:4 (check_moe_shapes).
 Exits non-zero on any failure (no CPU fallback). The last stdout line is
 {"ok": true, "device": {...}}; before it come a {"kernels": [...]} line
 and the nvidia-smi name/power-limit line.
@@ -1597,6 +1616,7 @@ def phase_kernels(torch, report):
     check_head_dim_256(torch, F, rows, results)
     check_head_dim_96(torch, F, rows, results)
     check_falcon_shapes(torch, F, rows, results)
+    check_moe_shapes(torch, F, rows, results)
     report["kernel_rows"] = rows
     return results
 
@@ -1821,6 +1841,99 @@ def check_falcon_shapes(torch, F, rows, results):
               record=False)
     check_qmm(torch, rows, results, shapes=[("falcon lm_head", 4544, 65024)],
               Ms=(2,), record=False)
+
+
+# phase 20's grouped products: (label, G routed experts, K, N, planes of
+# the flat stack). DeepSeek-V2-Lite's stacks hold all 26 MoE layers x 64
+# experts (1664 planes: the fused gate/up stack is 4.8 GB, so its last
+# planes lie past 2^31 bytes); the variants' one layer of (d).
+MOE_GROUPED = (("V2-Lite we_gateup", 6, 2048, 2 * 1408, 26 * 64),
+               ("V2-Lite we_down", 6, 1408, 2048, 26 * 64),
+               ("Qwen1.5-MoE we_gateup", 4, 2048, 2 * 1408, 60),
+               ("Qwen1.5-MoE we_down", 4, 1408, 2048, 60),
+               ("Qwen3-30B-A3B we_gateup", 8, 2048, 2 * 768, 128),
+               ("Qwen3-30B-A3B we_down", 8, 768, 2048, 128),
+               ("OLMoE we_gateup", 8, 2048, 2 * 1024, 64),
+               ("OLMoE we_down", 8, 1024, 2048, 64))
+
+
+def check_grouped_moe(torch, rows, label, G, K, N, n):
+    """qmm_int4_grouped at a B=1 decode step's shape (G routed experts, M=1)
+    on a flat int4 stack of n planes against qmatmul_grouped_plain: the
+    last plane, repeated slots and slot 0 (2% of max|plain|), timed
+    beside its byte bound, the plain version and torch.bmm on the G
+    planes dequantized beforehand."""
+    from turboinfer_tpu_torch.core.qtensor import QTensor, dequantize
+    from turboinfer_tpu_torch.kernels import qmm
+    gen = torch.Generator(device="cuda").manual_seed(20 + G)
+    g = 64
+    qt = rand_qtensor(torch, gen, (n,), K, N, 4, False, g)
+    worst = (0.0, 0.0)
+    cases = [list(range(n - G, n)), [n - 1] * G,
+             [0] + [(37 * j) % n for j in range(1, G)]]
+    x = torch.randn((G, 1, K), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    for sl in cases:
+        slots = torch.tensor(sl, dtype=torch.int32, device="cuda")
+        got = qmm.qmm_int4_grouped(x, qt, slots)
+        want = qmm.qmatmul_grouped_plain(x, qt, slots)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 2e-2 * want.float().abs().max().item()
+        need(err <= tol, f"qmm_int4_grouped {label} G={G} slots {sl}: "
+                         f"max_abs_err {err} > {tol}")
+        worst = max(worst, (err, tol))
+    sets = [torch.tensor([(41 * i + 13 * j) % n for j in range(G)],
+                         dtype=torch.int32, device="cuda") for i in range(20)]
+    ms = cuda_ms(torch, lambda i: qmm.qmm_int4_grouped(x, qt, sets[i]), 20)
+    plain_ms = cuda_ms(torch, lambda i: qmm.qmatmul_grouped_plain(
+        x, qt, sets[i]), 4, reps=3)
+    idx = sets[0].long()
+    wd = dequantize(QTensor(data=qt.data[idx], scales=qt.scales[idx],
+                            zero_points=None, bits=4, group_size=g,
+                            shape=(K, N)), torch.bfloat16)
+    lib_ms = cuda_ms(torch, lambda i: torch.bmm(x, wd), 20)
+    nbytes = G * qmm_bytes(K, N, g, 4, False) + G * (K + N) * 2
+    b, by = bound_ms(nbytes, 2.0 * G * K * N)
+    stack_gb = qt.data.numel() / 1e9
+    row = dict(kernel="qmm_int4_grouped", shape=f"{label} G={G} M=1 K={K} "
+               f"N={N} (stack of {n}, {stack_gb:.2f} GB of codes)",
+               max_abs_err=worst[0], tol=worst[1], ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=b, bound_by=by,
+               library_ratio=ms / lib_ms)
+    rows.append(row)
+    say(f"  qmm_int4_grouped {row['shape']}: max_abs_err={worst[0]:.4g} "
+        f"(tol {worst[1]:.3g}, last plane, repeats, slot 0) kernel_ms="
+        f"{ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}, "
+        f"x{ms / b:.2f}) library_ms={lib_ms:.4f} (bmm, dequantized planes)")
+    del qt, wd
+    torch.cuda.empty_cache()
+
+
+def check_moe_shapes(torch, F, rows, results):
+    """Phase 2's rows at phase 20's shapes: int4 qmm at DeepSeek-V2-Lite's
+    products (wq N=3072, wkv_a N=576, wo, the shared experts' ws_gate and
+    ws_down, the dense layer's w_gate N=10944 and w_down K=10944, the
+    head N=102400) at a B=1 decode (M=1), wkv_a and the expert planes
+    (we_gateup N=2816, we_down K=1408) at a 4-row E-loop step (M=4) and
+    a 1024-token prefill (M=1024); the grouped product at every model's
+    B=1 decode shape (MOE_GROUPED); decode, flash and paged attention at
+    Qwen3-30B-A3B's 32:4 heads of 128 (a group of 8)."""
+    check_qmm(torch, rows, results, shapes=[
+        ("ds wq", 2048, 3072), ("ds wkv_a", 2048, 576), ("ds wo", 2048, 2048),
+        ("ds ws_gate", 2048, 2816), ("ds ws_down", 2816, 2048),
+        ("ds w_gate", 2048, 10944), ("ds w_down", 10944, 2048),
+        ("ds lm_head", 2048, 102400)], Ms=(1,), record=False)
+    check_qmm(torch, rows, results, shapes=[
+        ("ds wkv_a", 2048, 576), ("ds we_gateup", 2048, 2816),
+        ("ds we_down", 1408, 2048)], Ms=(4, 1024), record=False)
+    for spec in MOE_GROUPED:
+        check_grouped_moe(torch, rows, *spec)
+    lens = [1, 2048, 1024, 1025, 777, 129, 1500, 2047]
+    check_decode(torch, F, rows, results, 8, 32, 4, 2048, 128, lens, False)
+    check_flash(torch, F, rows, results, 1, 32, 4, 1024, 128, [1024], False)
+    check_paged(torch, F, rows, results, 8, 32, 4, 128, 256, 65, lens[:4] +
+                [1000, 64, 999, 300], 1, False, T=2048)
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -2649,18 +2762,24 @@ class SharedRouting:
     from bf16), a bf16 ulp in h can swap a routed expert: a discontinuity
     of the model, not an error of the kernels. mod is models.gptoss or
     models.moe: route(config, h, *rest), router_logits(h, *rest) and
-    gates_at(config, logits, top_i)."""
+    gates_at(config, logits, top_i); `name` is the routing function's
+    name in mod."""
 
-    def __init__(self, mod):
-        self.mod, self.route = mod, mod.route
+    def __init__(self, mod, name: str = "route"):
+        self.mod, self.name, self.route = mod, name, getattr(mod, name)
         self.chosen, self.flips, self.tokens = [], 0, 0
 
     def __enter__(self):
-        self.mod.route = self._route
+        setattr(self.mod, self.name, self._route)
         return self
 
     def __exit__(self, *exc):
-        self.mod.route = self.route
+        setattr(self.mod, self.name, self.route)
+
+    def gates(self, config, h, want, *rest):
+        """The CPU's own gates at the experts `want`."""
+        return self.mod.gates_at(config, self.mod.router_logits(h, *rest),
+                                 want)
 
     def _route(self, config, h, *rest):
         gates, top_i = self.route(config, h, *rest)
@@ -2671,8 +2790,7 @@ class SharedRouting:
         same = want.sort(-1).values == top_i.sort(-1).values
         self.flips += int((~same).any(-1).sum())
         self.tokens += top_i.shape[0] * top_i.shape[1]
-        logits = self.mod.router_logits(h, *rest)
-        return self.mod.gates_at(config, logits, want), want
+        return self.gates(config, h, want, *rest), want
 
 
 def kernels_vs_plain(torch, mod, cfg, params, step_want, label: str,
@@ -2803,8 +2921,8 @@ def phase_mixtral(torch, report):
     from turboinfer_tpu_torch.kernels.dispatch import prepare_params
     from turboinfer_tpu_torch.loader.synthetic import \
         create_synthetic_quantized_model
-    # every width; 4 of the 32 layers, so phases 1-19 fit the time limit
-    cfg = mixtral_config(num_layers=4, max_seq_len=2048)
+    # every width; 2 of the 32 layers, so phases 1-20 fit the time limit
+    cfg = mixtral_config(num_layers=2, max_seq_len=2048)
     L, E, T = cfg.num_layers, cfg.num_experts, cfg.max_seq_len
     say(f"phase 8: Mixtral-8x7B int4 g=64, L={L} (of 32), bf16, synthetic on "
         "the device")
@@ -3084,15 +3202,17 @@ def phase_gptoss(torch, report):
 # -- phase 10 --------------------------------------------------------------
 
 def paged_vs_plain(torch, cfg, params, kind, PAGE=64, T=256,
-                   lens=(1, 70, 130, 250), decided_agree=False):
+                   lens=(1, 70, 130, 250), decided_agree=False, mod=None):
     """(d): forward_paged_decode (G=1) and forward_paged_verify (G=5) over
     an int8 (with scale pages), fp8 or (kind None) model-dtype pool of
     random encoded K/V, rows at `lens`, kernels on the card against the
     plain versions on the CPU on a copy of the same pool: logits within
     5% of max|logit|, greedy agreement 1.0 (decided_agree: equal but in
-    tie rows, see logits_agree)."""
+    tie rows, see logits_agree). mod: the model module (default
+    models/llama.py)."""
     from turboinfer_tpu_torch.engine import paged_cache
     from turboinfer_tpu_torch.models import llama
+    mod = mod or llama
     from turboinfer_tpu_torch.models.common import params_to
     B, npg = len(lens), T // PAGE
     g = torch.Generator(device="cuda").manual_seed(13)
@@ -3124,9 +3244,9 @@ def paged_vs_plain(torch, cfg, params, kind, PAGE=64, T=256,
             sc = {} if scales[0] is None else dict(
                 k_scale_pages=scales[0].to(dev).clone(),
                 v_scale_pages=scales[1].to(dev).clone())
-            lg = llama.forward_paged_verify(p, cfg, toks.to(dev), kp, vp,
-                                            table.to(dev), lens.to(dev),
-                                            **sc)[0]
+            lg = mod.forward_paged_verify(p, cfg, toks.to(dev), kp, vp,
+                                          table.to(dev), lens.to(dev),
+                                          **sc)[0]
             res.append(lg.float().cpu().reshape(B * G, -1))
         out[f"paged_G{G}"], ties = logits_agree(
             torch, *res, f"L={cfg.num_layers} paged {kind or 'model'} "
@@ -3253,11 +3373,12 @@ def phase_kvcache(torch, report):
 
 def qtensor_bytes(params, expert_share: float = 1.0) -> int:
     """Bytes of the QTensors of a parameter tree (codes, scales, zero
-    points): what one decode step must read, with the expert stacks
-    ("we_*") counted at expert_share (k of E experts at B=1)."""
+    points; DeepSeek's "dense_layers" group too): what one decode step
+    must read, with the expert stacks ("we_*") counted at expert_share
+    (k of E experts at B=1)."""
     from turboinfer_tpu_torch.core.qtensor import QTensor
     total = 0
-    for tree in (params["layers"], params):
+    for tree in (params["layers"], params.get("dense_layers", {}), params):
         for k, v in tree.items():
             if isinstance(v, QTensor):
                 total += v.nbytes() * (expert_share if k.startswith("we_")
@@ -3284,20 +3405,22 @@ def vs_plain_routed(torch, mod, cfg, params, step_want, label, seed, out,
 def phase_int8_weights(torch, report):
     """Phase 11: int8 and zero-point weights through the qmm kernels. (a)
     the 7B at the default QuantizationConfig() (int8, symmetric, g=64),
-    L=4 of 32 (a depth cut, so phase 19 fits the time limit;
+    L=2 of 32 (a depth cut, so phases 19-20 fit the time limit;
     the kernels' shapes do not depend on it), through generate_batch as
     phase 3 (B=8, prompts 512, 128 new, greedy and sampled; every product
     on qmm_int8, traced); (b) the same weights through
     PagedContinuousScheduler, 8 requests, 4 sharing a 512-token prefix;
     (c) Mixtral-8x7B int8 g=64 (gate and up experts drawn fused: the
-    split stacks and their fused copy would not fit side by side), L=4
+    split stacks and their fused copy would not fit side by side), L=2
     of 32 (the same cut), B=1 prompt 1000, 64 new, decode through
     qmm_int8_grouped, one step sync-free, peak < 70 GiB; (d) bf16
     weights drawn on the card and quantized there, kernels against plain
     versions: at L=1 the 7B int8, int8 with zero points and int4 with
-    zero points, at L=1 Mixtral int4 with zero points (grouped B=1,
-    E-loop B=2), at L=2 GPT-OSS-20B with int8 attention and head
-    (K=2880, wo's 64-column tail), all within 5% of max|logit| and with
+    zero points, at L=1 Mixtral int4 with zero points (B=1: the E-loop
+    prefill, the grouped decode; phase 8 (d) holds the B=2 E-loop
+    decode), at L=2 GPT-OSS-20B with int8 attention and head (K=2880,
+    wo's 64-column tail; B=1, phase 9 (d) holds B=2; both B=1-only so
+    phase 20 fits the time limit), all within 5% of max|logit| and with
     every greedy token equal but in at most MAX_TIE_ROWS tie rows (see
     kernels_vs_plain)."""
     from turboinfer_tpu_torch import kernels
@@ -3314,7 +3437,7 @@ def phase_int8_weights(torch, report):
     qdef = QuantizationConfig()
     need(qdef.type == QuantType.INT8 and qdef.symmetric
          and qdef.group_size == 64, f"default QuantizationConfig {qdef}")
-    L, B, S, NEW, T = 4, 8, 512, 128, 1024
+    L, B, S, NEW, T = 2, 8, 512, 128, 1024
     say(f"phase 11: int8 and zero-point weights; (a) 7B shape at the default "
         f"QuantizationConfig() (int{qdef.bits} g={qdef.group_size}, "
         f"symmetric), L={L}, B={B}, prompt {S}, {NEW} new tokens")
@@ -3364,7 +3487,7 @@ def phase_int8_weights(torch, report):
     gc.collect()
     torch.cuda.empty_cache()
     # (c) Mixtral-8x7B int8 at B=1
-    mcfg = mixtral_config(num_layers=4, max_seq_len=2048)
+    mcfg = mixtral_config(num_layers=2, max_seq_len=2048)
     ML, E = mcfg.num_layers, mcfg.num_experts
     say(f"  (c) Mixtral-8x7B int8 g=64, L={ML}, B=1, prompt 1000, 64 new")
     torch.cuda.reset_peak_memory_stats()
@@ -3435,7 +3558,7 @@ def phase_int8_weights(torch, report):
     vs_plain_routed(torch, moe, mcfg2, params, lambda B: {
         "qmm_int4_grouped": 2 * 1 if B == 1 else 0,
         "qmm_int4": 2 * 1 + 1 + (0 if B == 1 else 2 * E * 1)},
-        "Mixtral int4 zp", 16, out, decided_agree=True)
+        "Mixtral int4 zp", 16, out, decided_agree=True, batches=((1, [61]),))
     del params
     torch.cuda.empty_cache()
     gcfg = gptoss20b_config(num_layers=2, max_seq_len=256)
@@ -3444,7 +3567,7 @@ def phase_int8_weights(torch, report):
         QuantizationConfig(type=QuantType.INT8, group_size=64)))
     vs_plain_routed(torch, gptoss, gcfg, params, lambda B: {
         "decode_attention": 2, "qmm_int8": 2 * 2 + 1}, "GPT-OSS int8", 12,
-        out, decided_agree=True)
+        out, decided_agree=True, batches=((1, [61]),))
     del params
     torch.cuda.empty_cache()
     report["int8_weights"] = out
@@ -3764,9 +3887,11 @@ def phase_gemma2(torch, report):
     32:16 heads of 128, FFN 36864 GeGLU, vocab 256000, 8192 positions,
     a 4096-key window on every even layer, softcaps 50 / 30, attn_scale
     144**-0.5, (1 + w) and sandwich norms, tied embeddings), int4 g=64,
-    bf16, synthetic weights from a seed, 4 of its 46 layers (a depth
-    cut, so phases 14-17 fit the time limit; every kernel shape and
-    both kinds of layer stay: the windowed and global layers alternate): (a) generate_batch B=2, prompts of 4500
+    bf16, synthetic weights from a seed, 2 of its 46 layers (a depth
+    cut, so phases 14-20 fit the time limit; every kernel shape and
+    both kinds of layer stay: layer 0 windowed, layer 1 global; the
+    2-layer draft of (c) is then the whole target, and (c) checks that
+    rounds ran): (a) generate_batch B=2, prompts of 4500
     and 5000 (past the window), 64 new tokens, max_seq 8192, launch
     counts of the run and of one decode step, a traced prefill and 8
     traced decode steps; (b) B=8, prompts
@@ -3781,7 +3906,7 @@ def phase_gemma2(torch, report):
     from turboinfer_tpu_torch.loader.synthetic import \
         create_synthetic_quantized_model
     from turboinfer_tpu_torch.models import llama
-    cfg = gemma2_27b_config(num_layers=4)
+    cfg = gemma2_27b_config(num_layers=2)
     L, T = cfg.num_layers, cfg.max_seq_len
     say(f"phase 13: Gemma-2-27B int4 g=64, L={L} (of 46), hidden "
         f"{cfg.hidden_size}, Hq={cfg.num_heads} Hkv={cfg.kv_heads} "
@@ -3795,7 +3920,7 @@ def phase_gemma2(torch, report):
     params = prepare_params(create_synthetic_quantized_model(
         cfg, bits=4, group_size=64, device="cuda", seed=0).params)
     torch.cuda.synchronize()
-    out = dict(config="gemma-2-27b int4 g=64 L=4 of 46 bf16 max_seq 8192",
+    out = dict(config="gemma-2-27b int4 g=64 L=2 of 46 bf16 max_seq 8192",
                build_s=time.perf_counter() - t0,
                build_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                allocated_gib=torch.cuda.memory_allocated() / 2**30,
@@ -3986,8 +4111,8 @@ def phase_phi3(torch, report):
     hidden 3072, 32:32 heads of 96, FFN 8192 SiLU, vocab 32064, 4096
     positions, a 2047-key window on every layer, untied embeddings),
     int4 g=64, bf16, synthetic weights from a seed, 16 of the 32 layers
-    (a depth cut so phase 19 fits the time limit, as phases 17 and 18;
-    phase 16 runs all 32) at published widths: (a) generate_batch B=2, prompts of 3000
+    (a depth cut so phase 19 fits the time limit, as phase 18; phase 17
+    runs 8, phase 16 all 32) at published widths: (a) generate_batch B=2, prompts of 3000
     and 3500
     (past the window; bucket 4096), 64 new tokens (launch counts of the
     run and of one decode step, a traced prefill and 8 traced decode
@@ -4661,7 +4786,7 @@ def loader_lora(torch, kernels, work, out):
     from turboinfer_tpu_torch.loader.synthetic import \
         create_synthetic_quantized_model
     from turboinfer_tpu_torch.models import llama
-    L, B, S, NEW, T, R = 16, 8, 512, 64, 1024, 16
+    L, B, S, NEW, T, R = 8, 8, 512, 64, 1024, 16
     cfg = llama7b_config(num_layers=L, max_seq_len=T)
     base = os.path.join(work, "llama7b-int4.tinq")
     ad = os.path.join(work, "adapter")
@@ -4817,7 +4942,7 @@ def phase_loader(torch, report):
     .tinq and load_engine of it: the same QTensors and tokens; (c) a
     4-layer F16 GGUF under llama.cpp's names against the in-memory
     params (5% rule, ties), and the native GGML dequantizers against
-    numpy at w_gateup's size; (d) the 7B int4 L=16 as .tinq under an
+    numpy at w_gateup's size; (d) the 7B int4 L=8 as .tinq under an
     r=16 PEFT adapter on all seven modules through load_engine(lora=):
     decode ms/step with and without it, interleaved; the paged
     scheduler's tokens against generate_batch's; L=2 kernels against
@@ -5253,7 +5378,7 @@ def text_vs_plain(torch, cfg, tok, gen, out):
 
 def phase_text(torch, report):
     """Phase 17: text in and out at Phi-3-mini-4k's full width (int4
-    g=64, 16 of the 32 layers, bf16 cache, max_seq 4096, synthetic weights from
+    g=64, 8 of the 32 layers, bf16 cache, max_seq 4096, synthetic weights from
     a seed) with the Phi-3-style tokenizer files this script writes: (a)
     from_hf_dir reads them (an HFTokenizer with Phi-3's chat template; a
     non-ASCII round trip); (b) engine.chat on a system/user/assistant/user
@@ -5285,9 +5410,8 @@ def phase_text(torch, report):
     from turboinfer_tpu_torch.kernels.dispatch import prepare_params
     from turboinfer_tpu_torch.loader.synthetic import \
         create_synthetic_quantized_model
-    # every width; 16 of the 32 layers (as phase 15), so phases 1-19 fit
-    # the time limit
-    cfg = phi3_mini_4k_config(num_layers=16)
+    # every width; 8 of the 32 layers, so phases 1-20 fit the time limit
+    cfg = phi3_mini_4k_config(num_layers=8)
     L, T = cfg.num_layers, cfg.max_seq_len
     say(f"phase 17: text in and out, Phi-3-mini-4k int4 g=64, L={L}, max_seq "
         f"{T}, bf16 cache; jinja2 {jinja2.__version__}")
@@ -5954,7 +6078,7 @@ def phase_serve(torch, report):
     from turboinfer_tpu_torch.kernels.dispatch import prepare_params
     from turboinfer_tpu_torch.loader.synthetic import \
         create_synthetic_quantized_model
-    # every width; 16 of the 32 layers (as phase 15), so phases 1-19 fit
+    # every width; 16 of the 32 layers (as phase 15), so phases 1-20 fit
     # the time limit
     cfg = phi3_mini_4k_config(num_layers=16)
     L, T = cfg.num_layers, cfg.max_seq_len
@@ -6192,10 +6316,302 @@ def phase_falcon(torch, report):
     return launches
 
 
+# -- phase 20 --------------------------------------------------------------
+
+def deepseek_expected(cfg, U: int, prefills: int, decodes: int,
+                      grouped: bool):
+    """Launches of DeepSeek's forwards with int4 weights: per forward the
+    attention products of every layer (wq, or wq_a and wq_b; wkv_a; wo),
+    the dense group's w_gate, w_up and w_down, the MoE layers' shared
+    experts (ws_gate, ws_up, ws_down) and the head, on qmm_int4; the
+    routed experts U*E a MoE layer on qmm_int4 (the E-loop: every prefill,
+    and decode at B > 1) or U a MoE layer on qmm_int4_grouped (B=1
+    decode); no attention or cache kernel: MLA and the latent writes are
+    torch, as the JAX package runs them in jnp."""
+    kd = cfg.first_k_dense_replace
+    Lm, E = cfg.num_layers - kd, cfg.num_experts
+    attn = (2 if cfg.q_lora_rank else 1) + 2
+    shared = 3 if cfg.shared_expert_size else 0
+    per_fwd = kd * (attn + 3) + Lm * (attn + shared) + 1
+    loop = U * E * Lm
+    return want_counts(
+        qmm_int4=per_fwd * (prefills + decodes) + loop * prefills
+        + (0 if grouped else loop * decodes),
+        qmm_int4_grouped=U * Lm * decodes if grouped else 0)
+
+
+class SharedDeepSeekRouting(SharedRouting):
+    """SharedRouting for models/deepseek.py's _route(config, h, router,
+    bias): the router bias only selects, so the gates come from the
+    router logits alone."""
+
+    def __init__(self):
+        from turboinfer_tpu_torch.models import deepseek
+        super().__init__(deepseek, "_route")
+
+    def gates(self, config, h, want, router, bias):
+        from turboinfer_tpu_torch.models import moe
+        return self.mod.gates_at(config, moe.router_logits(h, router), want)
+
+
+def deepseek_schedulers(torch, kernels, params, cfg, gen, U, report_out):
+    """(b) and (c) of phase 20: the contiguous scheduler (4 slots) and the
+    paged one over int8 latent pools (4 slots, 256-token pages), each
+    answering 4 greedy requests of 300-900 tokens, 4 new; in (c) two of
+    them share a 512-token prefix, so the second hits the first's 2
+    full pages. Every step runs 4 rows, so the experts take the E-loop;
+    no attention, cache or paged kernel launches (MLA is torch); no page
+    leaks."""
+    from turboinfer_tpu_torch.config import InferenceConfig
+    from turboinfer_tpu_torch.engine.scheduler import (
+        ContinuousBatchingScheduler, PagedContinuousScheduler)
+    T, NEW, PAGE = cfg.max_seq_len, 4, 256
+
+    def rand(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+    system = rand(2 * PAGE)
+    runs = (("(b) contiguous", "model", [rand(300), rand(700), rand(500),
+                                          rand(900)]),
+            ("(c) paged int8", "int8", [system + rand(40), system + rand(200),
+                                        rand(600), rand(350)]))
+    for label, kv, reqs in runs:
+        icfg = InferenceConfig(max_seq_len=T, temperature=0.0, seed=0,
+                               eos_token_id=-1, kv_cache_dtype=kv)
+        paged = label.startswith("(c)")
+        sched = (PagedContinuousScheduler(params, cfg, icfg, batch_slots=4,
+                                          page_size=PAGE, device="cuda")
+                 if paged else ContinuousBatchingScheduler(
+                     params, cfg, icfg, batch_slots=4, device="cuda"))
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rids = [sched.submit(r, NEW) for r in reqs]
+        res = sched.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        need(all(res[i].finished and res[i].stop_reason == "length"
+                 and len(res[i].tokens) == len(r) + NEW
+                 and all(0 <= t < cfg.vocab_size for t in res[i].tokens)
+                 for i, r in zip(rids, reqs)), f"{label}: wrong tokens")
+        need(counts["qmm_int4"] > 0 and counts["qmm_int4_grouped"] == 0
+             and all(v == 0 for k, v in counts.items()
+                     if k not in ("qmm_int4", "qmm_int4_grouped")),
+             f"{label}: launches {counts}")
+        out = dict(requests=len(reqs), new_tokens=len(reqs) * NEW,
+                   wall_s=wall, req_per_s=len(reqs) / wall,
+                   tok_per_s=len(reqs) * NEW / wall, launches=counts,
+                   expert_loop_per_layer=U * cfg.num_experts)
+        extra = ""
+        if paged:
+            c = sched.cache
+            need(c.k_pages.dtype == torch.int8
+                 and tuple(c.k_pages.shape[2:]) == (1, PAGE, cfg.kv_lora_rank)
+                 and tuple(c.v_pages.shape[2:]) == (1, PAGE,
+                                                    cfg.qk_rope_head_dim)
+                 and c.k_scale_pages is not None,
+                 f"(c) latent pools {c.k_pages.shape} {c.v_pages.shape}")
+            need(sched.pool.hits == 2, f"(c) prefix hits {sched.pool.hits}, "
+                 "want 2 (the shared prefix's 2 full pages)")
+            need(sched.pool.live_pages == 1
+                 and sched.pool.available == sched.pool.num_pages - 1,
+                 f"(c) pages leaked: {sched.pool.live_pages} live")
+            out.update(prefix_hits=sched.pool.hits,
+                       prefix_misses=sched.pool.misses)
+            extra = (f"; int8 latent pools k {tuple(c.k_pages.shape)} v "
+                     f"{tuple(c.v_pages.shape)}; prefix hits "
+                     f"{sched.pool.hits}; no page leaked")
+        say(f"  {label} scheduler: {len(reqs)} requests "
+            f"({min(map(len, reqs))}-{max(map(len, reqs))} tokens, {NEW} "
+            f"new) in {wall:.3f} s, {out['req_per_s']:.2f} req/s, "
+            f"{out['tok_per_s']:.1f} tok/s; launches {counts}{extra}")
+        report_out[label] = out
+        del sched
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def moe_variants_vs_plain(torch, report_out):
+    """(d) of phase 20 for the MoE variants at L=1 (a depth cut: one kind
+    of layer) and published widths, int4 g=64 from a seed, max_seq 256:
+    Qwen1.5-MoE-A2.7B (q/k/v biases, 60 experts top-4 with raw gates, the
+    shared expert and its gate), Qwen3-30B-A3B (32:4 heads, per-head q/k
+    norms, 128 experts top-8) and OLMoE-1B-7B (q/k norms over the whole
+    projection, [Hq*D] weights as the checkpoint ships them; 64 experts
+    top-8): the contiguous prefill and decode step at B=1 (the grouped
+    kernel) and a paged decode (G=1, the grouped kernel) and verify (G=5,
+    the E-loop) over a 256-token pool, kernels on the card against the
+    plain versions on the CPU, the CPU taking the card's experts
+    (SharedRouting): within 5% of max|logit| and phase 11's tie rule."""
+    from turboinfer_tpu_torch.config import (olmoe_1b_7b_config,
+                                             qwen1_5_moe_a2_7b_config,
+                                             qwen3_30b_a3b_config)
+    from turboinfer_tpu_torch.kernels.dispatch import prepare_params
+    from turboinfer_tpu_torch.loader.synthetic import \
+        create_synthetic_quantized_model
+    from turboinfer_tpu_torch.models import moe
+    for label, fn in (("Qwen1.5-MoE-A2.7B", qwen1_5_moe_a2_7b_config),
+                      ("Qwen3-30B-A3B", qwen3_30b_a3b_config),
+                      ("OLMoE-1B-7B", olmoe_1b_7b_config)):
+        cfg = fn(num_layers=1, max_seq_len=256)
+        L = cfg.num_layers
+        params = create_synthetic_quantized_model(
+            cfg, bits=4, group_size=64, device="cuda", seed=3).params
+        lw = params["layers"]
+        g = torch.Generator(device="cuda").manual_seed(4)
+        if cfg.qk_norm:
+            whole = cfg.architecture == "olmoe"
+            for k, h in (("q_norm", cfg.num_heads), ("k_norm", cfg.kv_heads)):
+                n = h * cfg.head_dim_ if whole else cfg.head_dim_
+                lw[k] = (1.0 + 0.2 * torch.randn((L, n), generator=g,
+                                                 device="cuda")).to(
+                    torch.bfloat16)
+        params = prepare_params(params)
+        with SharedRouting(moe) as shared:
+            res = report_out[f"vs_plain {label}"] = kernels_vs_plain(
+                torch, moe, cfg, params,
+                lambda B: {"qmm_int4_grouped": 2 * L, "decode_attention": L},
+                label, 20, decided_agree=True, batches=((1, [61]),))
+            res.update(paged_vs_plain(torch, cfg, params, None, PAGE=64,
+                                      T=256, lens=(200,), decided_agree=True,
+                                      mod=moe))
+        bound = FLIP_SHARE * shared.tokens
+        res["routing_flips"] = [shared.flips, shared.tokens]
+        say(f"  (d) {label}: {shared.flips} of {shared.tokens} layer x token "
+            f"routings differed (bound {bound:.1f})")
+        need(shared.flips <= bound, f"{label} (d): {shared.flips} of "
+             f"{shared.tokens} routings differ, beyond {bound:.1f}")
+        del params, lw
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_deepseek(torch, report):
+    """Phase 20: DeepSeek-V2-Lite (config.deepseek_v2_lite_config: 27
+    layers, hidden 2048, 16 heads, MLA with kv_lora_rank 512 and
+    nope/rope/v head dims 128/64/128, 64 experts top-6 of width 1408 plus
+    two shared experts, the first layer dense, vocab 102400) through
+    models/deepseek.py at full width and depth, int4 g=64, bf16,
+    synthetic weights from a seed (gate and up drawn fused), max_seq
+    2048 (softmax chunks of 512 keys): (a) generate_batch B=1, a
+    1024-token prompt, 64 new tokens (launch counts of the run and of
+    one decode step taken under sync debug mode "error": the routed
+    experts on the grouped kernel, G=6; a traced decode; prefill ms,
+    ms/step wall and device, kernels a step; cache bytes a token, 31104
+    exactly), then a prefill and a decode step over an int8 latent cache
+    (15768 bytes a token); (b) the contiguous scheduler and (c) the paged one over int8
+    latent pools with a shared prefix (deepseek_schedulers); (d) at L=2
+    (the dense layer and one MoE layer), the kernels against the plain
+    versions (B=1 prefill and decode step) under shared routing, then
+    the MoE variants at L=1 (moe_variants_vs_plain)."""
+    from turboinfer_tpu_torch import kernels
+    from turboinfer_tpu_torch.config import (InferenceConfig,
+                                             deepseek_v2_lite_config)
+    from turboinfer_tpu_torch.engine.engine import InferenceEngine
+    from turboinfer_tpu_torch.kernels.dispatch import prepare_params
+    from turboinfer_tpu_torch.loader.synthetic import \
+        create_synthetic_quantized_model
+    from turboinfer_tpu_torch.models import deepseek
+    T = 2048
+    cfg = deepseek_v2_lite_config(max_seq_len=T)
+    L, E = cfg.num_layers, cfg.num_experts
+    say(f"phase 20: DeepSeek-V2-Lite int4 g=64, L={L} (1 dense + {L - 1} "
+        f"MoE), hidden {cfg.hidden_size}, {cfg.num_heads} heads, MLA "
+        f"kv_lora_rank {cfg.kv_lora_rank} (softmax chunks of "
+        f"{deepseek.chunk_size(T)}), {E} experts top-"
+        f"{cfg.experts_per_token} + {cfg.shared_expert_size} shared, "
+        f"V={cfg.vocab_size}, max_seq {T}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = prepare_params(create_synthetic_quantized_model(
+        cfg, bits=4, group_size=64, device="cuda", seed=0,
+        fused_experts=True).params)
+    torch.cuda.synchronize()
+    U = 2 if "we_gateup" in params["layers"] else 3
+    out = dict(config=f"deepseek-v2-lite int4 g=64 L={L} E={E} top-6 bf16 "
+               f"max_seq {T}", U=U, build_s=time.perf_counter() - t0,
+               build_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               allocated_gib=torch.cuda.memory_allocated() / 2**30,
+               weight_bytes=qtensor_bytes(params))
+    say(f"  model built in {out['build_s']:.1f} s: int4 weights "
+        f"{out['weight_bytes'] / 1e9:.2f} GB, {out['allocated_gib']:.2f} GiB "
+        f"allocated, build peak {out['build_peak_gib']:.2f} GiB; {U} expert "
+        f"products an expert")
+    gen = torch.Generator().manual_seed(20)
+    prompt = torch.randint(1, cfg.vocab_size, (1024,), generator=gen).tolist()
+    for kv in ("model", "int8"):
+        eng = InferenceEngine(params, cfg, InferenceConfig(
+            max_seq_len=T, temperature=0.0, seed=0, eos_token_id=-1,
+            measure_ttft=True, kv_cache_dtype=kv), device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        path_logits(torch, eng, [prompt])
+        stats = dict(path_launches=kernels.launch_counts())
+        want = deepseek_expected(cfg, U, 1, 1, True)
+        need(stats["path_launches"] == want, f"(a) {kv}: a prefill and a "
+             f"decode step launched {stats['path_launches']}, want {want}")
+        if kv == "model":
+            res, counts, run = run_counted(torch, kernels, eng, [prompt], 64,
+                                           "(a) B=1 greedy")
+            want = deepseek_expected(cfg, U, 1, 63, True)
+            need(counts == want, f"(a): launch counts {counts} != {want}")
+            need(len(res[0].tokens) == 1024 + 64, "(a): wrong tokens")
+            stats.update(run)
+        stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        cache = eng._take_cache(1)
+        stats["cache_bytes_per_token"] = cache_bytes(cache) / T
+        eng._put_cache(1, cache)
+        per_tok = (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * L * (
+            2 if kv == "model" else 1) + (8 * L if kv == "int8" else 0)
+        need(stats["cache_bytes_per_token"] == per_tok == {
+            "model": 31104, "int8": 15768}[kv],
+             f"(a) {kv}: cache bytes a token {stats['cache_bytes_per_token']}")
+        if kv == "model":
+            stats["step_launches"] = sync_free_step(
+                torch, kernels, eng, prompt,
+                deepseek_expected(cfg, U, 0, 1, True))
+            stats["decode_trace"] = trace_decode(torch, eng, [prompt])
+        say(f"  (a) {kv} cache: launches as expected; "
+            f"{stats['cache_bytes_per_token']:.0f} bytes a token; peak "
+            f"{stats['peak_gib']:.2f} GiB")
+        out[f"(a) {kv}"] = stats
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    deepseek_schedulers(torch, kernels, params, cfg, gen, U, out)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg2 = deepseek_v2_lite_config(num_layers=2, max_seq_len=256)
+    p2 = prepare_params(create_synthetic_quantized_model(
+        cfg2, bits=4, group_size=64, device="cuda", seed=1,
+        fused_experts=True).params)
+    with SharedDeepSeekRouting() as shared:
+        res = out["vs_plain DeepSeek-V2-Lite"] = kernels_vs_plain(
+            torch, deepseek, cfg2, p2, lambda B: deepseek_expected(
+                cfg2, U, 0, 1, B == 1), "DeepSeek-V2-Lite", 20,
+            decided_agree=True, batches=((1, [61]),))
+    res["routing_flips"] = [shared.flips, shared.tokens]
+    need(shared.flips <= FLIP_SHARE * shared.tokens,
+         f"DeepSeek (d): {shared.flips} of {shared.tokens} routings differ")
+    say(f"  (d) DeepSeek-V2-Lite: {shared.flips} of {shared.tokens} layer x "
+        "token routings differed")
+    del p2
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_variants_vs_plain(torch, out)
+    report["deepseek"] = out
+    return out["(a) model"]["launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19")
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
+                            "19,20")
     ap.add_argument("--json", default=None,
                     help="also write every measurement to this JSON file")
     args = ap.parse_args(argv)
@@ -6276,6 +6692,7 @@ def main(argv=None) -> int:
         text_launches = run(17, phase_text, {})
         serve_launches = run(18, phase_serve, {})
         falcon_launches = run(19, phase_falcon, {})
+        deepseek_launches = run(20, phase_deepseek, {})
     except (SmokeError, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         if args.json:
@@ -6301,7 +6718,9 @@ def main(argv=None) -> int:
     # beam search, scoring and constrained serving), launches_serve from
     # phase 18 (a)-(c) (the HTTP server, chunked admission and
     # speculative_generate), launches_falcon from phase 19 (a) (Falcon-7B
-    # through the NeoX body: every decode on the group-71 decode kernel)
+    # through the NeoX body: every decode on the group-71 decode kernel),
+    # launches_deepseek from phase 20 (a) (DeepSeek-V2-Lite B=1, every
+    # decode step's routed experts on the grouped kernel at G=6)
     kern = []
     for name in kernels.wrappers():
         r = results.get(name, {})
@@ -6327,6 +6746,7 @@ def main(argv=None) -> int:
                      "launches_text": text_launches.get(name, 0),
                      "launches_serve": serve_launches.get(name, 0),
                      "launches_falcon": falcon_launches.get(name, 0),
+                     "launches_deepseek": deepseek_launches.get(name, 0),
                      "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
                      "plain_ms": r.get("plain_ms"),
                      "bound_ms": r.get("bound_ms"),

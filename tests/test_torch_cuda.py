@@ -1905,15 +1905,18 @@ def test_cuda_constrained_bias_row_matches_host_mask():
 TIE_ULPS = 2
 
 
-def _tied_or_equal(cfg, params, got, want, prompt_lens, max_ties=1):
+def _tied_or_equal(cfg, params, got, want, prompt_lens, max_ties=1,
+                   kv_dtype=None):
     """got == want row for row, except at most max_ties rows whose first
     difference is a tie: the card's logits at that prefix put both tokens
     within TIE_ULPS bf16 ulps of max|logit| (two paths through different
-    kernels and batch shapes). Prints each tie row and returns their
-    count."""
+    kernels and batch shapes; the logits from cfg's model module, read
+    back from a cache of kv_dtype when given, as the runs read theirs).
+    Prints each tie row and returns their count."""
     import math
     from turboinfer_tpu_torch.kernels.dispatch import prepare_params
-    from turboinfer_tpu_torch.models import llama
+    from turboinfer_tpu_torch.models import registry
+    llama = registry.get_model(cfg.architecture)
     params = prepare_params(params)
     ties = 0
     for b, (g, w, n) in enumerate(zip(got, want, prompt_lens)):
@@ -1923,7 +1926,12 @@ def _tied_or_equal(cfg, params, got, want, prompt_lens, max_ties=1):
         i = next(j for j in range(len(w)) if g[j] != w[j])
         assert i >= n
         x = torch.tensor([w[:i]], dtype=torch.int32, device="cuda")
-        lg = llama.forward_no_cache(params, cfg, x)[0, -1].float()
+        if kv_dtype is None:
+            lg = llama.forward_no_cache(params, cfg, x)[0, -1].float()
+        else:
+            cache = llama.init_cache(cfg, 1, max_seq=i, dtype=kv_dtype,
+                                     device="cuda")
+            lg = llama.forward(params, cfg, x, cache)[0][0, -1].float()
         ref = lg.abs().max().item()
         ulp = 2.0 ** -7 * 2.0 ** math.floor(math.log2(ref))
         gap = abs(lg[g[i]].item() - lg[w[i]].item())
@@ -2317,3 +2325,199 @@ def test_cuda_neox_family_kernels_vs_plain(arch):
     for i in (0, 1):
         a, b = out["cuda"][i], out["cpu"][i]
         assert (a - b).abs().max().item() <= 5e-2 * b.abs().max().item()
+
+
+# -- the MoE variants and DeepSeek (phase 20's shapes) ---------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,K,N,n", [(6, 2048, 2816, 64), (6, 1408, 2048, 64),
+                                     (4, 2048, 2816, 60), (4, 1408, 2048, 60),
+                                     (8, 2048, 1536, 128), (8, 768, 2048, 128),
+                                     (8, 1024, 2048, 64)])
+def test_cuda_qmm_grouped_moe_widths_match_plain(G, K, N, n):
+    """The grouped GEMV at the routed experts of a B=1 decode step:
+    DeepSeek-V2-Lite (G=6, K=2048 and 1408), Qwen1.5-MoE (G=4),
+    Qwen3-30B-A3B (G=8, K=768) and OLMoE (G=8, K=1024): the last G
+    planes, every group on one plane, and slot 0, against the plain
+    version; repeat calls bit-identical; the arrival counters back at
+    zero (the scratch that ti_qmm_grouped_workspace sizes holds every
+    group's split partials)."""
+    _need_cuda()
+    from turboinfer_tpu_torch.kernels import _build
+    gen = torch.Generator(device="cuda").manual_seed(G * K + n)
+    qt = _expert_stack(gen, n, K, N)
+    x = torch.randn((G, 1, K), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    lib = _build.library()
+    assert lib.ti_qmm_grouped_workspace(G, 1, K, N, 4) >= 0
+    for sl in (list(range(n - G, n)), [n - 1] * G,
+               [0] + [(37 * j) % n for j in range(1, G)]):
+        s = torch.tensor(sl, dtype=torch.int32, device="cuda")
+        got = qmm.qmm_int4_grouped(x, qt, s)
+        want = qmm.qmatmul_grouped_plain(x, qt, s).float()
+        assert (got.float() - want).abs().max().item() <= \
+            2e-2 * want.abs().max().item()
+        assert torch.equal(qmm.qmm_int4_grouped(x, qt, s), got)
+    assert _counters_zero()
+
+
+@pytest.mark.cuda
+def test_cuda_qmm_grouped_past_2_31_bytes():
+    """A flat stack of 800 int4 planes of 2048 x 2816 (2.3 GB of codes,
+    DeepSeek-V2-Lite's fused gate/up plane): the planes past 2^31 bytes
+    read what the plain version reads (the kernel offsets planes in
+    size_t), G=6 at the last slots and mixed with the first."""
+    _need_cuda()
+    n, K, N, G = 800, 2048, 2816, 6
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    qt = _expert_stack(gen, n, K, N)
+    assert qt.data.numel() > 2 ** 31
+    assert (n - 1) * qt.data[0].numel() > 2 ** 31
+    x = torch.randn((G, 1, K), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    for sl in (list(range(n - G, n)), [0, n - 1, 1, n - 2, 745, 746]):
+        s = torch.tensor(sl, dtype=torch.int32, device="cuda")
+        got = qmm.qmm_int4_grouped(x, qt, s).float()
+        want = qmm.qmatmul_grouped_plain(x, qt, s).float()
+        assert (got - want).abs().max().item() <= \
+            2e-2 * want.abs().max().item()
+    del qt
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 61, 1024])
+def test_cuda_qmm_wkv_a_width_matches_plain(M):
+    """DeepSeek's wkv_a (K=2048, N=576 = kv_lora_rank + qk_rope_head_dim)
+    on both qmm paths, the GEMV (M <= 16) and the tensor-core kernel
+    (M > 16), at layer 2 of a 3-layer stack."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(M)
+    qt = _expert_stack(gen, 3, 2048, 576)
+    x = torch.randn((M, 2048), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    got = qmm.qmm_int4(x, qt, 2).float()
+    want = qmm.qmatmul_plain(x, qt, 2).float()
+    assert got.shape == (M, 576)
+    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+def _moe_family_model(arch):
+    """A narrow int4 model of each new family from the synthetic fixture,
+    bf16: DeepSeek V2 (MLA, 16 experts top-4, two shared, a dense first
+    layer) and V3 (sigmoid routing in 4 groups, q-LoRA), and the three
+    MoE variants (biases and a shared expert; per-head q/k norms at a
+    group of 8; whole-projection q/k norms)."""
+    from turboinfer_tpu_torch.config import ModelConfig
+    from turboinfer_tpu_torch.loader.synthetic import \
+        create_synthetic_quantized_model
+    base = dict(vocab_size=4096, hidden_size=512, num_layers=3,
+                intermediate_size=1024, moe_intermediate_size=256,
+                num_experts=16, experts_per_token=4, max_seq_len=256)
+    kw = dict(
+        deepseek_v2=dict(num_heads=8, kv_lora_rank=128, qk_nope_head_dim=64,
+                         qk_rope_head_dim=32, v_head_dim=64,
+                         shared_expert_size=512, first_k_dense_replace=1,
+                         norm_topk_prob=False),
+        deepseek_v3=dict(num_heads=8, kv_lora_rank=128, qk_nope_head_dim=64,
+                         qk_rope_head_dim=32, v_head_dim=64, q_lora_rank=256,
+                         shared_expert_size=256, first_k_dense_replace=1,
+                         scoring_func="sigmoid", topk_method="noaux_tc",
+                         n_group=4, topk_group=2, routed_scaling_factor=2.5),
+        qwen2_moe=dict(num_heads=8, num_kv_heads=4, attn_bias=True,
+                       shared_expert_size=512, norm_topk_prob=False),
+        qwen3_moe=dict(num_heads=16, num_kv_heads=2, head_dim=64,
+                       qk_norm=True),
+        olmoe=dict(num_heads=8, num_kv_heads=8, qk_norm=True,
+                   norm_topk_prob=False))[arch]
+    cfg = ModelConfig(architecture=arch, **base, **kw)
+    params = create_synthetic_quantized_model(cfg, device="cuda",
+                                              seed=5).params
+    # A router with wide margins: expert e scores (h . u) * c_e plus a
+    # small random part, so the card's and the CPU's h (a bf16 ulp or an
+    # int8 code apart) rank the experts alike. The fixture's random
+    # router puts the 4th and 5th of 16 experts within that noise on a
+    # few tokens in a hundred, and one swapped expert moves the logits
+    # by ~20% of max|logit|: a discontinuity of the model, which would
+    # hide what the kernels do.
+    lw = params["layers"]
+    n, H, E = lw["router"].shape
+    g = torch.Generator(device="cuda").manual_seed(7)
+    u = torch.randn(H, generator=g, device="cuda")
+    c = torch.linspace(-8.0, 8.0, E, device="cuda") / u.norm()
+    lw["router"] = (u[None, :, None] * c + 0.01 * torch.randn(
+        (n, H, E), generator=g, device="cuda")).to(torch.bfloat16)
+    if arch == "olmoe":
+        D = cfg.head_dim_
+        g = torch.Generator(device="cuda").manual_seed(6)
+        for k, h in (("q_norm", cfg.num_heads), ("k_norm", cfg.kv_heads)):
+            params["layers"][k] = (1 + 0.2 * torch.randn(
+                (3, h * D), generator=g, device="cuda")).to(torch.bfloat16)
+    return cfg, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek_v2", "deepseek_v3", "qwen2_moe",
+                                  "qwen3_moe", "olmoe"])
+@pytest.mark.parametrize("kv", ["model", "int8"])
+def test_cuda_moe_families_match_cpu(arch, kv):
+    """Each new family on the card against the plain versions on the CPU:
+    greedy generate_batch of three prompts (B=3: the E-loop) and of one
+    (B=1: the grouped kernel on its decode steps) over a model-dtype or
+    int8 cache, under the tie rule (an int8 row's tie read on logits
+    over an int8 cache, as the run computed them); the B=1 run's launches
+    as the structure gives them (DeepSeek: no attention kernel)."""
+    _need_cuda()
+    from turboinfer_tpu_torch import kernels
+    from turboinfer_tpu_torch.config import InferenceConfig
+    from turboinfer_tpu_torch.engine.engine import InferenceEngine
+    from turboinfer_tpu_torch.models.common import params_to
+    cfg, params = _moe_family_model(arch)
+    icfg = InferenceConfig(max_seq_len=256, temperature=0.0,
+                           eos_token_id=-1, kv_cache_dtype=kv)
+    ps = [list(range(5, 45)), [3, 1, 4, 1, 5, 9, 2, 6], list(range(90, 161))]
+    out = {}
+    for dev, p in (("cuda", params), ("cpu", params_to(params, "cpu"))):
+        eng = InferenceEngine(p, cfg, icfg, device=dev)
+        out[dev] = [r.tokens for r in eng.generate_batch(ps, 12)]
+        kernels.reset_launch_counts()
+        out[dev].append(eng.generate(ps[1], 12).tokens)
+        if dev == "cuda":
+            n = kernels.launch_counts()
+            assert n["qmm_int4_grouped"] > 0 and n["qmm_int4"] > 0
+            attn = 0 if arch.startswith("deepseek") else 1
+            assert (n["decode_attention"] > 0) == bool(attn)
+            assert n["paged_attention"] == 0
+            assert _counters_zero()
+    _tied_or_equal(cfg, params, out["cuda"], out["cpu"],
+                   [len(q) for q in ps + [ps[1]]],
+                   kv_dtype=torch.int8 if kv == "int8" else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek_v2", "qwen2_moe"])
+def test_cuda_moe_families_paged_match_cpu(arch):
+    """The paged scheduler on the card over int8 pools (DeepSeek's
+    asymmetric latent pools; Qwen2-MoE's paged kernel) against the CPU's,
+    three requests of which two share a 32-token prefix, under the tie
+    rule."""
+    _need_cuda()
+    from turboinfer_tpu_torch.config import InferenceConfig
+    from turboinfer_tpu_torch.engine.scheduler import \
+        PagedContinuousScheduler
+    from turboinfer_tpu_torch.models.common import params_to
+    cfg, params = _moe_family_model(arch)
+    icfg = InferenceConfig(max_seq_len=256, temperature=0.0,
+                           eos_token_id=-1, kv_cache_dtype="int8")
+    system = list(range(100, 132))
+    ps = [system + [7, 8, 9], system + list(range(40, 60)), [2, 3, 5, 7, 11]]
+    out = {}
+    for dev, p in (("cuda", params), ("cpu", params_to(params, "cpu"))):
+        s = PagedContinuousScheduler(p, cfg, icfg, batch_slots=2,
+                                     page_size=16, device=dev)
+        rids = [s.submit(q, 10) for q in ps]
+        res = s.run()
+        out[dev] = [res[r].tokens for r in rids]
+        assert s.pool.hits == 2
+    _tied_or_equal(cfg, params, out["cuda"], out["cpu"],
+                   [len(q) for q in ps], kv_dtype=torch.int8)

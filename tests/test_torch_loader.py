@@ -616,14 +616,10 @@ def test_gptoss_hf_layout_loads_as_jax(tmp_path):
 @pytest.mark.parametrize("arch", ["gpt2", "gpt_neox", "falcon", "bloom",
                                   "phi", "deepseek_v2"])
 def test_unported_families_refuse_to_assemble(arch):
-    """DeepSeek's assembler waits for its model family and refuses; the
-    GPT-2 and NeoX-family assemblers are ported and dispatched as the
-    JAX package dispatches them (held array for array against JAX in
-    tests/test_torch_gpt2.py, test_torch_neox.py, test_torch_falcon.py)."""
-    if arch == "deepseek_v2":
-        with pytest.raises(ModelFormatError, match="ROADMAP item 12"):
-            tmapping.assemble_for(tconfig.ModelConfig(architecture=arch))
-        return
+    """The GPT-2, NeoX-family and DeepSeek assemblers are ported and
+    dispatched as the JAX package dispatches them (held array for array
+    against JAX in tests/test_torch_gpt2.py, test_torch_neox.py,
+    test_torch_falcon.py and test_torch_deepseek.py)."""
     got = tmapping.assemble_for(tconfig.ModelConfig(architecture=arch))
     want = jmapping.assemble_for(jconfig.ModelConfig(architecture=arch))
     assert got.__name__ == want.__name__ != "assemble_params"

@@ -480,11 +480,14 @@ def test_paged_scheduler_greedy_identical(quant):
 
 # -- refusals and names ---------------------------------------------------------
 
-@pytest.mark.parametrize("knob", [dict(shared_expert_size=64),
-                                  dict(attn_bias=True), dict(qk_norm=True),
+@pytest.mark.parametrize("knob", [dict(norm_offset=True),
+                                  dict(post_norms=True), dict(kv_lora_rank=8),
                                   dict(sliding_window=16),
-                                  dict(architecture="qwen2_moe")])
+                                  dict(architecture="deepseek_v2")])
 def test_check_supported_refuses(knob):
+    """Knobs the JAX package's MoE layer does not compute, and another
+    family's architecture (the variants' biases, q/k norms and shared
+    expert run here: tests/test_torch_moe_variants.py)."""
     cfg = tconfig.ModelConfig(**{**CFGS["tiny"], **knob})
     with pytest.raises(NotImplementedError):
         tmoe.check_supported(cfg)
@@ -505,7 +508,9 @@ def test_registry_names():
     assert registry.get_model("llama") is tllama
     from turboinfer_tpu_torch.models import gpt2 as tgpt2
     assert registry.get_model("gpt2") is tgpt2
-    for name in ("qwen2_moe", "qwen3_moe", "olmoe", "deepseek"):
+    for name in ("qwen2_moe", "qwen3_moe", "olmoe"):
+        assert registry.get_model(name) is tmoe
+    for name in ("deepseek", "qwen2moe"):
         with pytest.raises(ConfigError):
             registry.get_model(name)
 

@@ -357,3 +357,90 @@ def phi2_config(**kw) -> ModelConfig:
                 architecture="phi", name="microsoft/phi-2")
     base.update(kw)
     return ModelConfig(**base)
+
+
+def deepseek_v2_lite_config(**kw) -> ModelConfig:
+    """DeepSeek-V2-Lite as the JAX package's deepseek_v2_lite_config
+    transcribes it (15.7B total, 2.4B active): 27 layers, hidden 2048, 16
+    heads, MLA with kv_lora_rank 512, nope/rope/v head dims 128/64/128
+    and no q-LoRA; 64 routed experts top-6 of width 1408 (softmax,
+    greedy, no renormalisation) plus two shared experts (2816); the first
+    layer dense (intermediate 10944); vocab 102400, 4096 positions."""
+    base = dict(vocab_size=102400, hidden_size=2048, num_layers=27,
+                num_heads=16, intermediate_size=10944,
+                moe_intermediate_size=1408, shared_expert_size=2816,
+                num_experts=64, experts_per_token=6,
+                norm_topk_prob=False, scoring_func="softmax",
+                topk_method="greedy", routed_scaling_factor=1.0,
+                first_k_dense_replace=1, kv_lora_rank=512,
+                q_lora_rank=None, qk_nope_head_dim=128,
+                qk_rope_head_dim=64, v_head_dim=128, max_seq_len=4096,
+                rope_theta=10000.0, architecture="deepseek_v2",
+                name="deepseek-v2-lite")
+    base.update(kw)
+    return ModelConfig(**base)
+
+
+# The published config.json of three MoE checkpoints, the keys the HF
+# mapping reads (loader/mapping.config_from_hf_dict) transcribed as
+# shipped (no weights or files can be fetched).
+QWEN1_5_MOE_A2_7B_CONFIG_JSON = {
+    "model_type": "qwen2_moe", "hidden_act": "silu", "hidden_size": 2048,
+    "intermediate_size": 5632, "max_position_embeddings": 8192,
+    "num_attention_heads": 16, "num_hidden_layers": 24,
+    "num_key_value_heads": 16, "rms_norm_eps": 1e-06,
+    "rope_theta": 1000000.0, "sliding_window": 32768,
+    "use_sliding_window": False, "tie_word_embeddings": False,
+    "vocab_size": 151936, "decoder_sparse_step": 1,
+    "moe_intermediate_size": 1408, "shared_expert_intermediate_size": 5632,
+    "num_experts_per_tok": 4, "num_experts": 60, "norm_topk_prob": False}
+QWEN3_30B_A3B_CONFIG_JSON = {
+    "model_type": "qwen3_moe", "attention_bias": False, "head_dim": 128,
+    "hidden_act": "silu", "hidden_size": 2048, "intermediate_size": 6144,
+    "max_position_embeddings": 40960, "moe_intermediate_size": 768,
+    "norm_topk_prob": True, "num_attention_heads": 32, "num_experts": 128,
+    "num_experts_per_tok": 8, "num_hidden_layers": 48,
+    "num_key_value_heads": 4, "rms_norm_eps": 1e-06, "rope_scaling": None,
+    "rope_theta": 1000000.0, "sliding_window": None,
+    "use_sliding_window": False, "tie_word_embeddings": False,
+    "vocab_size": 151936}
+OLMOE_1B_7B_0924_CONFIG_JSON = {
+    "model_type": "olmoe", "attention_bias": False, "hidden_act": "silu",
+    "hidden_size": 2048, "intermediate_size": 1024,
+    "max_position_embeddings": 4096, "norm_topk_prob": False,
+    "num_attention_heads": 16, "num_experts": 64, "num_experts_per_tok": 8,
+    "num_hidden_layers": 16, "num_key_value_heads": 16, "rms_norm_eps": 1e-05,
+    "rope_scaling": None, "rope_theta": 10000.0, "tie_word_embeddings": False,
+    "vocab_size": 50304}
+
+
+def _from_hf(hf: Dict[str, Any], name: str, kw) -> ModelConfig:
+    from turboinfer_tpu_torch.loader.mapping import config_from_hf_dict
+    return config_from_hf_dict(hf).replace(name=name, **kw)
+
+
+def qwen1_5_moe_a2_7b_config(**kw) -> ModelConfig:
+    """Qwen/Qwen1.5-MoE-A2.7B's config.json through the HF mapping: 24
+    layers, hidden 2048, 16:16 heads of 128 with q/k/v biases, 60 experts
+    top-4 of width 1408 with raw softmax gates (norm_topk_prob false), a
+    shared expert of 5632, vocab 151936, 8192 positions."""
+    return _from_hf(QWEN1_5_MOE_A2_7B_CONFIG_JSON, "Qwen/Qwen1.5-MoE-A2.7B",
+                    kw)
+
+
+def qwen3_30b_a3b_config(**kw) -> ModelConfig:
+    """Qwen/Qwen3-30B-A3B's config.json through the HF mapping: 48 layers,
+    hidden 2048, 32:4 heads of 128 with per-head q/k RMSNorm, 128 experts
+    top-8 of width 768, renormalised gates, vocab 151936, 40960
+    positions."""
+    return _from_hf(QWEN3_30B_A3B_CONFIG_JSON, "Qwen/Qwen3-30B-A3B", kw)
+
+
+def olmoe_1b_7b_config(**kw) -> ModelConfig:
+    """allenai/OLMoE-1B-7B-0924's config.json through the HF mapping: 16
+    layers, hidden 2048, 16:16 heads of 128 with q/k RMSNorm over the
+    whole projection (the checkpoint's [Hq*D] norm weights), 64 experts
+    top-8 of width 1024 (intermediate_size), raw softmax gates, vocab
+    50304, 4096 positions."""
+    return _from_hf(OLMOE_1B_7B_0924_CONFIG_JSON, "allenai/OLMoE-1B-7B-0924",
+                    kw)

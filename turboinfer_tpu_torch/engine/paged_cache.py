@@ -14,7 +14,10 @@ Layout: pages [L, P, Hkv, page, D]; block_table [B, max_pages] int32
 (-1 = unassigned); lengths [B] int32. Pools hold the model dtype, bf16,
 int8 with per-(token, head) f32 scale pages [L, P, Hkv, page] (pages
 carry their scales, so prefix-shared pages share them too), or fp8 as
-uint8 e4m3 bits.
+uint8 e4m3 bits. An MLA model (DeepSeek, config.kv_lora_rank) keeps
+asymmetric pools of one "head": the latent in k [L, P, 1, page,
+kv_lora_rank] and the rope key in v [L, P, 1, page, qk_rope_head_dim];
+an fp8 request stores the model dtype there, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -55,15 +58,22 @@ def init_paged_cache(config: ModelConfig, batch_size: int, num_pages: int,
                          "storage dtype (see models/common.resolve_kv_dtype)")
     T = max_seq or config.max_seq_len
     max_pages = -(-T // page_size)
-    shape = (config.num_layers, num_pages, config.kv_heads, page_size,
-             config.head_dim_)
+    if config.kv_lora_rank:
+        if dtype == torch.uint8:
+            dtype = config.dtype
+        lead = (config.num_layers, num_pages, 1, page_size)
+        kshape = lead + (config.kv_lora_rank,)
+        vshape = lead + (config.qk_rope_head_dim,)
+    else:
+        kshape = vshape = (config.num_layers, num_pages, config.kv_heads,
+                           page_size, config.head_dim_)
     ks = vs = None
     if dtype == torch.int8:
-        ks = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
-        vs = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
+        ks = torch.zeros(kshape[:-1], dtype=torch.float32, device=dev)
+        vs = torch.zeros(vshape[:-1], dtype=torch.float32, device=dev)
     return PagedKVCache(
-        k_pages=torch.zeros(shape, dtype=dtype, device=dev),
-        v_pages=torch.zeros(shape, dtype=dtype, device=dev),
+        k_pages=torch.zeros(kshape, dtype=dtype, device=dev),
+        v_pages=torch.zeros(vshape, dtype=dtype, device=dev),
         block_table=torch.full((batch_size, max_pages), -1,
                                dtype=torch.int32, device=dev),
         lengths=torch.zeros((batch_size,), dtype=torch.int32, device=dev),
@@ -213,10 +223,11 @@ def append_token(cache: PagedKVCache, layer_k: torch.Tensor,
 def gather_sequence(cache: PagedKVCache, max_seq: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Contiguous [L, B, Hkv, max_seq, D] k/v from the pages (reference
-    path; the kernel reads pages in place). An int8 pool comes back
+    path; the kernel reads pages in place), each with its own pool's D
+    (an MLA pool's latent and rope key differ). An int8 pool comes back
     dequantized to f32, its scales consumed, as in the JAX package; fp8
     pools stay bits."""
-    L, P, Hkv, page, D = cache.k_pages.shape
+    L, P, Hkv, page, _ = cache.k_pages.shape
     n = max_seq // page
     t = cache.block_table[:, :n].long().clamp(0, P - 1)       # [B, n]
     B = t.shape[0]
@@ -225,6 +236,7 @@ def gather_sequence(cache: PagedKVCache, max_seq: int
         g = pages[:, t]                                # [L, B, n, Hkv, page, D]
         if scales is not None:
             g = decode_kv(g, torch.float32, scales[:, t])
-        return g.permute(0, 1, 3, 2, 4, 5).reshape(L, B, Hkv, n * page, D)
+        return g.permute(0, 1, 3, 2, 4, 5).reshape(L, B, Hkv, n * page,
+                                                   pages.shape[-1])
     return (gather(cache.k_pages, cache.k_scale_pages),
             gather(cache.v_pages, cache.v_scale_pages))

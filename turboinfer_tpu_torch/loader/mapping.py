@@ -15,9 +15,11 @@ JAX package's, whole.
 
 assemble_params_gpt2, _neox, _phi, _falcon and _bloom build the GPT-2
 and NeoX-family dicts (models/gpt2.py, models/neox.py), de-interleaving
-the checkpoints' fused per-head q/k/v rows to q|k|v. The DeepSeek
-assembler waits for its model family (ROADMAP item 12): assemble_for
-raises ModelFormatError for deepseek_v2/v3.
+the checkpoints' fused per-head q/k/v rows to q|k|v;
+assemble_params_deepseek builds DeepSeek V2/V3's (models/deepseek.py:
+the MLA projections, the router with V3's e_score_correction_bias as an
+f32 router_bias, per-expert stacks, gateless shared experts and the
+first_k_dense_replace group).
 """
 
 from __future__ import annotations
@@ -822,23 +824,105 @@ def assemble_params_bloom(get: Callable[[str], Any], names: Sequence[str],
     }
 
 
-# architecture -> its assembler (anything else: assemble_params); the
-# DeepSeek assembler waits for its model family
+def assemble_params_deepseek(get: Callable[[str], Any], names: Sequence[str],
+                             config: ModelConfig, dtype=None,
+                             device="cuda") -> Dict[str, Any]:
+    """DeepSeek V2/V3 (models/deepseek.py structure): the MLA projections,
+    the router (and V3's e_score_correction_bias, f32 zeros when absent),
+    per-expert stacks [Lm, E, in, out], gateless shared experts and the
+    first_k_dense_replace dense-FFN group, as the JAX package's
+    assemble_params_deepseek builds them."""
+    dtype = dtype or config.dtype
+    dev = resolve_device(device)
+    nameset = set(names)
+    L, kd, E = config.num_layers, config.first_k_dense_replace, \
+        config.num_experts
+
+    def fetch(name, transpose=True, required=True):
+        if name not in nameset:
+            if required:
+                raise KeyError(f"no tensor '{name}' in checkpoint")
+            return None
+        arr = as_torch(get(name)).to(dev)
+        return arr.T if transpose else arr
+
+    def attn_group(rng) -> Dict[str, List[torch.Tensor]]:
+        g: Dict[str, List[torch.Tensor]] = {}
+
+        def add(slot, arr):
+            g.setdefault(slot, []).append(arr)
+        for i in rng:
+            p = f"model.layers.{i}"
+            add("attn_norm", fetch(f"{p}.input_layernorm.weight", False))
+            add("ffn_norm",
+                fetch(f"{p}.post_attention_layernorm.weight", False))
+            if config.q_lora_rank:
+                add("wq_a", fetch(f"{p}.self_attn.q_a_proj.weight"))
+                add("q_a_norm",
+                    fetch(f"{p}.self_attn.q_a_layernorm.weight", False))
+                add("wq_b", fetch(f"{p}.self_attn.q_b_proj.weight"))
+            else:
+                add("wq", fetch(f"{p}.self_attn.q_proj.weight"))
+            add("wkv_a", fetch(f"{p}.self_attn.kv_a_proj_with_mqa.weight"))
+            add("kv_a_norm",
+                fetch(f"{p}.self_attn.kv_a_layernorm.weight", False))
+            add("wkv_b", fetch(f"{p}.self_attn.kv_b_proj.weight"))
+            add("wo", fetch(f"{p}.self_attn.o_proj.weight"))
+        return g
+
+    def stacked(g):
+        return {k: _stack(v, dtype, dev) for k, v in g.items()}
+
+    moe_g = attn_group(range(kd, L))
+    bias = []
+    for i in range(kd, L):
+        p = f"model.layers.{i}.mlp"
+        moe_g.setdefault("router", []).append(fetch(f"{p}.gate.weight"))
+        b = fetch(f"{p}.gate.e_score_correction_bias", False, required=False)
+        bias.append(torch.zeros((E,), dtype=torch.float32, device=dev)
+                    if b is None else b)
+        for slot, nm in (("we_gate", "gate_proj"), ("we_up", "up_proj"),
+                         ("we_down", "down_proj")):
+            moe_g.setdefault(slot, []).append(torch.stack(
+                [fetch(f"{p}.experts.{e}.{nm}.weight") for e in range(E)]))
+        if config.shared_expert_size:
+            for slot, nm in (("ws_gate", "gate_proj"), ("ws_up", "up_proj"),
+                             ("ws_down", "down_proj")):
+                moe_g.setdefault(slot, []).append(
+                    fetch(f"{p}.shared_experts.{nm}.weight"))
+    layers = stacked(moe_g)
+    layers["router_bias"] = _stack(bias, torch.float32, dev)
+    embed = _cast(fetch("model.embed_tokens.weight", False),
+                  dtype).contiguous()
+    params: Dict[str, Any] = {
+        "embed": embed, "layers": layers,
+        "final_norm": _cast(fetch("model.norm.weight", False),
+                            dtype).contiguous()}
+    if kd:
+        dense_g = attn_group(range(kd))
+        for i in range(kd):
+            for slot, nm in (("w_gate", "gate_proj"), ("w_up", "up_proj"),
+                             ("w_down", "down_proj")):
+                dense_g.setdefault(slot, []).append(
+                    fetch(f"model.layers.{i}.mlp.{nm}.weight"))
+        params["dense_layers"] = stacked(dense_g)
+    head = fetch("lm_head.weight", required=False)
+    params["lm_head"] = (embed.T if head is None
+                         else _cast(head, dtype).contiguous())
+    return params
+
+
+# architecture -> its assembler (anything else: assemble_params)
 _ASSEMBLERS = {"gpt2": assemble_params_gpt2, "gpt_neox": assemble_params_neox,
                "falcon": assemble_params_falcon,
                "bloom": assemble_params_bloom, "phi": assemble_params_phi,
-               "gpt_oss": assemble_params_gptoss}
-_UNPORTED_ASSEMBLERS = {"deepseek_v2": "assemble_params_deepseek",
-                        "deepseek_v3": "assemble_params_deepseek"}
+               "gpt_oss": assemble_params_gptoss,
+               "deepseek_v2": assemble_params_deepseek,
+               "deepseek_v3": assemble_params_deepseek}
 
 
 def assemble_for(config: ModelConfig):
     """Architecture-appropriate assembler (loaders dispatch here)."""
-    if config.architecture in _UNPORTED_ASSEMBLERS:
-        raise ModelFormatError(
-            f"architecture {config.architecture!r}: its model family and "
-            f"{_UNPORTED_ASSEMBLERS[config.architecture]} are not ported to "
-            "the PyTorch package yet (ROADMAP item 12)")
     return _ASSEMBLERS.get(config.architecture, assemble_params)
 
 

@@ -18,7 +18,14 @@ init_params (through the registry) with its products taken from the
 same packed draws: LayerNorm weights ones, biases zeros, the bf16
 embedding (and GPT-2's positions) from init_params' own seeded stream;
 a head whose vocab is not a multiple of 8 (GPT-2's 50257) stays fp, as
-the qmm kernels take N % 8 == 0 only.
+the qmm kernels take N % 8 == 0 only. A MoE model with a shared expert
+(Qwen2-MoE) adds packed "ws_gate"/"ws_up"/"ws_down" [L, ...] and a bf16
+"shared_gate" [L, H, 1] of 0.01; DeepSeek (config.kv_lora_rank) is the
+JAX package's MLA fixture: packed wq (or wq_a/wq_b), wkv_a, wo, experts,
+shared experts and the "dense_layers" group's FFN; bf16 wkv_b, router,
+norms and embedding; an f32 zero router_bias. The llama-family knob
+slots (biases, q/k and sandwich norms) are the port's additions to the
+JAX package's tree, which draws none of them.
 """
 
 from __future__ import annotations
@@ -71,9 +78,6 @@ def create_synthetic_quantized_model(config: ModelConfig, bits: int = 4,
     from turboinfer_tpu_torch.models import gpt2, neox, registry
     dev = resolve_device(device)
     c = config
-    if c.kv_lora_rank or c.shared_expert_size:
-        raise NotImplementedError("MLA and shared-expert fixtures are not "
-                                  "ported yet")
     L, H, V, F = c.num_layers, c.hidden_size, c.vocab_size, c.ffn_dim
     QD, KVD, G = c.q_dim, c.kv_dim, group_size
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -90,6 +94,24 @@ def create_synthetic_quantized_model(config: ModelConfig, bits: int = 4,
         return QTensor(data=data, scales=scales, zero_points=None,
                        bits=bits, group_size=G, shape=(K, N))
 
+    def experts(layers, n, Fe):
+        """4-D expert stacks [n, E, ...], the layout of
+        quant/quantizer._quantize_experts (gate and up drawn as one
+        "we_gateup" stack under fused_experts)."""
+        E = c.num_experts
+        if fused_experts:
+            layers["we_gateup"] = rq(H, 2 * Fe, lead=(n, E))
+        else:
+            layers["we_gate"] = rq(H, Fe, lead=(n, E))
+            layers["we_up"] = rq(H, Fe, lead=(n, E))
+        layers["we_down"] = rq(Fe, H, lead=(n, E))
+
+    def bf16(*shape):
+        return (0.02 * torch.randn(shape, generator=gen, device=dev)).to(
+            torch.bfloat16)
+
+    if c.kv_lora_rank:
+        return _synthetic_deepseek(c, rq, experts, bf16, dev)
     model = registry.get_model(c.architecture)
     if model in (gpt2, neox):
         # the family's own tree, every [.., K, N] product a packed draw
@@ -122,17 +144,16 @@ def create_synthetic_quantized_model(config: ModelConfig, bits: int = 4,
               "wo": rq(QD, H)}
     E = c.num_experts
     if E:
-        # MoE: a bf16 router and 4-D expert stacks [L, E, ...], the layout
-        # of quant/quantizer._quantize_experts.
-        Fe = c.moe_intermediate_size or F
-        layers["router"] = (0.02 * torch.randn((L, H, E), generator=gen,
-                                               device=dev)).to(torch.bfloat16)
-        if fused_experts:
-            layers["we_gateup"] = rq(H, 2 * Fe, lead=(L, E))
-        else:
-            layers["we_gate"] = rq(H, Fe, lead=(L, E))
-            layers["we_up"] = rq(H, Fe, lead=(L, E))
-        layers["we_down"] = rq(Fe, H, lead=(L, E))
+        # MoE: a bf16 router, the expert stacks and the shared expert
+        layers["router"] = bf16(L, H, E)
+        experts(layers, L, c.moe_intermediate_size or F)
+        if c.shared_expert_size:
+            Fs = c.shared_expert_size
+            layers.update(ws_gate=rq(H, Fs), ws_up=rq(H, Fs),
+                          ws_down=rq(Fs, H),
+                          shared_gate=torch.full((L, H, 1), 0.01,
+                                                 dtype=torch.bfloat16,
+                                                 device=dev))
     else:
         layers.update(w_gate=rq(H, F), w_up=rq(H, F), w_down=rq(F, H))
     params = {"embed": embed, "layers": layers, "final_norm": ones(H),
@@ -146,4 +167,53 @@ def create_synthetic_quantized_model(config: ModelConfig, bits: int = 4,
     if c.post_norms:
         layers.update(post_attn_norm=ones(L, H), post_ffn_norm=ones(L, H))
     return ModelData(params=params, config=config,
+                     source_format="synthetic-quantized")
+
+
+def _synthetic_deepseek(c: ModelConfig, rq, experts, bf16, dev) -> ModelData:
+    """The JAX package's DeepSeek fixture (_synthetic_quantized_deepseek):
+    packed wq/wq_a/wq_b, wkv_a, wo, experts, shared experts and the dense
+    group's FFN; bf16 wkv_b, router, norms and embedding; f32 router_bias."""
+    H, V, L = c.hidden_size, c.vocab_size, c.num_layers
+    nH = c.num_heads
+    dn, dr, dv, lr = (c.qk_nope_head_dim, c.qk_rope_head_dim, c.v_head_dim,
+                      c.kv_lora_rank)
+    E, kd = c.num_experts, c.first_k_dense_replace
+    Lm, Fd = L - kd, c.ffn_dim
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.bfloat16, device=dev)
+
+    def attn(n):
+        g = {"attn_norm": ones(n, H), "ffn_norm": ones(n, H),
+             "wkv_a": rq(H, lr + dr, lead=(n,)), "kv_a_norm": ones(n, lr),
+             "wkv_b": bf16(n, lr, nH * (dn + dv)),
+             "wo": rq(nH * dv, H, lead=(n,))}
+        if c.q_lora_rank:
+            qr = c.q_lora_rank
+            g.update(wq_a=rq(H, qr, lead=(n,)), q_a_norm=ones(n, qr),
+                     wq_b=rq(qr, nH * (dn + dr), lead=(n,)))
+        else:
+            g["wq"] = rq(H, nH * (dn + dr), lead=(n,))
+        return g
+
+    embed = bf16(V, H)
+    layers = attn(Lm)
+    layers.update(router=bf16(Lm, H, E),
+                  router_bias=torch.zeros((Lm, E), dtype=torch.float32,
+                                          device=dev))
+    experts(layers, Lm, c.moe_intermediate_size or Fd)
+    if c.shared_expert_size:
+        Fs = c.shared_expert_size
+        layers.update(ws_gate=rq(H, Fs, lead=(Lm,)),
+                      ws_up=rq(H, Fs, lead=(Lm,)),
+                      ws_down=rq(Fs, H, lead=(Lm,)))
+    params = {"embed": embed, "layers": layers, "final_norm": ones(H),
+              "lm_head": rq(H, V, lead=())}
+    if kd:
+        dense = attn(kd)
+        dense.update(w_gate=rq(H, Fd, lead=(kd,)), w_up=rq(H, Fd, lead=(kd,)),
+                     w_down=rq(Fd, H, lead=(kd,)))
+        params["dense_layers"] = dense
+    return ModelData(params=params, config=c,
                      source_format="synthetic-quantized")

@@ -72,9 +72,11 @@ SUPPORTS_INT8_KV = True
 SUPPORTS_INT8_KV_PAGED = False
 
 # The MoE family's refused knobs (models/moe.py), less the two GPT-OSS
-# uses.
+# uses, and the q/k norms of the MoE variants, which its layer does not
+# compute.
 _UNPORTED = tuple((n, off) for n, off in moe._UNPORTED
-                  if n not in ("sliding_window", "attn_bias"))
+                  if n not in ("sliding_window", "attn_bias")) + \
+    (("qk_norm", False),)
 # f32 elements of one expert group's [n, B*S, F] temporaries in the
 # dense regime (512 MiB each).
 _DENSE_ELEMS = 1 << 27

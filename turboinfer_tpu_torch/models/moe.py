@@ -1,5 +1,5 @@
-"""Sparse Mixture-of-Experts decoders in PyTorch (Mixtral): counterpart of
-turboinfer_tpu/models/moe.py.
+"""Sparse Mixture-of-Experts decoders in PyTorch (Mixtral, Qwen2-MoE,
+Qwen3-MoE, OLMoE): counterpart of turboinfer_tpu/models/moe.py.
 
 The llama attention block (models/llama.py, reused whole through its
 ffn_fn hook) with a top-k routed SwiGLU expert FFN. Gate conventions as
@@ -9,7 +9,13 @@ raw full-softmax probabilities. Per layer the parameters add
   "router" [L, H, E] (fp, applied in f32) and
   "we_gate"/"we_up" [L, E, H, F], "we_down" [L, E, F, H]
 (tensors, or 4-D QTensors that prepare_params views as the flat [L*E]
-stack and fuses into "we_gateup" + "we_down").
+stack and fuses into "we_gateup" + "we_down"). The variants add the
+llama body's q/k/v biases ("b_q"/"b_k"/"b_v", Qwen2-MoE) and q/k
+RMSNorms ("q_norm"/"k_norm": [L, D] per head for Qwen3-MoE, [L, Hq*D]
+over the whole projection for OLMoE), and Qwen2-MoE's shared expert:
+"ws_gate"/"ws_up" [L, H, Fs], "ws_down" [L, Fs, H] and "shared_gate"
+[L, H, 1] (fp always: N=1), a SwiGLU on every token scaled by the
+sigmoid of h @ shared_gate and added to the f32 expert mix.
 
 Expert regimes, all exact (no capacity drops), as in the JAX package:
   - quantized, B*S == 1 (decode at batch 1): the k routed slots
@@ -20,8 +26,8 @@ Expert regimes, all exact (no capacity drops), as in the JAX package:
     in the order e = 0..E-1 (every expert's weights read once);
   - fp: gather the selected experts when B*S*k < E, else a dense masked
     einsum over all E.
-The shared expert (Qwen2-MoE), attention biases and qk-norm (Qwen2-MoE,
-Qwen3-MoE, OLMoE) are not ported yet: check_supported refuses them.
+The paged decode and verify run the same FFN through llama's ffn_fn
+hook.
 """
 
 from __future__ import annotations
@@ -40,15 +46,15 @@ from turboinfer_tpu_torch.models.common import (  # noqa: F401
 from turboinfer_tpu_torch.utils.device import resolve_device
 from turboinfer_tpu_torch.utils.errors import ConfigError
 
-ARCHITECTURES = ("mixtral", "moe")
+ARCHITECTURES = ("mixtral", "qwen2_moe", "qwen3_moe", "olmoe", "moe")
 # ModelConfig knobs this family's forward is not held to against the JAX
-# package, with the value that means "off" (the llama body computes
-# most of them; the MoE variants that use them are not ported yet).
+# package (whose MoE layer computes none of them), with the value that
+# means "off".
 _UNPORTED = (("sliding_window", None), ("attn_logit_softcap", None),
              ("final_logit_softcap", None), ("norm_offset", False),
              ("scale_embeddings", False), ("embedding_multiplier", None),
              ("residual_multiplier", None), ("logits_scaling", None),
-             ("attn_bias", False), ("qk_norm", False), ("post_norms", False),
+             ("post_norms", False),
              ("attn_scale", None), ("rope_local_theta", None),
              ("parallel_residual", False), ("alibi", False),
              ("rotary_pct", 1.0), ("kv_lora_rank", None))
@@ -66,9 +72,6 @@ def check_supported(config: ModelConfig) -> None:
     if not 0 < config.experts_per_token <= config.num_experts:
         raise ConfigError(f"experts_per_token={config.experts_per_token} "
                           f"must be in [1, {config.num_experts}]")
-    if config.shared_expert_size:
-        raise NotImplementedError("the shared expert (Qwen2-MoE) is not "
-                                  "ported to the PyTorch package yet")
     for name, off in _UNPORTED:
         if getattr(config, name) != off:
             raise NotImplementedError(
@@ -84,7 +87,10 @@ def init_cache(config: ModelConfig, batch_size: int, max_seq=None,
 
 def init_params(config: ModelConfig, seed: int = 0, device="cuda",
                 dtype=None) -> Dict[str, Any]:
-    """Random fp parameters (N(0, 1/fan_in)), unit norms."""
+    """Random fp parameters (N(0, 1/fan_in)), unit norms, and the
+    variants' slots as the JAX package's init_params makes them: q/k/v
+    biases N(0, 0.02^2) (attn_bias), per-head q/k norms [L, D] (qk_norm)
+    and the shared expert with its [L, H, 1] gate (shared_expert_size)."""
     check_supported(config)
     dev = resolve_device(device)
     dtype = dtype or config.dtype
@@ -112,6 +118,19 @@ def init_params(config: ModelConfig, seed: int = 0, device="cuda",
         "final_norm": torch.ones((H,), dtype=dtype, device=dev),
         "lm_head": w((H, V), H),
     }
+    layers = params["layers"]
+    if config.attn_bias:
+        for name, n in (("b_q", QD), ("b_k", KVD), ("b_v", KVD)):
+            layers[name] = (0.02 * torch.randn((L, n), generator=gen,
+                                               device=dev)).to(dtype)
+    if config.qk_norm:
+        D = config.head_dim_
+        layers["q_norm"] = torch.ones((L, D), dtype=dtype, device=dev)
+        layers["k_norm"] = torch.ones((L, D), dtype=dtype, device=dev)
+    if config.shared_expert_size:
+        Fs = config.shared_expert_size
+        layers.update(ws_gate=w((L, H, Fs), H), ws_up=w((L, H, Fs), H),
+                      ws_down=w((L, Fs, H), Fs), shared_gate=w((L, H, 1), H))
     if config.tie_embeddings:
         params["lm_head"] = params["embed"].T
     return params
@@ -145,10 +164,27 @@ def route(config: ModelConfig, h: torch.Tensor, router: torch.Tensor
 
 def _moe_ffn(config: ModelConfig, h: torch.Tensor, lw: Dict[str, Any],
              li: int) -> torch.Tensor:
-    """Top-k routed SwiGLU experts of layer li (the ffn_fn hook):
-    h [B, S, H] -> [B, S, H] in h.dtype."""
+    """Top-k routed SwiGLU experts of layer li (the ffn_fn hook), plus
+    the shared expert when the layer has one: h [B, S, H] -> [B, S, H]
+    in h.dtype."""
     gates, top_i = route(config, h, lw["router"][li])
-    return expert_mix(config, h, lw, li, gates, top_i).to(h.dtype)
+    out = expert_mix(config, h, lw, li, gates, top_i)
+    if "ws_gate" in lw:
+        out = out + shared_expert(h, lw, li)
+    return out.to(h.dtype)
+
+
+def shared_expert(h: torch.Tensor, lw: Dict[str, Any], li: int
+                  ) -> torch.Tensor:
+    """Qwen2-MoE's shared expert of layer li -> [B, S, H] f32: a SwiGLU
+    of ws_gate/ws_up/ws_down on every token, times sigmoid(h @
+    shared_gate) (the gate product summed in f32 and rounded to h.dtype,
+    as the JAX package's fp qmatmul returns it)."""
+    s = ops.glu(ops.qmatmul(h, lw["ws_gate"], li),
+                ops.qmatmul(h, lw["ws_up"], li))
+    s = ops.qmatmul(s.to(h.dtype), lw["ws_down"], li)
+    sg = torch.sigmoid(ops.qmatmul(h, lw["shared_gate"], li))
+    return sg.to(torch.float32) * s.to(torch.float32)
 
 
 def _gate_up(lw: Dict[str, Any], product):

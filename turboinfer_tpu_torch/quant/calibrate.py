@@ -13,8 +13,10 @@ turboinfer_tpu/quant/calibrate.py.
    faithful and dead channels absorb the clipping.
 
 Scope, as in the JAX package: the llama family (wq/wk/wv/wo/w_gate/
-w_up/w_down + lm_head); other families fall back to uncalibrated
-quantization.
+w_up/w_down + lm_head); a family without separate (or fused) q/k/v
+slots (GPT-2, the NeoX family, DeepSeek's MLA projections) falls back
+to uncalibrated quantization with a warning, so its result is
+quantize_params' bytes.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from turboinfer_tpu_torch.utils import logging as tlog
 from turboinfer_tpu_torch.utils.errors import QuantizationError
 
 # Slots whose input activations are collected (the llama-family
-# quantizable matmuls, quant/quantizer._LAYER_MATMULS).
+# quantizable matmuls, quant/quantizer._ARCH_MATMULS' "llama").
 _LLAMA_SLOTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 

@@ -1,11 +1,15 @@
 """Model-level quantizer (counterpart of turboinfer_tpu/quant/quantizer.py
-quantize_params): int4/int8 of every llama, MoE, GPT-2 or NeoX-family
-matmul weight, group-wise along K, symmetric (absmax or "mse" scales)
-or asymmetric (with zero points), byte-identical to the JAX package's.
-MoE expert weights [L, E, K, N] become 4-D QTensors; the router stays
-fp, and so do GPT-OSS's biased experts (marked by a "be_gate" slot),
-as in the JAX package. Unless skip_embeddings, lm_head quantizes like
-any matmul and the embedding table to per-row int8 (QEmbed). FLOAT16
+quantize_params): int4/int8 of every llama, MoE, DeepSeek, GPT-2 or
+NeoX-family matmul weight, group-wise along K, symmetric (absmax or
+"mse" scales) or asymmetric (with zero points), byte-identical to the
+JAX package's. The [L, K, N] slots are picked from the tree as the JAX
+package picks them (_matmul_slots); MoE expert weights [L, E, K, N]
+become 4-D QTensors; DeepSeek's "dense_layers" group quantizes every
+[kd, K, N] stack but wkv_b. The router, its bias, Qwen2-MoE's
+shared_gate (N=1), DeepSeek's wkv_b and GPT-OSS's biased experts
+(marked by a "be_gate" slot) stay fp, as in the JAX package. Unless
+skip_embeddings, lm_head quantizes like any matmul and the embedding
+table to per-row int8 (QEmbed). FLOAT16
 casts every f32 tensor to bf16, as the JAX package's does. With
 `moments` (quant/calibrate.py) the slots they cover take the
 activation-weighted scale search.
@@ -28,13 +32,32 @@ from turboinfer_tpu_torch.core.qtensor import (QEmbed, QTensor, dequantize,
                                                dequantize_embed, quantize,
                                                quantize_embed)
 
-# Per-layer [L, K, N] matmul slots, picked by what the tree holds (the
-# JAX package's _matmul_slots): the llama family's seven; a MoE layer's
-# first four (its experts are the 4-D slots below, its router stays
-# fp); GPT-2 and the NeoX family's fused w_qkv, wo, w_fc and w_proj.
-_LAYER_MATMULS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
-                  "w_qkv", "w_fc", "w_proj")
+# Per-layer [L, K, N] matmul slots by family, tried in this order: the
+# first family whose slots the tree all holds decides (the JAX package's
+# _ARCH_MATMULS). A MoE layer's experts are the 4-D slots below; its
+# shared expert and DeepSeek's optional projections join when present.
+_ARCH_MATMULS = (
+    ("llama", ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")),
+    ("gpt2", ("w_qkv", "wo", "w_fc", "w_proj")),
+    ("deepseek", ("wkv_a", "wo")),
+    ("moe", ("wq", "wk", "wv", "wo")),
+)
 _MOE_EXPERT_SLOTS = ("we_gate", "we_up", "we_down")
+_MOE_SHARED_SLOTS = ("ws_gate", "ws_up", "ws_down")
+_OPTIONAL = {"moe": _MOE_SHARED_SLOTS,
+             "deepseek": ("wq", "wq_a", "wq_b") + _MOE_SHARED_SLOTS}
+
+
+def _matmul_slots(layers: Dict[str, Any]) -> tuple:
+    """The quantizable [L, K, N] slots of a layer group: the first
+    family of _ARCH_MATMULS whose slots it all holds, with that family's
+    optional slots present, else every 3-D tensor."""
+    for arch, slots in _ARCH_MATMULS:
+        if all(s in layers for s in slots):
+            return slots + tuple(s for s in _OPTIONAL.get(arch, ())
+                                 if s in layers)
+    return tuple(k for k, v in layers.items()
+                 if isinstance(v, torch.Tensor) and v.dim() == 3)
 
 
 def _quantize_stacked(w: torch.Tensor, cfg: QuantizationConfig,
@@ -95,8 +118,8 @@ def quantize_params(params: Dict[str, Any], cfg: QuantizationConfig,
     moments = moments or {}
     out = {k: v for k, v in params.items() if k not in ("layers", "lm_head")}
     layers = dict(params["layers"])
-    for name in _LAYER_MATMULS:
-        w = layers.get(name)
+    for name in _matmul_slots(layers):
+        w = layers[name]
         if isinstance(w, torch.Tensor) and w.dim() == 3:
             layers[name] = _quantize_stacked(w, cfg, moments.get(name))
     for name in _MOE_EXPERT_SLOTS if "be_gate" not in layers else ():
@@ -104,6 +127,14 @@ def quantize_params(params: Dict[str, Any], cfg: QuantizationConfig,
         if isinstance(w, torch.Tensor) and w.dim() == 4:
             layers[name] = _quantize_experts(w, cfg)
     out["layers"] = layers
+    dense = params.get("dense_layers")
+    if isinstance(dense, dict):
+        # DeepSeek's first_k_dense_replace group: every [kd, K, N] stack
+        # but wkv_b (the absorbed attention splits it by head)
+        out["dense_layers"] = {
+            k: _quantize_stacked(v, cfg)
+            if isinstance(v, torch.Tensor) and v.dim() == 3 and k != "wkv_b"
+            else v for k, v in dense.items()}
     head = params["lm_head"]
     if cfg.skip_embeddings or isinstance(head, QTensor) or head.dim() != 2:
         out["lm_head"] = head

@@ -34,6 +34,18 @@ class EngineStats:
     def average_ttft_ms(self) -> float:
         return 1e3 * self.total_prefill_s / max(self.total_generations, 1)
 
+    def efficiency_rating(self) -> str:
+        """The tiered score of the average throughput: above 1000 tok/s
+        Excellent, above 500 Good, above 100 Fair, else Poor."""
+        tps = self.average_tokens_per_second
+        if tps > 1000:
+            return "Excellent"
+        if tps > 500:
+            return "Good"
+        if tps > 100:
+            return "Fair"
+        return "Poor"
+
     def report(self, model_name: str = "", memory_bytes: int = 0,
                device: str = "") -> str:
         lines = [
@@ -48,5 +60,6 @@ class EngineStats:
             f"Peak throughput:      {self.peak_tokens_per_second:.1f} tok/s",
             f"Avg TTFT:             {self.average_ttft_ms:.1f} ms",
             f"Memory (weights+kv):  {memory_bytes / 2**20:.1f} MiB",
+            f"Efficiency rating:    {self.efficiency_rating()}",
         ]
         return "\n".join(lines)
