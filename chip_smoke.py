@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port (turboinfer_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,...,20] [--json PATH]
+    python3 chip_smoke.py [--phases 1,2,...,21] [--json PATH]
 
 Phases:
   1. environment: card name and power limit, torch/CUDA versions, and the
@@ -51,8 +51,8 @@ Phases:
      head int4
      g=64: the same four runs as phase 8 (decode through the decode
      kernel with sinks, and 128-token windows on the even layers; B=8
-     reaches the dense expert mix; at L=2 the plain forward takes the
-     kernel path's experts, and the routings it would have chosen
+     reaches the dense expert mix; at L=2 and B=1 the plain forward takes
+     the kernel path's experts, and the routings it would have chosen
      otherwise are counted and bounded); build peak printed and held
      < 60 GiB; (e) int8 and fp8 contiguous caches on the same weights,
      B=1 (prompt 1000, 64 new; one step sync-free) and B=8 (prompts
@@ -72,7 +72,7 @@ Phases:
      6 over an int8, then an fp8 pool (the fp8 run with half the new
      tokens; prefix hits equal to phase 6's); (c) speculative serving as
      phase 7 over int8 pages; (d) at L=2, kernels against plain versions,
-     contiguous (B=1, B=2) and paged (G=1, G=5), within 5% of max|logit|
+     contiguous (B=1) and paged (G=1, G=5), within 5% of max|logit|
      with greedy agreement 1.0, and Mixtral's contiguous path (L=1, B=1
      grouped decode; phase 8 runs the B=2 E-loop) within 5%. Phase 2
      also holds the encode-and-write kernel byte for byte (decode,
@@ -285,6 +285,27 @@ Phases:
      (wkv_a N=576 at M=1, 4 and 1024), the grouped product at G=6 on the
      1664-plane stacks (4.8 GB of codes), G=4 and G=8 (K=1408, 768), and
      the attention kernels at Qwen3's 32:4 (check_moe_shapes).
+ 21. tensor, data and expert parallelism (parallel/, PR 22): one spawn of
+     two ranks, both on cuda:0 over gloo (NCCL takes one GPU a rank), held
+     against the one-rank runs of the same seeds on this card (tokens
+     equal but in at most one tie row a run, phase 11's rule): (a) the 7B
+     int4 g=64 at full width and depth (L=32) under TP=2, generate_batch
+     B=4 of 512-token prompts, 32 greedy new tokens: prefill logits
+     against one rank's, each rank's launch counts equal to the one-rank
+     structure, prefill ms and ms/step, a traced decode with its device
+     ms and the host ms a step in the collectives; (b) data parallelism on
+     a (2, 1) mesh at L=4 (4 rows, 2 a rank); (c) the paged scheduler
+     under TP=2 over an int8 pool at L=4, 8 requests, 4 sharing a
+     256-token prefix, no page leaked; (d) Mixtral-8x7B int4 under EP=2 at
+     2 of 32 layers: B=1 (the grouped kernel over a rank's local slots)
+     and B=4 (the E-loop over 4 local experts); (e) an NCCL group of one
+     rank driving the 7B at L=2 on a (1, 1) mesh (the mesh-less tokens and
+     launches, no collective; all_reduce, all_gather, barrier); (f) the
+     rank-local kernel shapes: qmm at M=4 on half of each 7B projection
+     (wqkv N=6144, wo K=2048, w_gateup N=11008, w_down K=5504, lm_head
+     N=16000) and decode attention over 16 of 32 heads at T=1024, timed
+     as phase 2's rows. No TP speed-up can be read here: both ranks share
+     one card and their collectives go through the host.
 Exits non-zero on any failure (no CPU fallback). The last stdout line is
 {"ok": true, "device": {...}}; before it come a {"kernels": [...]} line
 and the nvidia-smi name/power-limit line.
@@ -1555,8 +1576,8 @@ def phase_kernels(torch, report):
                           names=("we_gateup", "we_down"))
     # qmm_int8 at the other shapes phase 11 gives it: the 7B's wqkv, wo
     # and w_down (K=11008: 22 split-K slices, a 256-row tail) at (a)'s
-    # decode and prefill and (b)'s admission, and with zero points at
-    # (d)'s B=2 decode and prefill; Mixtral's attention and head at (c)'s
+    # decode and prefill and (b)'s admission, and with zero points at a
+    # B=2 decode and prefill; Mixtral's attention and head at (c)'s
     # B=1 decode and 1000-token prefill, its expert planes through the
     # E-loop at that prefill and at a B=8 decode
     check_qmm(torch, rows, results, shapes=[
@@ -3174,7 +3195,8 @@ def phase_gptoss(torch, report):
                 "qmm_int4": 2 * cfg2.num_layers + 1}
     with SharedRouting(gptoss) as shared:
         out["vs_plain"] = kernels_vs_plain(torch, gptoss, cfg2, params,
-                                           step_want, "GPT-OSS", 12)
+                                           step_want, "GPT-OSS", 12,
+                                           batches=VS_PLAIN_BATCHES[:1])
     # bf16 rounding alone moves a few tokens to another expert (5 of the
     # 384 routings at this seed on an H100); a kernel error that
     # misroutes moves most of them
@@ -3357,7 +3379,7 @@ def phase_kvcache(torch, report):
             torch, llama, cfg2, params2, lambda B: {
                 "decode_attention": 2, "kv_encode_write": 2,
                 "cache_write_fresh": 0}, f"7B {kind}", 14, kv_dtype=dt,
-            all_agree=True)
+            all_agree=True, batches=VS_PLAIN_BATCHES[:1])
         out[f"vs_plain_{kind}"].update(paged_vs_plain(torch, cfg2, params2,
                                                       kind))
     del params2
@@ -3545,7 +3567,8 @@ def phase_int8_weights(torch, report):
         kname = f"qmm_int{lw['wqkv'].bits}"
         out[f"vs_plain 7B {label}"] = kernels_vs_plain(
             torch, llama, cfg2, params, lambda B: {kname: 4 * 1 + 1},
-            f"7B {label}", 15, decided_agree=True)
+            f"7B {label}", 15, decided_agree=True,
+            batches=VS_PLAIN_BATCHES[:1])
         del params
     del fp
     mcfg2 = mixtral_config(num_layers=1, max_seq_len=256)
@@ -3718,7 +3741,7 @@ def phase_w4a8(torch, report):
         out["vs_plain"] = kernels_vs_plain(
             torch, llama, cfg2, p2l, lambda B: {"qmm_int4": 4 * 1 + 1,
                                                 "qmm_int4_a8": 0},
-            "7B W4A8", 17, decided_agree=True)
+            "7B W4A8", 17, decided_agree=True, batches=VS_PLAIN_BATCHES[:1])
         del p2l
     finally:
         if prev is None:
@@ -4878,7 +4901,7 @@ def loader_lora(torch, kernels, work, out):
     res["vs_plain"] = kernels_vs_plain(
         torch, llama, cfg2, prepare_params(p2),
         lambda B: {"decode_attention": 1}, "7B + LoRA", 17,
-        decided_agree=True)
+        decided_agree=True, batches=VS_PLAIN_BATCHES[:1])
     out["lora"] = res
 
 
@@ -6607,11 +6630,435 @@ def phase_deepseek(torch, report):
     return out["(a) model"]["launches"]
 
 
+# -- phase 21 --------------------------------------------------------------
+
+TP_7B = dict(L=32, B=4, S=512, NEW=32, T=1024)
+TP_SMALL_L = 4
+TP_TIMEOUT_S = 900
+
+
+def tp_prompts(torch, vocab, B, S, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(1, vocab, (B, S), generator=gen).tolist()
+
+
+def tp_requests(torch, vocab):
+    """(c)'s 8 requests: 4 on a shared 256-token prefix, 4 alone."""
+    gen = torch.Generator().manual_seed(23)
+    prefix = torch.randint(1, vocab, (256,), generator=gen).tolist()
+    reqs = []
+    for i in range(8):
+        n = 64 + 24 * i
+        tail = torch.randint(1, vocab, (n,), generator=gen).tolist()
+        reqs.append((prefix + tail if i % 2 == 0 else tail, 12))
+    return reqs
+
+
+def tp_engine_7b(torch, L, mesh=None, T=1024):
+    from turboinfer_tpu_torch.config import InferenceConfig, llama7b_config
+    from turboinfer_tpu_torch.engine.engine import InferenceEngine
+    from turboinfer_tpu_torch.loader.synthetic import \
+        create_synthetic_quantized_model
+    cfg = llama7b_config(num_layers=L, max_seq_len=T)
+    params = create_synthetic_quantized_model(
+        cfg, bits=4, group_size=64, device="cuda", seed=0).params
+    eng = InferenceEngine(params, cfg, InferenceConfig(
+        max_seq_len=T, temperature=0.0, seed=0, eos_token_id=-1,
+        measure_ttft=True), device="cuda", mesh=mesh)
+    del params
+    torch.cuda.empty_cache()
+    return eng, cfg
+
+
+def tp_mixtral(torch, mesh=None):
+    from turboinfer_tpu_torch.config import InferenceConfig, mixtral_config
+    from turboinfer_tpu_torch.engine.engine import InferenceEngine
+    from turboinfer_tpu_torch.loader.synthetic import \
+        create_synthetic_quantized_model
+    cfg = mixtral_config(num_layers=2, max_seq_len=1024)
+    params = create_synthetic_quantized_model(
+        cfg, bits=4, group_size=64, device="cuda", seed=0).params
+    eng = InferenceEngine(params, cfg, InferenceConfig(
+        max_seq_len=1024, temperature=0.0, seed=0, eos_token_id=-1,
+        measure_ttft=True), device="cuda", mesh=mesh)
+    del params
+    torch.cuda.empty_cache()
+    return eng, cfg
+
+
+def tp_paged(torch, L, mesh=None):
+    from turboinfer_tpu_torch.config import InferenceConfig, llama7b_config
+    from turboinfer_tpu_torch.engine.scheduler import PagedContinuousScheduler
+    from turboinfer_tpu_torch.loader.synthetic import \
+        create_synthetic_quantized_model
+    cfg = llama7b_config(num_layers=L, max_seq_len=1024)
+    params = create_synthetic_quantized_model(
+        cfg, bits=4, group_size=64, device="cuda", seed=0).params
+    s = PagedContinuousScheduler(params, cfg, InferenceConfig(
+        max_seq_len=1024, temperature=0.0, seed=0, eos_token_id=-1,
+        kv_cache_dtype="int8"), batch_slots=4, page_size=64, device="cuda",
+        mesh=mesh)
+    rids = [s.submit(p, n, temperature=0.0) for p, n in tp_requests(
+        torch, cfg.vocab_size)]
+    t0 = time.perf_counter()
+    out = s.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return ([out[r].tokens for r in rids], s.pool.live_pages,
+            s.pool.hits, secs)
+
+
+def collective_host_ms(prof, steps):
+    """Host ms a step in the c10d collectives of a profiler trace (their
+    own CPU time, the gloo host copies of CUDA tensors included)."""
+    per = {}
+    for e in prof.key_averages():
+        if e.key.startswith("c10d::") or "gloo" in e.key:
+            per[e.key] = e.cpu_time_total / 1e3 / steps
+    return per
+
+
+def tp_rank_main(rank, world, store, out_path):
+    """One of the two ranks of phase 21 (spawned; both on cuda:0, gloo)."""
+    import pickle
+    import traceback
+    import torch
+    out = {}
+    try:
+        from turboinfer_tpu_torch import kernels
+        from turboinfer_tpu_torch.kernels import _build
+        from turboinfer_tpu_torch.parallel import comm, mesh as pmesh
+        _build.library()                     # built by phase 1: loads it
+        pmesh.initialize_distributed("gloo", "file://" + store, world, rank,
+                                     timeout_s=TP_TIMEOUT_S)
+        tp = pmesh.make_mesh((1, 2), device="cuda:0")
+        # (a) 7B int4 L=32, TP=2
+        p = TP_7B
+        eng, cfg = tp_engine_7b(torch, p["L"], tp, p["T"])
+        prompts = tp_prompts(torch, cfg.vocab_size, p["B"], p["S"], 21)
+        tokens, seq_lens, _ = eng._pad_batch(prompts)
+        lg, cache = eng._run_prefill(tokens, seq_lens,
+                                     eng._take_cache(p["B"]))
+        out["a_logits"] = lg.float().cpu()  # the trace decodes from here
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        c0 = comm.calls
+        res = eng.generate_batch(prompts, p["NEW"], temperature=0.0)
+        out["a_launches"] = kernels.launch_counts()
+        out["a_collectives"] = comm.calls - c0
+        out["a_tokens"] = [r.tokens for r in res]
+        steps = -(-p["NEW"] // 32) * 32 - 1
+        out["a_prefill_ms"] = res[0].prefill_time_ms
+        out["a_ms_per_step"] = ((res[0].total_time_ms
+                                 - res[0].prefill_time_ms) / steps)
+        from torch.profiler import ProfilerActivity, profile
+        B = p["B"]
+        state = dict(tok=lg.argmax(-1).to(torch.int32), cache=cache)
+        torch.cuda.synchronize()
+        n = 4
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                g, state["cache"] = eng._decode_step(state["tok"],
+                                                     state["cache"])
+                state["tok"] = g.argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n
+        from torch.autograd import DeviceType
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        out["a_trace"] = dict(
+            wall_ms_per_step=wall,
+            device_ms_per_step=sum(e.time_range.elapsed_us()
+                                   for e in dev) / 1e3 / n,
+            kernels_per_step=len(dev) / n,
+            collective_host_ms_per_step=collective_host_ms(prof, n))
+        eng._put_cache(B, state["cache"])
+        del eng, state, cache
+        torch.cuda.empty_cache()
+        # (b) data parallel on a (2, 1) mesh, L=4
+        dp = pmesh.make_mesh((2, 1), device="cuda:0")
+        eng, cfg = tp_engine_7b(torch, TP_SMALL_L, dp)
+        rows = tp_prompts(torch, cfg.vocab_size, 4, 256, 22)
+        kernels.reset_launch_counts()
+        out["b_tokens"] = [r.tokens for r in eng.generate_batch(
+            rows, 16, temperature=0.0)]
+        out["b_launches"] = kernels.launch_counts()
+        del eng
+        torch.cuda.empty_cache()
+        # (c) the paged scheduler, TP=2, int8 pool, L=4
+        kernels.reset_launch_counts()
+        (out["c_tokens"], out["c_live_pages"], out["c_hits"],
+         out["c_s"]) = tp_paged(torch, TP_SMALL_L, tp)
+        out["c_launches"] = kernels.launch_counts()
+        torch.cuda.empty_cache()
+        # (d) Mixtral-8x7B under EP=2 at 2 of 32 layers
+        eng, cfg = tp_mixtral(torch, tp)
+        one = tp_prompts(torch, cfg.vocab_size, 1, 256, 24)
+        four = tp_prompts(torch, cfg.vocab_size, 4, 128, 25)
+        for key, ps, new in (("d1", one, 16), ("d4", four, 8)):
+            kernels.reset_launch_counts()
+            res = eng.generate_batch(ps, new, temperature=0.0)
+            out[key + "_launches"] = kernels.launch_counts()
+            out[key + "_tokens"] = [r.tokens for r in res]
+            out[key + "_ms_per_step"] = (res[0].total_time_ms
+                                         - res[0].prefill_time_ms) / 31
+        del eng
+        torch.cuda.empty_cache()
+        out["counters_zero"] = counters_zero(torch)
+        import torch.distributed as dist
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:                       # noqa: BLE001
+        out["error"] = traceback.format_exc()
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def tp_ties(torch, eng, cfg, prompts, got, want, label, kv_dtype=None):
+    """tokens_or_ties's rule for a TP=2 run against the one-rank run:
+    where a row first differs, the one-rank logits at the wanted prefix
+    (read back through a kv_dtype cache when given) put both tokens
+    within TIE_ULPS bf16 ulps of max|logit|; at most MAX_TIE_ROWS rows."""
+    ties = []
+    for b, (g, w) in enumerate(zip(got, want)):
+        need(len(g) == len(w), f"{label} row {b}: {len(g)} tokens, want "
+                               f"{len(w)}")
+        if g == w:
+            continue
+        i = next(j for j in range(len(w)) if g[j] != w[j])
+        x = torch.tensor([w[:i]], dtype=torch.int32, device="cuda")
+        if kv_dtype is None:
+            lg = eng._model.forward_no_cache(eng.params, cfg, x)[0, -1]
+        else:
+            cache = eng._model.init_cache(cfg, 1, max_seq=i, dtype=kv_dtype,
+                                          device="cuda")
+            lg = eng._model.forward(eng.params, cfg, x, cache)[0][0, -1]
+        lg = lg.float()
+        ref = lg.abs().max().item()
+        gap = abs(lg[g[i]].item() - lg[w[i]].item())
+        tie_gap = TIE_ULPS * BF16_ULP * 2.0 ** math.floor(math.log2(ref))
+        need(gap <= tie_gap, f"{label} row {b}: token {i - len(prompts[b])} "
+             f"differs ({g[i]} vs {w[i]}) beyond a tie: one-rank logit gap "
+             f"{gap} > {tie_gap}")
+        ties.append(dict(row=b, new_token=i - len(prompts[b]), gap=gap,
+                         tie_gap=tie_gap))
+    need(len(ties) <= MAX_TIE_ROWS, f"{label}: {len(ties)} tie rows")
+    say(f"  {label}: tokens equal to the one-rank run"
+        + (f" but {len(ties)} tie row(s) {ties}" if ties else ""))
+    return ties
+
+
+def tp_spawn(torch, work):
+    """Both ranks of phase 21 on cuda:0 (one spawn); their results."""
+    import pickle
+    import torch.multiprocessing as tmp
+    ctx = tmp.get_context("spawn")
+    paths = [f"{work}/rank{r}.pkl" for r in range(2)]
+    procs = [ctx.Process(target=tp_rank_main,
+                         args=(r, 2, f"{work}/store", paths[r]))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(TP_TIMEOUT_S)
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    secs = time.perf_counter() - t0
+    outs = []
+    for path in paths:
+        try:
+            with open(path, "rb") as f:
+                outs.append(pickle.load(f))
+        except OSError:
+            outs.append({"error": "no results"})
+    errs = [o["error"] for o in outs if "error" in o]
+    need(not hung and not errs and all(p.exitcode == 0 for p in procs),
+         f"phase 21 ranks: exit codes {[p.exitcode for p in procs]}, "
+         f"{'hung ' if hung else ''}{errs}")
+    return outs, secs
+
+
+def tp_local_kernels(torch, out):
+    """(f): the rank-local shapes of (a)'s TP=2 (M=4 products on a half of
+    each projection, decode attention over 16 of the 32 heads), each
+    against its plain version, timed by CUDA-graph replay as phase 2
+    times its rows, beside its bound and library call."""
+    import torch.nn.functional as F
+    rows = []
+    check_qmm(torch, rows, {}, shapes=[
+        ("wqkv t2", 4096, 6144), ("wo t2", 2048, 4096),
+        ("w_gateup t2", 4096, 11008), ("w_down t2", 5504, 4096),
+        ("lm_head t2", 4096, 16000)], Ms=(4,), record=False)
+    check_decode(torch, F, rows, {}, 4, 16, 16, 1024, 128,
+                 [513, 530, 600, 1024], record=False)
+    out["local_kernels"] = rows
+
+
+def phase_tp(torch, report):
+    """Phase 21: tensor, data and expert parallelism, two ranks on one
+    card over gloo (both on cuda:0), held against the one-rank runs of
+    the same seeds on the same card."""
+    import os
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from turboinfer_tpu_torch import kernels
+    from turboinfer_tpu_torch.parallel import comm, mesh as pmesh
+    say("phase 21: TP=2 / DP / EP on two ranks sharing cuda:0 (gloo)")
+    out = {}
+    p = TP_7B
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the one-rank references, same seeds, on this card
+    eng7, cfg7 = tp_engine_7b(torch, p["L"], None, p["T"])
+    prompts = tp_prompts(torch, cfg7.vocab_size, p["B"], p["S"], 21)
+    tokens, seq_lens, _ = eng7._pad_batch(prompts)
+    cache = eng7._take_cache(p["B"])
+    ref_logits, cache = eng7._run_prefill(tokens, seq_lens, cache)
+    eng7._put_cache(p["B"], cache)
+    ref_logits = ref_logits.float().cpu()
+    res, counts, stats = run_counted(torch, kernels, eng7, prompts,
+                                     p["NEW"], "(a) one rank, 7B L=32 B=4",
+                                     temperature=0.0)
+    want_a = [r.tokens for r in res]
+    out["a_one_rank"] = stats
+    eng4, cfg4 = tp_engine_7b(torch, TP_SMALL_L)
+    rows = tp_prompts(torch, cfg4.vocab_size, 4, 256, 22)
+    want_b = [r.tokens for r in eng4.generate_batch(rows, 16,
+                                                     temperature=0.0)]
+    want_c, live1, hits1, secs1 = tp_paged(torch, TP_SMALL_L)
+    engm, cfgm = tp_mixtral(torch)
+    one = tp_prompts(torch, cfgm.vocab_size, 1, 256, 24)
+    four = tp_prompts(torch, cfgm.vocab_size, 4, 128, 25)
+    want_d1 = [r.tokens for r in engm.generate_batch(one, 16,
+                                                      temperature=0.0)]
+    want_d4 = [r.tokens for r in engm.generate_batch(four, 8,
+                                                      temperature=0.0)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="tp_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    try:
+        outs, spawn_s = tp_spawn(torch, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    r0, r1 = outs
+    say(f"  the two ranks ran (a)-(d) in {spawn_s:.1f} s (spawn, build and "
+        "the one-card gloo collectives included)")
+    for key in ("a_tokens", "b_tokens", "c_tokens", "d1_tokens",
+                "d4_tokens"):
+        need(r0[key] == r1[key], f"{key}: the two ranks' tokens differ")
+    # (a)
+    gap = (r0["a_logits"] - ref_logits).abs().max().item()
+    ref = ref_logits.abs().max().item()
+    want = expected_launches(p["L"], decode_forwards=p["NEW"] - 1)
+    for r, o in enumerate(outs):
+        need(o["a_launches"] == want, f"(a) rank {r} launches "
+             f"{o['a_launches']} != {want}")
+    say(f"  (a) TP=2 7B L=32 B=4: prefill logits vs one rank max_abs_err "
+        f"{gap:.4g} (max|logit| {ref:.4g}, {gap / ref:.3g} of it); launches "
+        f"per rank as TP=1: {want}; {r0['a_collectives']} collectives a "
+        f"rank in the run")
+    need(gap <= 5e-2 * ref, f"(a) TP=2 logits {gap} off the one-rank run")
+    out["a_ties"] = tp_ties(torch, eng7, cfg7, prompts, r0["a_tokens"],
+                            want_a, "(a) TP=2 vs one rank")
+    tr = r0["a_trace"]
+    say(f"  (a) rank 0: prefill {r0['a_prefill_ms']:.1f} ms, "
+        f"{r0['a_ms_per_step']:.3f} ms/step (one rank: "
+        f"{stats['prefill_ms']:.1f} ms, {stats['decode_ms_per_step']:.3f}); "
+        f"traced decode {tr['wall_ms_per_step']:.3f} ms/step wall on "
+        f"{tr['device_ms_per_step']:.3f} device ms, "
+        f"{tr['kernels_per_step']:.1f} kernels; collectives' host ms/step "
+        f"{tr['collective_host_ms_per_step']}")
+    out["a"] = dict(logit_gap=gap, max_abs_logit=ref, launches=want,
+                    rank0=dict((k, r0[k]) for k in (
+                        "a_prefill_ms", "a_ms_per_step", "a_trace",
+                        "a_collectives")),
+                    rank1=dict((k, r1[k]) for k in (
+                        "a_prefill_ms", "a_ms_per_step", "a_trace")))
+    # (b), (c), (d)
+    out["b_ties"] = tp_ties(torch, eng4, cfg4, rows, r0["b_tokens"], want_b,
+                            "(b) DP (2, 1) L=4 vs one rank")
+    need(r0["c_live_pages"] == 1 == live1, f"(c) pages held after the run: "
+         f"{r0['c_live_pages']} (one rank {live1})")
+    reqs = tp_requests(torch, cfg4.vocab_size)
+    out["c_ties"] = tp_ties(torch, eng4, cfg4, [q for q, _ in reqs],
+                            r0["c_tokens"], want_c,
+                            "(c) paged TP=2 int8 pool L=4 vs one rank",
+                            kv_dtype=torch.int8)
+    say(f"  (c) prefix hits {r0['c_hits']} (one rank {hits1}), no page "
+        f"leaked; {r0['c_s']:.2f} s (one rank {secs1:.2f})")
+    out["d1_ties"] = tp_ties(torch, engm, cfgm, one, r0["d1_tokens"],
+                             want_d1, "(d) EP=2 Mixtral L=2 B=1 vs one rank")
+    out["d4_ties"] = tp_ties(torch, engm, cfgm, four, r0["d4_tokens"],
+                             want_d4, "(d) EP=2 Mixtral L=2 B=4 vs one rank")
+    want_d1l = moe_expected(2, 4, 2, 1, 31, grouped=True)
+    need(r0["d1_launches"] == want_d1l, f"(d) B=1 rank launches "
+         f"{r0['d1_launches']} != {want_d1l}")
+    need(r0["counters_zero"] and r1["counters_zero"],
+         "arrival counters not back at zero on a rank")
+    say(f"  (d) per rank: B=1 {r0['d1_launches']} (the grouped kernel over "
+        f"the rank's local slots), B=4 {r0['d4_launches']} (the E-loop over "
+        f"4 local experts)")
+    out.update(b_launches=r0["b_launches"], c_launches=r0["c_launches"],
+               d1_launches=r0["d1_launches"], d4_launches=r0["d4_launches"],
+               spawn_s=spawn_s)
+    del eng4, engm
+    torch.cuda.empty_cache()
+    # (e) an NCCL group of world size 1 drives the 7B at L=2
+    store = tempfile.mkdtemp(prefix="nccl_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    try:
+        pmesh.initialize_distributed("nccl", f"file://{store}/s", 1, 0,
+                                     timeout_s=120)
+        m = pmesh.make_mesh((1, 1), device="cuda:0")
+        e2, c2 = tp_engine_7b(torch, 2, m)
+        e2n, _ = tp_engine_7b(torch, 2, None)
+        ps = tp_prompts(torch, c2.vocab_size, 4, 128, 26)
+        c0 = comm.calls
+        kernels.reset_launch_counts()
+        got = [r.tokens for r in e2.generate_batch(ps, 8, temperature=0.0)]
+        cm = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        ref_t = [r.tokens for r in e2n.generate_batch(ps, 8,
+                                                      temperature=0.0)]
+        need(got == ref_t and cm == kernels.launch_counts()
+             and comm.calls == c0, "(e) a (1, 1) NCCL mesh changed the "
+             "tokens, the launches or issued a collective")
+        x = torch.arange(8, dtype=torch.float32, device="cuda:0")
+        dist.all_reduce(x)
+        parts = [torch.empty_like(x)]
+        dist.all_gather(parts, x)
+        dist.barrier()
+        torch.cuda.synchronize()
+        need(torch.equal(parts[0], torch.arange(8., device="cuda:0")),
+             "(e) NCCL all_reduce/all_gather of one rank changed data")
+        say(f"  (e) NCCL world of 1 ({dist.get_backend()}): the L=2 engine "
+            "on a (1, 1) mesh gives the mesh-less tokens and launches with "
+            "no collective; all_reduce, all_gather and barrier ran")
+        out["e"] = dict(backend=dist.get_backend(), launches=cm)
+        del e2, e2n
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    # (f) the rank-local kernel shapes
+    tp_local_kernels(torch, out)
+    del eng7
+    torch.cuda.empty_cache()
+    report["tp"] = out
+    return r0["a_launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
-                            "19,20")
+                            "19,20,21")
     ap.add_argument("--json", default=None,
                     help="also write every measurement to this JSON file")
     args = ap.parse_args(argv)
@@ -6693,6 +7140,7 @@ def main(argv=None) -> int:
         serve_launches = run(18, phase_serve, {})
         falcon_launches = run(19, phase_falcon, {})
         deepseek_launches = run(20, phase_deepseek, {})
+        tp_launches = run(21, phase_tp, {})
     except (SmokeError, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         if args.json:
@@ -6720,7 +7168,9 @@ def main(argv=None) -> int:
     # speculative_generate), launches_falcon from phase 19 (a) (Falcon-7B
     # through the NeoX body: every decode on the group-71 decode kernel),
     # launches_deepseek from phase 20 (a) (DeepSeek-V2-Lite B=1, every
-    # decode step's routed experts on the grouped kernel at G=6)
+    # decode step's routed experts on the grouped kernel at G=6),
+    # launches_tp from phase 21 (a) (rank 0 of the 7B's TP=2 run: the
+    # same kernels as one rank, at the rank's shapes)
     kern = []
     for name in kernels.wrappers():
         r = results.get(name, {})
@@ -6747,6 +7197,7 @@ def main(argv=None) -> int:
                      "launches_serve": serve_launches.get(name, 0),
                      "launches_falcon": falcon_launches.get(name, 0),
                      "launches_deepseek": deepseek_launches.get(name, 0),
+                     "launches_tp": tp_launches.get(name, 0),
                      "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
                      "plain_ms": r.get("plain_ms"),
                      "bound_ms": r.get("bound_ms"),

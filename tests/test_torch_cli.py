@@ -353,14 +353,18 @@ def test_cli_serve_builds_the_schedulers(gguf_path, monkeypatch, capsys):
         assert captured["beam"].params is s.params
 
 
-@pytest.mark.parametrize("argv", [
-    ["serve", "M", "--tp", "2"], ["serve", "M", "--pp-stages", "2"],
-    ["serve", "M", "--context-parallel", "2"],
-    ["generate", "M", "hi", "--context-parallel", "2"]],
+@pytest.mark.parametrize("argv,says", [
+    (["serve", "M", "--tp", "2"], "torchrun --nproc-per-node 2"),
+    (["serve", "M", "--pp-stages", "2"], "ROADMAP §1 item 13"),
+    (["serve", "M", "--context-parallel", "2"], "ROADMAP §1 item 13"),
+    (["generate", "M", "hi", "--context-parallel", "2"],
+     "ROADMAP §1 item 13")],
     ids=["tp", "pp", "cp", "generate-cp"])
-def test_cli_mesh_flags_exit_2_naming_the_roadmap(argv, capsys):
+def test_cli_mesh_flags_exit_2_naming_the_roadmap(argv, says, capsys):
+    """--pp-stages and --context-parallel wait for the next slice;
+    --tp N outside torchrun's N processes says how to launch it."""
     assert cli.main(argv) == 2
-    assert "ROADMAP §1 item 13" in capsys.readouterr().err
+    assert says in capsys.readouterr().err
 
 
 def test_cli_bench_exits_2(capsys):

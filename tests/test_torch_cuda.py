@@ -2521,3 +2521,183 @@ def test_cuda_moe_families_paged_match_cpu(arch):
         assert s.pool.hits == 2
     _tied_or_equal(cfg, params, out["cuda"], out["cpu"],
                    [len(q) for q in ps], kv_dtype=torch.int8)
+
+
+# -- tensor and expert parallelism (parallel/): two ranks on one card ------
+
+TP_CFG = dict(vocab_size=4096, hidden_size=1024, num_layers=2, num_heads=8,
+              num_kv_heads=8, intermediate_size=2816, max_seq_len=512)
+
+
+@pytest.mark.cuda
+def test_cuda_tp2_two_ranks_on_one_card_match_one_rank(tmp_path):
+    """Two gloo ranks on cuda:0 run a bf16 int4 model at L=2 under TP=2
+    (each its half of the heads and columns, the kernels at those
+    shapes): the same launches as one rank, logits within 5% of
+    max|logit|, and greedy tokens equal under the tie rule."""
+    _need_cuda()
+    _tp2_matches_one_rank(tmp_path, "cuda:0", "gloo")
+
+
+@pytest.mark.cuda
+def test_cuda_tp2_ranks_on_two_cards_match_one_rank(tmp_path):
+    """The deployed layout: two NCCL ranks, rank r on cuda:r (make_mesh
+    makes it current, so rank 1's kernels launch on its own card), hold
+    the same checks as two ranks on one card. Needs two cards."""
+    _need_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (one rank a card)")
+    _tp2_matches_one_rank(tmp_path, "cuda:{rank}", "nccl")
+
+
+@pytest.mark.cuda
+def test_cuda_serve_tp2_on_two_cards_answers_as_one_rank(tmp_path):
+    """`serve --tp 2` as deployed: two ranks started as torchrun starts
+    them, NCCL, rank r on cuda:LOCAL_RANK, answer a greedy completion
+    with a one-rank engine's tokens (under the tie rule). Needs two
+    cards."""
+    _need_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (one rank a card)")
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_tp_worker
+    from turboinfer_tpu_torch.config import InferenceConfig, ModelConfig
+    from turboinfer_tpu_torch.engine.engine import InferenceEngine
+    from turboinfer_tpu_torch.loader import tinq
+    cfg = ModelConfig(dtype=torch.bfloat16, **TP_CFG)
+    params = torch_tp_worker._params({"draw": (5, 4)}, cfg)
+    model = str(tmp_path / "tp2.tinq")
+    tinq.save(model, params, cfg)
+    prompt = torch.randint(1, 4096, (40,), generator=torch.Generator(
+        ).manual_seed(9)).tolist()
+    outs = torch_tp_worker.spawn(str(tmp_path / "ranks"), 2, serve={
+        "model": model, "device": "cuda", "request": {
+            "prompt": prompt, "max_tokens": 16, "temperature": 0.0,
+            "logprobs": 1}})
+    (rc0, ans), (rc1, _) = outs[0]["__serve__"], outs[1]["__serve__"]
+    assert rc0 == rc1 == 0
+    got = prompt + [int(t) for t in ans["choices"][0]["logprobs"]["tokens"]]
+    eng = InferenceEngine(params, cfg, InferenceConfig(
+        max_seq_len=cfg.max_seq_len), device="cuda")
+    want = eng.generate(prompt, 16, temperature=0.0).tokens
+    _tied_or_equal(cfg, eng.params, [got], [want], [len(prompt)])
+
+
+def _tp2_matches_one_rank(tmp_path, device, backend):
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_tp_worker
+    from turboinfer_tpu_torch import kernels
+    from turboinfer_tpu_torch.config import InferenceConfig, ModelConfig
+    from turboinfer_tpu_torch.engine.engine import InferenceEngine
+    gen = torch.Generator().manual_seed(7)
+    prompts = torch.randint(1, 4096, (3, 96), generator=gen).tolist()
+    prompts[1] = prompts[1][:61]
+    toks = torch.randint(1, 4096, (2, 40), generator=gen)
+    icfg = dict(max_seq_len=512, eos_token_id=-1)
+    case = {"name": "tp", "cfg": TP_CFG, "dtype": "bfloat16",
+            "draw": (3, 4), "icfg": icfg,
+            "ops": [("launches", prompts, 24), ("logits", toks.numpy())]}
+    outs = torch_tp_worker.spawn(str(tmp_path), 2, (1, 2), [case],
+                                 device=device, backend=backend)
+    (got, got_counts), got_logits = outs[0]["tp"]
+    assert outs[1]["tp"][0] == (got, got_counts)
+    cfg = ModelConfig(dtype=torch.bfloat16, **TP_CFG)
+    params = torch_tp_worker._params(case, cfg)
+    eng = InferenceEngine(params, cfg, InferenceConfig(**icfg),
+                          device="cuda")
+    kernels.reset_launch_counts()
+    want = [r.tokens for r in eng.generate_batch(prompts, 24,
+                                                 temperature=0.0)]
+    assert got_counts == kernels.launch_counts()
+    want_logits = eng._model.forward_no_cache(
+        eng.params, cfg, toks.to("cuda")).float().cpu()
+    gap = (torch.from_numpy(got_logits) - want_logits).abs().max().item()
+    assert gap <= 5e-2 * want_logits.abs().max().item()
+    _tied_or_equal(cfg, eng.params, got, want, [len(p) for p in prompts])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,K,N", [
+    ("wqkv", 4096, 6144), ("wo", 2048, 4096), ("w_gateup", 4096, 11008),
+    ("w_down", 5504, 4096), ("lm_head", 4096, 16000)])
+def test_cuda_qmm_at_rank_local_shapes_matches_plain(name, K, N):
+    """The 7B's products as a TP=2 rank holds them (half the columns of
+    a column slot, half the rows of a row slot), M=4."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(K + N)
+    qt = _expert_stack(gen, 2, K, N)
+    x = torch.randn((4, K), generator=gen, device="cuda").to(torch.bfloat16)
+    got = qmm.qmm_int4(x, qt, 1).float()
+    want = qmm.qmatmul_plain(x, qt, 1).float()
+    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_decode_at_rank_local_heads_matches_plain():
+    """Decode attention over 16 of the 7B's 32 heads, T=1024, B=4."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    B, H, T, D = 4, 16, 1024, 128
+    kc = torch.randn((2, B, H, T, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    vc = torch.randn((2, B, H, T, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q = torch.randn((B, H, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    lens = torch.tensor([513, 530, 600, 1024], dtype=torch.int32,
+                        device="cuda")
+    got = decode_attention.decode_attention(q, kc, vc, lens, 1).float()
+    want = decode_attention.decode_plain(q, kc, vc, lens, 1).float()
+    torch.testing.assert_close(got, want, atol=1e-2, rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2], ids=["grouped", "e_loop"])
+def test_cuda_expert_parallel_partials_sum_to_the_plain_moe(B):
+    """Under EP=2 each rank mixes only its 2 of 4 experts (B=1: the
+    grouped kernel over its local slots, the other rank's experts gated
+    to 0, with no host sync; B=2: the E-loop over its 2 experts): the two
+    ranks' partial sums add up to the plain mix over all 4 experts."""
+    _need_cuda()
+    from turboinfer_tpu_torch.config import ModelConfig
+    from turboinfer_tpu_torch.kernels.dispatch import prepare_params
+    from turboinfer_tpu_torch.models import moe
+    from turboinfer_tpu_torch.models.common import params_to
+    from turboinfer_tpu_torch.parallel import comm, shardings
+    from turboinfer_tpu_torch.parallel.mesh import Mesh
+    from turboinfer_tpu_torch.quant.quantizer import quantize_params
+    from turboinfer_tpu_torch.config import QuantizationConfig, QuantType
+    cfg = ModelConfig(vocab_size=256, hidden_size=512, num_layers=2,
+                      num_heads=4, num_kv_heads=4, intermediate_size=1024,
+                      num_experts=4, experts_per_token=2,
+                      architecture="mixtral")
+    full = quantize_params(moe.init_params(cfg, seed=5, device="cpu"),
+                           QuantizationConfig(type=QuantType.INT4,
+                                              group_size=64))
+    gen = torch.Generator().manual_seed(B)
+    h = torch.randn((B, 1, 512), generator=gen).to(torch.bfloat16)
+    li = 1
+    lw = prepare_params(full)["layers"]
+    gates, top_i = moe.route(cfg, h, lw["router"][li])
+    want = moe.expert_mix(cfg, h, lw, li, gates, top_i)      # plain, CPU
+    got = torch.zeros_like(want).cuda()
+    hc, gc_, tc = h.cuda(), gates.cuda(), top_i.cuda()
+    for r in (0, 1):
+        view = Mesh(shape=(1, 2), coords=(0, r), device=torch.device("cuda"))
+        mine = prepare_params(params_to(
+            shardings.shard_params(full, view, shardings.moe_param_specs()),
+            "cuda"))["layers"]
+        torch.cuda.synchronize()
+        with comm.active(view):
+            if B == 1:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                got += moe.expert_mix(cfg, hc, mine, li, gc_, tc)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    got = got.cpu()
+    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()

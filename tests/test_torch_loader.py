@@ -984,8 +984,10 @@ def test_checkpoint_refuses_orbax_and_mesh(tmp_path):
     jckpt.save_checkpoint(d, jp, jcfg)
     with pytest.raises(ModelFormatError, match="Orbax"):
         tckpt.load_checkpoint(d, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tckpt.load_checkpoint(d, mesh=object(), device="cpu")
+    # onto a mesh too (the port restores rank slices of its own format)
+    from turboinfer_tpu_torch.parallel.mesh import single_device_mesh
+    with pytest.raises(ModelFormatError, match="Orbax"):
+        tckpt.load_checkpoint(d, mesh=single_device_mesh("cpu"))
 
 
 # -- the qtensor and quantizer remainders -----------------------------------

@@ -217,10 +217,16 @@ def test_submit_validation_and_queue():
     assert res[a].stop_reason == "length" and len(res[a].tokens) == 7
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(parallel="pp")])
+@pytest.mark.parametrize("kw", [dict(parallel="cp", mesh=True),
+                                dict(parallel="pp")])
 def test_unported_modes_raise(kw):
+    """Pipeline and context parallelism wait for the next slice (a
+    (data, tp) mesh is served: tests/test_torch_tp_serving.py)."""
+    from turboinfer_tpu_torch.parallel.mesh import single_device_mesh
     jcfg, jp, tcfg, tp = models()
-    with pytest.raises(NotImplementedError):
+    if kw.get("mesh"):
+        kw = dict(kw, mesh=single_device_mesh("cpu"))
+    with pytest.raises(NotImplementedError, match="next slice"):
         TContinuous(tp, tcfg, device="cpu", **kw)
     # the paged scheduler takes prefill_chunk and never chunks, as JAX's
     js, ts = pair("paged", prefill_chunk=16)

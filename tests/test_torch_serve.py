@@ -394,6 +394,72 @@ def test_serving_thread_survives_step_exception():
     eng.shutdown()
 
 
+class _FollowerMesh:
+    """Rank 0's view of a two-rank mesh for ServingEngine (its plans go
+    to comm.broadcast_plan, patched in the tests below)."""
+    size, rank = 2, 0
+
+
+def test_sharded_server_ends_the_run_on_a_step_error(monkeypatch):
+    """On a mesh a failed step may leave the followers inside a
+    collective: rank 0 answers the open requests with an error, stops
+    serving, and serve_forever raises, so the process exits non-zero."""
+    from turboinfer_tpu_torch.serve import engine as serve_engine
+    from turboinfer_tpu_torch.serve import http_server
+    plans = []
+    monkeypatch.setattr(serve_engine.comm, "broadcast_plan",
+                        lambda ops, mesh: plans.append(ops))
+    _, _, tcfg, tp = models()
+    sched = ContinuousBatchingScheduler(tp, tcfg, icfg(), batch_slots=2,
+                                        device="cpu")
+
+    def broken_step():
+        raise RuntimeError("injected failure")
+
+    sched.step = broken_step
+    eng = ServingEngine(sched, mesh=_FollowerMesh())
+    raised = []
+
+    def serve():
+        try:
+            http_server.serve_forever(eng, "127.0.0.1", 0)
+        except RuntimeError as e:
+            raised.append(e)
+
+    t = threading.Thread(target=serve, daemon=True)
+    t.start()
+    while eng.on_error is None:
+        time.sleep(0.01)
+    _, end = eng.result(eng.submit([1, 2, 3], 4, temperature=0.0),
+                        timeout=60)
+    t.join(60)
+    assert not t.is_alive() and not eng._thread.is_alive()
+    assert end.stop_reason == "error: injected failure"
+    assert "injected failure" in str(raised[0])
+    assert str(eng.error) == "injected failure"
+    assert any(("step",) in ops for ops in plans)
+
+
+def test_a_follower_error_leaves_follow(monkeypatch):
+    """A follower whose step raises does not reset and wait for the next
+    plan (rank 0 may be inside a collective with it): the error leaves
+    follow and ends the process."""
+    from turboinfer_tpu_torch.serve import engine as serve_engine
+    monkeypatch.setattr(serve_engine.comm, "broadcast_plan",
+                        lambda ops, mesh: [("submit", [1, 2, 3], 4, {}),
+                                           ("step",)])
+    _, _, tcfg, tp = models()
+    sched = ContinuousBatchingScheduler(tp, tcfg, icfg(), batch_slots=2,
+                                        device="cpu")
+
+    def broken_step():
+        raise RuntimeError("injected failure")
+
+    sched.step = broken_step
+    with pytest.raises(RuntimeError, match="injected failure"):
+        serve_engine.follow(sched, _FollowerMesh())
+
+
 def test_fail_all_abandons_a_chunked_admission():
     """A step() that fails while a chunked admission is in flight fails
     the admitting request and the live one; the slots it held free up and

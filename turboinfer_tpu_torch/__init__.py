@@ -71,7 +71,8 @@ def load_model(model_path: str,
                device="cuda", **engine_kw) -> InferenceEngine:
     """Load a model file (.gguf, .safetensors, .pt, .tinq, an HF or
     checkpoint directory) into a ready engine on `device`; engine_kw
-    passes through to loader.load_engine (lora=, ...)."""
+    passes through to loader.load_engine (lora=, mesh=, ...:
+    a parallel.mesh.Mesh runs the engine on this rank's slice)."""
     from turboinfer_tpu_torch.loader import loader
     return loader.load_engine(model_path, config, device=device, **engine_kw)
 

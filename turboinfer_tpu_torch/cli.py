@@ -11,9 +11,15 @@ Commands:
   bench      the port's benchmark (not written yet: exits 2)
 
 Every command that runs a model runs it on the GPU; `--device cpu` asks
-for the plain PyTorch versions on the CPU instead. Sharded serving
-(--tp, --pp-stages, --context-parallel above 1) is not ported yet and
-exits 2.
+for the plain PyTorch versions on the CPU instead. `serve --tp N` runs
+as N processes, one a GPU:
+
+  torchrun --nproc-per-node N -m turboinfer_tpu_torch serve MODEL --tp N
+
+(NCCL, rank r on cuda:LOCAL_RANK; with --device cpu, gloo). Rank 0
+answers HTTP; the other ranks replay its plans (serve/engine.follow).
+Pipeline and context parallelism (--pp-stages, --context-parallel above
+1) are not ported yet and exit 2.
 """
 
 from __future__ import annotations
@@ -24,8 +30,8 @@ import json
 import os
 import sys
 
-_MESH = ("sharded serving is not ported yet (ROADMAP §1 item 13): "
-         "{flag} must be 1")
+_MESH = ("pipeline and context parallelism are not ported yet (ROADMAP "
+         "§1 item 13, the next slice): {flag} must be 1")
 
 
 def _add_device(p):
@@ -34,9 +40,10 @@ def _add_device(p):
                         "(their plain PyTorch versions)")
 
 
-def _refuse_mesh(args) -> bool:
-    """Print why and return True if a mesh flag asks for > 1 device."""
-    for flag in ("tp", "pp_stages", "context_parallel"):
+def _refuse_mesh(args, flags=("pp_stages", "context_parallel")) -> bool:
+    """Print why and return True if a flag of a mode not ported yet asks
+    for > 1 device."""
+    for flag in flags:
         if getattr(args, flag, 1) > 1:
             name = "--" + flag.replace("_", "-")
             print(_MESH.format(flag=name), file=sys.stderr)
@@ -99,24 +106,64 @@ def cmd_chat(args):
     return 0
 
 
+def _serve_mesh(args):
+    """(mesh, None) for `serve --tp N` under torchrun (the default group
+    joined: NCCL on the GPUs, gloo with --device cpu), (None, None) at
+    --tp 1, (None, 2) when the processes are not there."""
+    if args.tp <= 1:
+        return None, None
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != args.tp:
+        print(f"serve --tp {args.tp} runs as {args.tp} processes: torchrun "
+              f"--nproc-per-node {args.tp} -m turboinfer_tpu_torch serve "
+              f"MODEL --tp {args.tp} (WORLD_SIZE is {world})",
+              file=sys.stderr)
+        return None, 2
+    from turboinfer_tpu_torch.parallel import mesh as pmesh
+    rank = int(os.environ["RANK"])
+    cpu = args.device == "cpu"
+    device = ("cpu" if cpu else f"cuda:{os.environ.get('LOCAL_RANK', rank)}"
+              if args.device == "cuda" else args.device)
+    pmesh.initialize_distributed("gloo" if cpu else "nccl", args.dist_init,
+                                 world, rank)
+    return pmesh.make_mesh((1, args.tp), device=device), None
+
+
 def cmd_serve(args):
-    """OpenAI-compatible HTTP server over continuous batching."""
+    """OpenAI-compatible HTTP server over continuous batching; rank 0 of
+    `--tp N` serves, the other ranks follow its plans."""
     import turboinfer_tpu_torch as ti
+    if _refuse_mesh(args):
+        return 2
+    mesh, rc = _serve_mesh(args)
+    if rc is not None:
+        return rc
+    try:
+        return _serve(args, ti, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _serve(args, ti, mesh):
     from turboinfer_tpu_torch.engine.engine import InferenceEngine
     from turboinfer_tpu_torch.engine.scheduler import (
         ContinuousBatchingScheduler, PagedContinuousScheduler)
     from turboinfer_tpu_torch.loader import loader as loader_mod
     from turboinfer_tpu_torch.serve import ServingEngine, serve_forever
-    if _refuse_mesh(args):
-        return 2
-    ti.initialize(enable_logging=not args.quiet)
-    data = loader_mod.load_model_data(args.model, device=args.device)
+    from turboinfer_tpu_torch.serve.engine import follow
+    ti.initialize(enable_logging=not args.quiet and
+                  (mesh is None or mesh.rank == 0))
+    # a rank reads the file to the host and keeps its own slice
+    host = "cpu" if mesh is not None else args.device
+    data = loader_mod.load_model_data(args.model, device=host)
     if args.lora:
         # a LoRA fine-tune: the adapter rides the scheduler's params
         # through the runtime low-rank path (quantized bases included)
         from turboinfer_tpu_torch.loader import lora as lora_mod
         data.params = lora_mod.apply_lora(data.params, lora_mod.load_lora(
-            args.lora, data.config, device=args.device))
+            args.lora, data.config, device=host))
     cfg = ti.InferenceConfig(max_seq_len=args.max_seq_len
                              or data.config.max_seq_len,
                              kv_cache_dtype=args.kv_cache_dtype)
@@ -125,12 +172,11 @@ def cmd_serve(args):
     cls = PagedContinuousScheduler if args.paged \
         else ContinuousBatchingScheduler
     kw = dict(batch_slots=args.slots, max_queue=args.max_queue,
-              decode_burst=args.burst, device=args.device)
+              decode_burst=args.burst, device=args.device, mesh=mesh)
     if args.paged:
         kw["page_size"] = args.page_size
     if args.draft_model:
-        draft = loader_mod.load_model_data(args.draft_model,
-                                           device=args.device)
+        draft = loader_mod.load_model_data(args.draft_model, device=host)
         kw.update(draft_params=draft.params, draft_config=draft.config,
                   spec_k=args.spec_k)
     sched = cls(data.params, data.config, cfg, tokenizer=data.tokenizer,
@@ -140,14 +186,18 @@ def cmd_serve(args):
     # run on the serving serving thread
     beam_eng = InferenceEngine(sched.params, data.config, cfg,
                                tokenizer=data.tokenizer, device=args.device,
-                               params_are_prepared=True)
+                               params_are_prepared=True, mesh=mesh)
+    if mesh is not None and mesh.rank != 0:
+        follow(sched, mesh, beam_eng)
+        return 0
     eng = ServingEngine(sched, tokenizer=data.tokenizer,
                         model_name=args.served_name
                         or os.path.basename(os.path.normpath(args.model)),
-                        beam_engine=beam_eng)
+                        beam_engine=beam_eng, mesh=mesh)
+    tp = f", tp {mesh.tp}" if mesh is not None else ""
     print(f"serving {eng.model_name} on http://{args.host}:{args.port}/v1 "
           f"({args.slots} slots{', paged' if args.paged else ''}, "
-          f"{args.device})", file=sys.stderr, flush=True)
+          f"{args.device}{tp})", file=sys.stderr, flush=True)
     serve_forever(eng, args.host, args.port, verbose=not args.quiet)
     return 0
 
@@ -276,7 +326,8 @@ def main(argv=None):
                    help="PEFT LoRA adapter dir/file applied at runtime "
                         "(works on quantized bases)")
     g.add_argument("--context-parallel", type=int, default=1, metavar="N",
-                   help="not ported yet: values above 1 exit 2")
+                   help="not ported yet (the next slice): values above 1 "
+                        "exit 2")
     g.add_argument("--quiet", action="store_true")
     _add_device(g)
     g.set_defaults(fn=cmd_generate)
@@ -310,12 +361,18 @@ def main(argv=None):
     s.add_argument("--max-queue", type=int, default=256,
                    help="waiting-request cap before 429s")
     s.add_argument("--pp-stages", type=int, default=1,
-                   help="not ported yet: values above 1 exit 2")
+                   help="not ported yet (the next slice): values above 1 "
+                        "exit 2")
     s.add_argument("--tp", type=int, default=1,
-                   help="not ported yet: values above 1 exit 2")
+                   help="tensor/expert parallel degree: run under torchrun "
+                        "--nproc-per-node N (one GPU a rank)")
+    s.add_argument("--dist-init", default="env://", dest="dist_init",
+                   help="torch.distributed init_method of --tp ranks "
+                        "(default env://, as torchrun sets it)")
     s.add_argument("--context-parallel", type=int, default=1,
                    metavar="N", dest="context_parallel",
-                   help="not ported yet: values above 1 exit 2")
+                   help="not ported yet (the next slice): values above 1 "
+                        "exit 2")
     s.add_argument("--draft-model", default=None,
                    help="speculative decoding: small draft model file; "
                         "each scheduler step proposes --spec-k tokens "

@@ -38,6 +38,7 @@ from turboinfer_tpu_torch.models import registry
 from turboinfer_tpu_torch.models.common import (KVCache, check_kv_dtype,
                                                 param_bytes, params_to,
                                                 resolve_kv_dtype)
+from turboinfer_tpu_torch.parallel import comm, shardings
 from turboinfer_tpu_torch.utils.device import resolve_device
 from turboinfer_tpu_torch.utils.errors import TokenError
 from turboinfer_tpu_torch.utils.metrics import EngineStats
@@ -120,23 +121,46 @@ class InferenceEngine:
     def __init__(self, params: Dict[str, Any], model_config: ModelConfig,
                  config: Optional[InferenceConfig] = None,
                  tokenizer=None, device="cuda",
-                 params_are_prepared: bool = False):
-        self.device = resolve_device(device)
-        self._model = registry.get_model(model_config.architecture)
-        self._model.check_supported(model_config)
+                 params_are_prepared: bool = False, mesh=None,
+                 parallel: str = "tp"):
+        """mesh: a parallel.mesh.Mesh (data, tp). The engine then runs on
+        this rank's device (mesh.device) with this rank's slice of the
+        weights (parallel/shardings.rank_params: the family's spec set),
+        and every path runs the rank-local forward, whose collectives
+        keep single-device semantics. generate_batch splits its rows over
+        the data axis where they divide and gathers the results on every
+        rank; other batches run whole on every data rank. parallel="pp"
+        and "cp" are not ported yet. With params_are_prepared=True under
+        a mesh, params are already this rank's prepared slice (a sharded
+        scheduler's)."""
+        if parallel not in ("tp", "pp", "cp"):
+            raise ValueError(f"parallel must be 'tp', 'pp' or 'cp', "
+                             f"got {parallel!r}")
+        if mesh is not None and parallel != "tp":
+            raise NotImplementedError(
+                f"parallel={parallel!r} (pipeline / context parallelism) "
+                "is not ported yet: ROADMAP §1 item 13, the next slice")
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
+        module = registry.get_model(model_config.architecture)
+        module.check_supported(model_config)
+        self._model = shardings.rank_model(module, model_config, mesh)
+        self._rank_config = shardings.rank_config(model_config, mesh)
         self.model_config = model_config
         self.config = config or InferenceConfig(
             max_seq_len=model_config.max_seq_len)
         self.tokenizer = tokenizer
         self._kv_dtype = resolve_kv_dtype(self.config.kv_cache_dtype,
                                           model_config.dtype)
-        check_kv_dtype(self._model, model_config.architecture,
-                       self._kv_dtype)
+        check_kv_dtype(module, model_config.architecture, self._kv_dtype)
         if self.config.decode_loop not in ("scan", "host"):
             raise ValueError(f"decode_loop must be 'scan' or 'host', got "
                              f"{self.config.decode_loop!r}")
-        self.params = (params if params_are_prepared
-                       else prepare_params(params_to(params, self.device)))
+        if not params_are_prepared:
+            params = shardings.rank_params(params, model_config, mesh)
+            params = prepare_params(params_to(params, self.device))
+        self.params = params
         self.stats = EngineStats()
         self._gen = self._new_generator()
         self._cache_pool: Dict[Tuple[int, int], KVCache] = {}
@@ -262,20 +286,47 @@ class InferenceEngine:
                        max_new_tokens: int = 50, *,
                        return_logprobs: bool = False,
                        **sampling_kw) -> List[GenerationResult]:
-        """One prefill and one decode step per token for ALL rows."""
+        """One prefill and one decode step per token for ALL rows. On a
+        mesh with a data axis that divides the rows, each data rank runs
+        its block of rows (parallel/shardings.data_rows) and the results
+        are gathered on every rank (replicate_for_host). Its samples are
+        those of one process running the whole batch: the rank draws the
+        whole batch's noise and takes its rows', and runs as many steps."""
         for p in prompts:
             self._validate(p)
+        first, n = shardings.data_rows(len(prompts), self.mesh)
+        if n < len(prompts):
+            return shardings.replicate_for_host(self._generate_batch(
+                prompts[first:first + n], max_new_tokens, return_logprobs,
+                sampling_kw, part=(first, prompts)), self.mesh)
+        return self._generate_batch(prompts, max_new_tokens, return_logprobs,
+                                    sampling_kw)
+
+    def _all_done(self, done: bool, draw) -> bool:
+        """Whether every row finished; for this data rank's block of a
+        batch (draw given), every data rank's rows (one host all-gather)."""
+        if draw is None:
+            return done
+        return all(comm.gather_rows_for_host(done, self.mesh))
+
+    def _generate_batch(self, prompts, max_new_tokens, return_logprobs,
+                        sampling_kw, part=None) -> List[GenerationResult]:
+        """part=(first, whole batch) when prompts are a data rank's block:
+        the step count and the draws follow the whole batch."""
         sp = self._sampling_params(**sampling_kw)
         eos, pad = self.config.eos_token_id, self.config.pad_token_id
         max_seq = self.config.max_seq_len
         t0 = time.perf_counter()
+        draw = None if part is None else (part[0], len(part[1]))
         if not self.config.use_cache:
             return self._generate_batch_nocache(prompts, max_new_tokens, sp,
-                                                eos, t0, return_logprobs)
+                                                eos, t0, return_logprobs,
+                                                draw)
 
         tokens, seq_lens, S = self._pad_batch(prompts)
         B = len(prompts)
-        lens_lim = min(len(p) for p in prompts)
+        lens_lim = min(len(p) for p in (prompts if part is None
+                                        else part[1]))
         max_new = min(max_new_tokens, max_seq - lens_lim)
         if max_new <= 0:
             return [GenerationResult(tokens=list(p), logprobs=[] if
@@ -292,7 +343,7 @@ class InferenceEngine:
 
         toks, lps, finished, cache = self._decode(
             last_logits, cache, sp, pc, max_new, lens_lim, eos, pad,
-            host_loop, return_logprobs)
+            host_loop, return_logprobs, draw)
         toks_np, lps_np, fin_np = (toks.cpu(), lps.cpu(), finished.cpu())
         self._put_cache(B, cache)
         t1 = time.perf_counter()
@@ -323,13 +374,14 @@ class InferenceEngine:
         return results
 
     def _decode(self, first_logits, cache, sp, pc, max_new, lens_lim, eos,
-                pad, host_loop, want_logprobs):
+                pad, host_loop, want_logprobs, draw=None):
         """Sample the first token from the prefill logits, then step.
 
         scan semantics (default): max_new rounded up to a multiple of 32
         (bounded by the shortest row's headroom) steps with no host sync,
         rows stop when their cache fills. host loop: max_new steps with
-        an early exit once every row finished."""
+        an early exit once every row finished. draw: sampling.categorical's
+        (a data rank's block of a batch)."""
         B = first_logits.shape[0]
         rows = torch.arange(B, device=self.device)
         n_steps = max_new
@@ -342,7 +394,7 @@ class InferenceEngine:
         def counts():
             return (pc + out_counts, out_counts) if sp.needs_counts else None
 
-        token = sampling.sample(self._gen, first_logits, sp, counts())
+        token = sampling.sample(self._gen, first_logits, sp, counts(), draw)
         toks = [token]
         lps = [sampling.token_logprob(first_logits, token) if want_logprobs
                else torch.zeros((B,), device=self.device)]
@@ -351,7 +403,7 @@ class InferenceEngine:
         finished = token == eos
         for _ in range(n_steps - 1):
             logits, cache = self._decode_step(token, cache)
-            nxt = sampling.sample(self._gen, logits, sp, counts())
+            nxt = sampling.sample(self._gen, logits, sp, counts(), draw)
             lp = (torch.where(finished, 0.0, sampling.token_logprob(logits, nxt))
                   if want_logprobs else torch.zeros((B,), device=self.device))
             nxt = torch.where(finished, torch.full_like(nxt, pad), nxt)
@@ -363,13 +415,13 @@ class InferenceEngine:
             toks.append(nxt)
             lps.append(lp)
             token = nxt
-            if host_loop and bool(finished.all()):
+            if host_loop and self._all_done(bool(finished.all()), draw):
                 break
         return (torch.stack(toks, dim=1), torch.stack(lps, dim=1), finished,
                 cache)
 
     def _generate_batch_nocache(self, prompts, max_new_tokens, sp, eos, t0,
-                                want_logprobs):
+                                want_logprobs, draw=None):
         """use_cache=False (JAX _generate_batch_nocache): every new token
         recomputes the whole padded sequence through the model's
         forward_no_cache and samples from its last valid position; the
@@ -382,7 +434,7 @@ class InferenceEngine:
         finished, stop = [False] * B, ["length"] * B
         rows = torch.arange(B, device=self.device)
         for _ in range(max_new_tokens):
-            if all(finished):
+            if self._all_done(all(finished), draw):
                 break
             tokens, seq_lens, _ = self._pad_batch(seqs)
             logits = self._model.forward_no_cache(
@@ -397,7 +449,7 @@ class InferenceEngine:
                                    for i, p in zip(ids, prompts)])
                 counts = (every.to(self.device, torch.int32),
                           out.to(self.device, torch.int32))
-            nxt = sampling.sample(self._gen, last, sp, counts)
+            nxt = sampling.sample(self._gen, last, sp, counts, draw)
             lp = sampling.token_logprob(last, nxt)
             for b, (t, p) in enumerate(zip(nxt.tolist(), lp.tolist())):
                 if finished[b]:
@@ -804,8 +856,8 @@ class InferenceEngine:
 
     def memory_usage(self) -> int:
         """Bytes for weights + one max-shape KV cache (with an int8
-        cache's f32 scale planes)."""
-        c = self.model_config
+        cache's f32 scale planes); on a mesh, this rank's."""
+        c = self._rank_config
         rows = (c.num_layers * self.config.max_batch_size
                 * self.config.max_seq_len * c.kv_heads)
         itemsize = torch.empty((), dtype=self._kv_dtype).element_size()

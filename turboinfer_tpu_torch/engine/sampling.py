@@ -97,21 +97,28 @@ def apply_penalties(logits: torch.Tensor, counts: torch.Tensor,
             - per_row(presence_penalty) * (out_counts > 0).to(torch.float32))
 
 
-def categorical(generator: torch.Generator, logits: torch.Tensor
-                ) -> torch.Tensor:
+def categorical(generator: torch.Generator, logits: torch.Tensor,
+                draw=None) -> torch.Tensor:
     """One draw per row from softmax(logits) over the last axis, by
-    Gumbel-max (as jax.random.categorical draws) -> int64 indices."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device,
-                   dtype=torch.float32).clamp_(
-                       min=torch.finfo(torch.float32).tiny)
+    Gumbel-max (as jax.random.categorical draws) -> int64 indices.
+    draw=(first, total): logits [B, V] are rows first..first+B of a batch
+    of total rows; the noise is drawn for the whole batch and these rows'
+    taken, so a data rank samples what one process running the whole
+    batch would."""
+    shape = logits.shape if draw is None else (draw[1],) + logits.shape[1:]
+    u = torch.rand(shape, generator=generator, device=logits.device,
+                   dtype=torch.float32)
+    if draw is not None:
+        u = u[draw[0]:draw[0] + logits.shape[0]]
+    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
 def sample(generator: torch.Generator, logits: torch.Tensor,
-           params: SamplingParams, counts=None) -> torch.Tensor:
+           params: SamplingParams, counts=None, draw=None) -> torch.Tensor:
     """logits [..., V] -> tokens [...] int32. temperature <= 0 is greedy
     (penalties still apply). counts = (all_counts, out_counts) is needed
-    iff params.needs_counts."""
+    iff params.needs_counts. draw: categorical's."""
     x = logits.to(torch.float32)
     if params.needs_counts:
         all_counts, out_counts = counts
@@ -138,7 +145,7 @@ def sample(generator: torch.Generator, logits: torch.Tensor,
         x = apply_top_k(x, params.top_k)
         x = apply_top_p(x, params.top_p)
     x = apply_min_p(x, params.min_p)
-    return categorical(generator, x).to(torch.int32)
+    return categorical(generator, x, draw).to(torch.int32)
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:

@@ -32,8 +32,13 @@ at full width.
 The JAX package's jitted programs are plain methods here, run eagerly
 on the scheduler's device. A step moves its results to the host with
 ONE device-to-host copy; the paged block table is uploaded only when
-the host changed it. Not ported yet: meshes and the other parallel
-modes (ROADMAP §1 item 13).
+the host changed it. On a (data, tp) mesh (parallel/mesh.py) every rank
+runs the same scheduler over its slice of the weights and of the KV
+heads (parallel/shardings.py: the family's spec set, the draft's
+family's for a draft model); the slots and page tables are host state
+that every rank keeps alike, so the slot caches replicate over the data
+axis. Not ported yet: pipeline and context parallelism (ROADMAP §1 item
+13).
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from turboinfer_tpu_torch.kernels.dispatch import prepare_params
 from turboinfer_tpu_torch.models import registry
 from turboinfer_tpu_torch.models.common import (KVCache, check_kv_dtype,
                                                 params_to, resolve_kv_dtype)
+from turboinfer_tpu_torch.parallel import shardings
 from turboinfer_tpu_torch.structured import TokenMaskCache
 from turboinfer_tpu_torch.structured.schema_fsm import SchemaFSM
 from turboinfer_tpu_torch.utils.device import resolve_device
@@ -145,18 +151,22 @@ class ContinuousBatchingScheduler:
         trip (admission happens between bursts; a slot that finishes
         mid-burst idles for the rest of it). draft_params/draft_config
         attach a draft model for speculative rounds of spec_k tokens.
-        tokenizer: the vocab the response_format grammars mask."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh (sharded serving) is not ported yet: ROADMAP §1 "
-                "item 13")
+        tokenizer: the vocab the response_format grammars mask.
+        mesh: a parallel.mesh.Mesh; the scheduler then runs on mesh.device
+        with this rank's slice of the weights under its family's spec set
+        (module docstring)."""
         if parallel != "tp":
             raise NotImplementedError(
-                f"parallel={parallel!r} is not ported yet: ROADMAP §1 item "
-                "13")
-        self.device = resolve_device(device)
-        self._model = registry.get_model(model_config.architecture)
-        self._model.check_supported(model_config)
+                f"parallel={parallel!r} (pipeline / context parallelism) is "
+                "not ported yet: ROADMAP §1 item 13, the next slice")
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
+        module = registry.get_model(model_config.architecture)
+        module.check_supported(model_config)
+        self._model = shardings.rank_model(module, model_config, mesh)
+        # the config this rank's caches and page pools are shaped by
+        self._rank_config = shardings.rank_config(model_config, mesh)
         self.model_config = model_config
         self.config = config or InferenceConfig(
             max_seq_len=model_config.max_seq_len)
@@ -164,9 +174,9 @@ class ContinuousBatchingScheduler:
         # cache takes the same setting at the draft's dtype
         self._kv_dtype = resolve_kv_dtype(self.config.kv_cache_dtype,
                                           model_config.dtype)
-        check_kv_dtype(self._model, model_config.architecture,
-                       self._kv_dtype)
-        self.params = prepare_params(params_to(params, self.device))
+        check_kv_dtype(module, model_config.architecture, self._kv_dtype)
+        self.params = prepare_params(params_to(shardings.rank_params(
+            params, model_config, mesh), self.device))
         self.B = batch_slots
         self.T = self.config.max_seq_len
         self.decode_burst = max(1, int(decode_burst))
@@ -218,14 +228,17 @@ class ContinuousBatchingScheduler:
         if draft_params is not None:
             if draft_config is None:
                 raise ValueError("draft_params requires draft_config")
-            self._dmodel = registry.get_model(draft_config.architecture)
-            self._dmodel.check_supported(draft_config)
+            dmodule = registry.get_model(draft_config.architecture)
+            dmodule.check_supported(draft_config)
+            self._dmodel = shardings.rank_model(dmodule, draft_config, mesh)
             self._dkv_dtype = resolve_kv_dtype(self.config.kv_cache_dtype,
                                                draft_config.dtype)
-            check_kv_dtype(self._dmodel, draft_config.architecture,
+            check_kv_dtype(dmodule, draft_config.architecture,
                            self._dkv_dtype)
             self.draft_config = draft_config
-            self.draft_params = prepare_params(params_to(draft_params, dev))
+            self.draft_params = prepare_params(params_to(
+                shardings.rank_params(draft_params, draft_config, mesh),
+                dev))
             self.dcache = self._dmodel.init_cache(draft_config, B,
                                                   max_seq=self.T,
                                                   dtype=self._dkv_dtype,
@@ -981,7 +994,7 @@ class PagedContinuousScheduler(ContinuousBatchingScheduler):
         max_pages = -(-self.T // page_size)
         if num_pages is None:
             num_pages = 1 + self.B * max_pages      # +1: the trash page
-        self.cache = pc.init_paged_cache(model_config, self.B,
+        self.cache = pc.init_paged_cache(self._rank_config, self.B,
                                          num_pages=num_pages,
                                          page_size=page_size, max_seq=self.T,
                                          dtype=self._kv_dtype,

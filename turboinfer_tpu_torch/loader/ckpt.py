@@ -14,8 +14,10 @@ A checkpoint is a directory holding
 QTensors persist as their packed data, scales and zero points, so a
 quantized model restores without a dequantize round trip. A checkpoint
 the JAX package wrote (Orbax, format "turboinfer-orbax") raises
-ModelFormatError; restoring onto a device mesh waits for the port's
-multi-GPU work (ROADMAP item 13).
+ModelFormatError. load_checkpoint(mesh=) restores this rank's slice of
+every array (parallel/shardings.py) straight from the memory-mapped
+file; where JAX's restore replicates an axis that does not divide, the
+port refuses (ROADMAP §2).
 """
 
 from __future__ import annotations
@@ -125,13 +127,32 @@ def _config_from_manifest(cfg: Dict[str, Any]) -> ModelConfig:
     return ModelConfig(**kw, dtype=dtype)
 
 
+def _to_device(tree, dev):
+    """A tree of mapped arrays (or slices of them) on dev, every array a
+    copy that owns its memory (the mapping closes)."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return QTensor(data=_to_device(tree.data, dev),
+                       scales=_to_device(tree.scales, dev),
+                       zero_points=None if tree.zero_points is None else
+                       _to_device(tree.zero_points, dev),
+                       bits=tree.bits, group_size=tree.group_size,
+                       shape=tree.shape)
+    if isinstance(tree, QEmbed):
+        return QEmbed(_to_device(tree.data, dev),
+                      _to_device(tree.scales, dev))
+    return tree.to(dev, copy=True)
+
+
 def load_checkpoint(path: str, mesh=None, device="cuda"):
-    """Restore (params, config, metadata) onto `device`."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "restoring a checkpoint onto a device mesh is not ported yet "
-            "(ROADMAP item 13)")
-    dev = resolve_device(device)
+    """Restore (params, config, metadata) onto `device`. With `mesh` (a
+    parallel.mesh.Mesh), onto mesh.device and only this rank's rows or
+    columns of each split array under its family's spec set: the slices are cut from the memory-mapped
+    file before anything moves to the device, so no replicated copy of a
+    split array is made there. A split that would cut a quantization
+    group, or an axis that does not divide, raises ValueError."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     path = os.path.abspath(path)
     mpath = os.path.join(path, _MANIFEST)
     if not os.path.exists(mpath):
@@ -146,7 +167,16 @@ def load_checkpoint(path: str, mesh=None, device="cuda"):
             "(loader/tinq.py) and load that")
     config = _config_from_manifest(manifest["config"])
     with st_mod.read_safetensors(os.path.join(path, _ARRAYS)) as sf:
-        flat = {k: sf.torch_tensor(k).to(dev, copy=True) for k in sf.keys()}
-    params = _join(flat, manifest["qtensors"])
-    tlog.log_info("restored checkpoint %s", path)
+        if mesh is None:
+            flat = {k: sf.torch_tensor(k).to(dev, copy=True)
+                    for k in sf.keys()}
+            params = _join(flat, manifest["qtensors"])
+        else:
+            from turboinfer_tpu_torch.parallel import shardings
+            lazy = _join({k: sf.torch_tensor(k) for k in sf.keys()},
+                         manifest["qtensors"])
+            mine = shardings.rank_params(lazy, config, mesh)
+            params = _to_device(mine, dev)
+    tlog.log_info("restored checkpoint %s%s", path, "" if mesh is None
+                  else f" onto rank {mesh.rank} of mesh {mesh.shape}")
     return params, config, manifest.get("metadata", {})

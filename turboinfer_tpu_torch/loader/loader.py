@@ -320,14 +320,17 @@ def load_engine(path: str, config: Optional[InferenceConfig] = None,
     lora: an optional PEFT adapter directory or file, attached through
     the runtime low-rank path (works on quantized bases). The engine's
     tokenizer is the file's, else the built-in one; without `config`,
-    max_seq_len is the model's and eos the tokenizer's."""
+    max_seq_len is the model's and eos the tokenizer's. With
+    engine_kw["mesh"], the file is read to the host and the engine keeps
+    this rank's slice on mesh.device."""
     from turboinfer_tpu_torch.engine.engine import InferenceEngine
     from turboinfer_tpu_torch.loader import lora as lora_mod
-    data = load_model_data(path, device=device)
+    host = "cpu" if engine_kw.get("mesh") is not None else device
+    data = load_model_data(path, device=host)
     if lora is not None:
         data.params = lora_mod.apply_lora(
             data.params, lora_mod.load_lora(lora, data.config,
-                                            device=device))
+                                            device=host))
     tokenizer = data.tokenizer or tok_mod.BuiltinTokenizer(
         vocab_size=data.config.vocab_size)
     if config is None:

@@ -66,6 +66,7 @@ from turboinfer_tpu_torch.models.common import KVCache, encode_kv_scaled
 # the model interface the JAX registry names (models/registry.py)
 from turboinfer_tpu_torch.models.common import (  # noqa: F401
     param_bytes, param_count, reset_cache)
+from turboinfer_tpu_torch.parallel import comm
 from turboinfer_tpu_torch.utils.device import resolve_device
 from turboinfer_tpu_torch.utils.errors import ConfigError
 
@@ -368,7 +369,8 @@ def _ffn(config: ModelConfig, h: torch.Tensor, lw: Dict[str, Any], li: int,
     gateless shared experts in f32 -> [B, S, H] in h.dtype."""
     if dense:
         g, u = llama.gate_up_proj(h, lw, li)
-        return ops.qmatmul(ops.glu(g, u).to(h.dtype), lw["w_down"], li)
+        return comm.tp_sum(ops.qmatmul(ops.glu(g, u).to(h.dtype),
+                                       lw["w_down"], li))
     gates, top_i = _route(config, h, lw["router"][li], lw["router_bias"][li])
     out = moe.expert_mix(config, h, lw, li, gates, top_i)
     if "ws_gate" in lw:
@@ -376,7 +378,8 @@ def _ffn(config: ModelConfig, h: torch.Tensor, lw: Dict[str, Any], li: int,
                     ops.qmatmul(h, lw["ws_up"], li))
         s = ops.qmatmul(s.to(h.dtype), lw["ws_down"], li)
         out = out + s.to(torch.float32)
-    return out.to(h.dtype)
+    # the rank's experts and shared-expert rows: one all-reduce for both
+    return comm.tp_sum(out).to(h.dtype)
 
 
 def _groups(params: Dict[str, Any], config: ModelConfig):
@@ -395,7 +398,7 @@ def _block(config: ModelConfig, x: torch.Tensor, lw: Dict[str, Any],
     -> RMSNorm -> FFN -> residual."""
     eps = config.rms_norm_eps
     h = ops.rms_norm(x, lw["attn_norm"][li], eps)
-    x = x + ops.qmatmul(attend(h).to(h.dtype), lw["wo"], li)
+    x = x + comm.tp_sum(ops.qmatmul(attend(h).to(h.dtype), lw["wo"], li))
     h = ops.rms_norm(x, lw["ffn_norm"][li], eps)
     return x + _ffn(config, h, lw, li, dense)
 

@@ -63,6 +63,7 @@ from turboinfer_tpu_torch.models.common import (  # noqa: F401
     param_bytes, param_count, reset_cache)
 from turboinfer_tpu_torch.models.llama import layer_window
 from turboinfer_tpu_torch.models.moe import dense_mix
+from turboinfer_tpu_torch.parallel import comm
 from turboinfer_tpu_torch.utils.device import resolve_device
 from turboinfer_tpu_torch.utils.errors import ConfigError
 
@@ -290,7 +291,10 @@ def _out_ffn(config: ModelConfig, x: torch.Tensor, attn: torch.Tensor,
     residual, of layer li. attn: [B, S, Hq, D]."""
     B, S, _ = x.shape
     attn = attn.reshape(B, S, -1).to(x.dtype)
-    x = x + (ops.qmatmul(attn, lw["wo"], li) + lw["b_o"][li].to(x.dtype))
+    # wo's rows are split on a sharded forward: b_o is added once, after
+    # the partial sums' all-reduce (parallel/comm.tp_sum)
+    x = x + (comm.tp_sum(ops.qmatmul(attn, lw["wo"], li))
+             + lw["b_o"][li].to(x.dtype))
     h = ops.rms_norm(x, lw["ffn_norm"][li], config.rms_norm_eps)
     return x + _moe_ffn(config, h, lw, li)
 
@@ -418,5 +422,6 @@ def forward_paged_decode(params: Dict[str, Any], config: ModelConfig,
             window=layer_window(config, li), sinks=layers["sinks"][li])
         x = _out_ffn(config, x, attn[:, None], layers, li)
     x = ops.rms_norm(x, params["final_norm"], config.rms_norm_eps)
-    logits = ops.qmatmul(x, params["lm_head"]).to(torch.float32)
+    logits = comm.gather_vocab(ops.qmatmul(x, params["lm_head"]).to(
+        torch.float32), config.vocab_size)
     return logits[:, 0], k_pages, v_pages

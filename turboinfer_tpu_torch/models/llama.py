@@ -58,6 +58,7 @@ from turboinfer_tpu_torch.models.common import init_cache as _init_cache
 # the model interface the JAX registry names (models/registry.py)
 from turboinfer_tpu_torch.models.common import (  # noqa: F401
     param_bytes, param_count, reset_cache)
+from turboinfer_tpu_torch.parallel import comm
 from turboinfer_tpu_torch.utils.device import resolve_device
 
 # The forwards thread int8 scale planes and read fp8 caches (the engine
@@ -137,6 +138,22 @@ def norm(config: ModelConfig, x: torch.Tensor, w: torch.Tensor
                         1.0 if config.norm_offset else 0.0)
 
 
+def wide_norm(config: ModelConfig, x: torch.Tensor, w: torch.Tensor
+              ) -> torch.Tensor:
+    """norm over the last axis when that axis spans heads that may live
+    on several tp ranks (OLMoE's whole-width q/k norm): off a sharded
+    forward it is norm; on one, the f32 sum of squares of every rank's
+    slice is all-reduced ([.., 1] a norm) and each rank scales its own."""
+    tp = comm.tp_size()
+    if tp == 1:
+        return norm(config, x, w)
+    xf = x.to(torch.float32)
+    ss = comm.tp_sum((xf * xf).sum(-1, keepdim=True))
+    wf = w.to(torch.float32) + (1.0 if config.norm_offset else 0.0)
+    y = xf * torch.rsqrt(ss / (x.shape[-1] * tp) + config.rms_norm_eps)
+    return (y * wf).to(x.dtype)
+
+
 def embed(config: ModelConfig, params: Dict[str, Any],
           tokens: torch.Tensor) -> torch.Tensor:
     """The embedding, times sqrt(H) (scale_embeddings) and Granite's
@@ -154,8 +171,9 @@ def head(config: ModelConfig, params: Dict[str, Any],
     """Final norm, lm_head, f32 logits, the final softcap, then Granite's
     logits_scaling."""
     x = norm(config, x, params["final_norm"])
-    logits = ops.apply_softcap(ops.qmatmul(x, params["lm_head"]).to(
-        torch.float32), config.final_logit_softcap)
+    logits = comm.gather_vocab(ops.qmatmul(x, params["lm_head"]).to(
+        torch.float32), config.vocab_size)
+    logits = ops.apply_softcap(logits, config.final_logit_softcap)
     if config.logits_scaling:
         logits = logits / config.logits_scaling
     return logits
@@ -266,8 +284,10 @@ def qkv_proj(config: ModelConfig, h: torch.Tensor, lw: Dict[str, Any],
     if config.qk_norm and "q_norm" in lw:
         qw, kw = lw["q_norm"][li], lw["k_norm"][li]
         if qw.shape[-1] == Hq * D:
-            q = norm(config, q.reshape(B, S, Hq * D), qw).reshape(q.shape)
-            k = norm(config, k.reshape(B, S, Hkv * D), kw).reshape(k.shape)
+            q = wide_norm(config, q.reshape(B, S, Hq * D), qw).reshape(
+                q.shape)
+            k = wide_norm(config, k.reshape(B, S, Hkv * D), kw).reshape(
+                k.shape)
         else:
             q, k = norm(config, q, qw), norm(config, k, kw)
     return torch.cat([q, k], dim=2), v.reshape(B, S, Hkv, D)
@@ -326,7 +346,9 @@ def dense_ffn(config: ModelConfig, h: torch.Tensor, lw: Dict[str, Any],
     the LoRA updates of gate, up and down."""
     gate, up = gate_up_proj(h, lw, li)
     g = ops.glu(gate, up, config.hidden_act).to(h.dtype)
-    return add_lora(ops.qmatmul(g, lw["w_down"], li), g, lw, "w_down", li)
+    # on a sharded forward w_down's rows are split: sum the partials
+    return comm.tp_sum(add_lora(ops.qmatmul(g, lw["w_down"], li), g, lw,
+                                "w_down", li))
 
 
 def _branch(config: ModelConfig, y: torch.Tensor, lw: Dict[str, Any],
@@ -351,6 +373,8 @@ def _attn_out_ffn(config: ModelConfig, x: torch.Tensor, attn: torch.Tensor,
     y = ops.qmatmul(attn, lw["wo"], li)
     if ffn_fn is dense_ffn:
         y = add_lora(y, attn, lw, "wo", li)
+    # wo's rows are split on a sharded forward (parallel/comm.tp_sum)
+    y = comm.tp_sum(y)
     x = x + _branch(config, y, lw, "post_attn_norm", li)
     h = norm(config, x, lw["ffn_norm"][li])
     return x + _branch(config, ffn_fn(config, h, lw, li), lw,

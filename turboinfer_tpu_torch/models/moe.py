@@ -27,7 +27,10 @@ Expert regimes, all exact (no capacity drops), as in the JAX package:
   - fp: gather the selected experts when B*S*k < E, else a dense masked
     einsum over all E.
 The paged decode and verify run the same FFN through llama's ffn_fn
-hook.
+hook. Under expert parallelism (parallel/shardings.moe_param_specs) a
+rank holds E / tp experts of every stack and sums only those; the
+router is replicated, and the rank's partial mix (with its rows of the
+shared expert) takes one all-reduce.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from turboinfer_tpu_torch.models import llama
 from turboinfer_tpu_torch.models.common import KVCache
 from turboinfer_tpu_torch.models.common import (  # noqa: F401
     param_bytes, param_count, reset_cache)
+from turboinfer_tpu_torch.parallel import comm
 from turboinfer_tpu_torch.utils.device import resolve_device
 from turboinfer_tpu_torch.utils.errors import ConfigError
 
@@ -171,7 +175,9 @@ def _moe_ffn(config: ModelConfig, h: torch.Tensor, lw: Dict[str, Any],
     out = expert_mix(config, h, lw, li, gates, top_i)
     if "ws_gate" in lw:
         out = out + shared_expert(h, lw, li)
-    return out.to(h.dtype)
+    # expert parallel: this rank's experts and shared-expert rows are
+    # partial sums, and one all-reduce serves both
+    return comm.tp_sum(out).to(h.dtype)
 
 
 def shared_expert(h: torch.Tensor, lw: Dict[str, Any], li: int
@@ -205,14 +211,33 @@ def dense_mix(gates: torch.Tensor, top_i: torch.Tensor, E: int
     return mix.scatter_add_(-1, top_i.long(), gates.to(torch.float32))
 
 
+def local_experts(config: ModelConfig) -> Tuple[int, int]:
+    """(first expert, expert count) of this rank: (0, E) off a sharded
+    forward, (tp_rank * E / tp, E / tp) under expert parallelism (the
+    stacks split on their expert axis)."""
+    n = config.num_experts // comm.tp_size()
+    return comm.tp_rank() * n, n
+
+
+def local_slots(top_i: torch.Tensor, gates: torch.Tensor, e0: int, n: int):
+    """Routed experts top_i as this rank's local expert ids, and the gates
+    with the other ranks' experts at 0: a clamped id still names a local
+    plane (read, then weighted 0), so the selection needs no host sync."""
+    loc = top_i - e0
+    mine = (loc >= 0) & (loc < n)
+    return loc.clamp(0, n - 1), gates * mine.to(gates.dtype)
+
+
 def expert_mix(config: ModelConfig, h: torch.Tensor, lw: Dict[str, Any],
                li: int, gates: torch.Tensor, top_i: torch.Tensor
                ) -> torch.Tensor:
     """Gate-weighted sum of the selected experts' SwiGLU outputs of layer
-    li -> [B, S, H] f32. gates/top_i: [B, S, k]."""
+    li -> [B, S, H] f32. gates/top_i: [B, S, k]. Under expert parallelism
+    (local_experts) only this rank's experts are summed: a partial sum."""
     if isinstance(lw["we_down"], QTensor):
         return _expert_ffn_quant(config, h, lw, li, gates, top_i)
     E, k = config.num_experts, config.experts_per_token
+    e0, n = local_experts(config)
     B, S, _ = h.shape
 
     def product(eq, a, w):
@@ -220,7 +245,9 @@ def expert_mix(config: ModelConfig, h: torch.Tensor, lw: Dict[str, Any],
                             w.to(h.dtype).to(torch.float32)).to(h.dtype)
     if B * S * k < E:
         # few tokens: gather only the selected experts (flat slot ids)
-        idx = li * E + top_i
+        if n != E:
+            top_i, gates = local_slots(top_i, gates, e0, n)
+        idx = li * n + top_i
 
         def take(w):
             return w.reshape((-1,) + tuple(w.shape[2:]))[idx]
@@ -230,6 +257,8 @@ def expert_mix(config: ModelConfig, h: torch.Tensor, lw: Dict[str, Any],
         return torch.einsum("bskh,bsk->bsh", out_e.to(torch.float32),
                             gates.to(torch.float32))
     mix = dense_mix(gates, top_i, E)
+    if n != E:
+        mix = mix[..., e0:e0 + n]
     g, u = _gate_up(lw, lambda w: product("bsh,ehf->bsef", h, w[li]))
     act = ops.glu(g, u).to(h.dtype)
     out_e = product("bsef,efh->bseh", act, lw["we_down"][li])
@@ -240,15 +269,20 @@ def _expert_ffn_quant(config: ModelConfig, h: torch.Tensor,
                       lw: Dict[str, Any], li: int, gates: torch.Tensor,
                       top_i: torch.Tensor) -> torch.Tensor:
     """Routed experts with quantized weights -> [B, S, H] f32. The
-    experts are planes li*E + e of the flat [L*E] stacks."""
+    rank's experts are planes li*n + e of the flat [L*n] stacks (n = E
+    off a sharded forward; local_experts)."""
     E, k = config.num_experts, config.experts_per_token
+    e0, n = local_experts(config)
     B, S, H = h.shape
-    w = {n: v.flat() for n, v in lw.items()
-         if n in ("we_gateup", "we_gate", "we_up", "we_down")}
-    base = li * E
+    w = {name: v.flat() for name, v in lw.items()
+         if name in ("we_gateup", "we_gate", "we_up", "we_down")}
+    base = li * n
     if B == 1 and S == 1:
         # the k routed slots, computed and read on the device: one
-        # grouped launch per expert matrix, no host sync
+        # grouped launch per expert matrix, no host sync (each rank reads
+        # k planes of its own, the other ranks' experts weighted 0)
+        if n != E:
+            top_i, gates = local_slots(top_i, gates, e0, n)
         slots = (base + top_i[0, 0]).to(torch.int32)                # [k]
         xg = h[None].expand(k, B, S, H)
         g, u = _gate_up(w, lambda wt: ops.qmatmul_grouped(xg, wt, slots))
@@ -258,11 +292,11 @@ def _expert_ffn_quant(config: ModelConfig, h: torch.Tensor,
                             gates.to(torch.float32))
     mix = dense_mix(gates, top_i, E)
     out = torch.zeros((B, S, H), dtype=torch.float32, device=h.device)
-    for e in range(E):
+    for e in range(n):
         g, u = _gate_up(w, lambda wt: ops.qmatmul(h, wt, base + e))
         act = ops.glu(g, u).to(h.dtype)
         y = ops.qmatmul(act, w["we_down"], base + e).to(torch.float32)
-        out = out + mix[..., e:e + 1] * y
+        out = out + mix[..., e0 + e:e0 + e + 1] * y
     return out
 
 

@@ -17,6 +17,22 @@ handler threads submit requests and read per-request token queues.
   - The serving thread sleeps on a condition variable while there is nothing to
     do; a step() that raises fails the affected requests with an
     "error: ..." finish reason and the serving thread lives on.
+  - On a mesh (`serve --tp N`), rank 0 holds this engine and every other
+    rank runs `follow`. Before each device action the serving thread
+    broadcasts the plan since the last one (new requests, cancels, a
+    beam job, a step; parallel/comm.broadcast_plan, a gloo group) and
+    the followers replay it on their own scheduler, so every rank's
+    scheduler takes the same decisions and launches the same
+    collectives. An idle server broadcasts an empty plan each second,
+    inside the groups' timeout.
+  - On a mesh a failure ends the run: a rank that raised may have left
+    its peers inside a collective. A follower's error leaves `follow`;
+    on rank 0 a step or beam job that raises (or a broadcast to a dead
+    follower) fails every open request, sets `error`, stops the serving
+    thread and calls `on_error` (serve_forever's shutdown), and
+    serve_forever raises. The process exits non-zero and torchrun stops
+    the others; a rank that waits on a dead peer raises at the groups'
+    timeout.
 """
 from __future__ import annotations
 
@@ -25,6 +41,8 @@ import queue
 import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional, Sequence
+
+from turboinfer_tpu_torch.parallel import comm
 
 
 @dataclasses.dataclass
@@ -40,14 +58,17 @@ class ServingEngine:
     """Drives a ContinuousBatchingScheduler from a background thread."""
 
     def __init__(self, scheduler, tokenizer=None, model_name: str = "model",
-                 beam_engine=None):
+                 beam_engine=None, mesh=None):
         """beam_engine: optional InferenceEngine SHARING the scheduler's
         prepared params (InferenceEngine(sched.params,
         params_are_prepared=True)) — backs n-best beam-search requests
         (`use_beam_search` on the HTTP batch path). Beam jobs run on
         the serving thread between scheduler steps, so every device call
-        stays on one thread."""
+        stays on one thread. mesh: the scheduler's mesh on rank 0 of a
+        sharded server; the other ranks run follow()."""
         self.sched = scheduler
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._plan: List[tuple] = []
         self.tokenizer = tokenizer
         self.model_name = model_name
         self.beam_engine = beam_engine
@@ -61,6 +82,10 @@ class ServingEngine:
         self._next_beam_id = -1
         self._stats = {"requests": 0, "tokens": 0, "started_at": time.time()}
         self._shutdown = False
+        # the failure that ended a sharded run, and who to tell (module
+        # docstring)
+        self.error: Optional[BaseException] = None
+        self.on_error = None
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="turboinfer-serving")
         self._thread.start()
@@ -80,6 +105,9 @@ class ServingEngine:
             raise ValueError("repetition_penalty must be > 0")
         with self._work:
             rid = self.sched.submit(prompt, max_new_tokens, **sampling_kw)
+            if self.mesh is not None:
+                self._plan.append(("submit", list(prompt), max_new_tokens,
+                                   dict(sampling_kw)))
             self._streams[rid] = queue.Queue()
             self._emitted[rid] = 0
             self._stats["requests"] += 1
@@ -140,6 +168,8 @@ class ServingEngine:
         """Serving-thread only (holds the lock): apply deferred
         cancels."""
         for rid in self._cancels:
+            if self.mesh is not None:
+                self._plan.append(("cancel", rid))
             if self.sched.cancel(rid) and rid in self.sched._done:
                 # the serving thread only pumps inside step(); a cancel with an
                 # otherwise idle scheduler must deliver StreamEnd itself
@@ -190,6 +220,15 @@ class ServingEngine:
 
     # -- serving thread -------------------------------------------------------
 
+    def _publish(self, action: Optional[tuple] = None) -> None:
+        """Serving thread, lock held: broadcast the plan since the last
+        one, then `action`, to the followers (no-op off a mesh)."""
+        if self.mesh is None:
+            return
+        ops = self._plan + ([action] if action is not None else [])
+        self._plan = []
+        comm.broadcast_plan(ops, self.mesh)
+
     def _pump(self, rid: int, req) -> None:
         """Push any not-yet-emitted tokens of `req` into its stream."""
         q = self._streams.get(rid)
@@ -222,11 +261,7 @@ class ServingEngine:
                 continue
             q.put(StreamEnd(stop_reason=f"error: {message}",
                             prompt_tokens=0, completion_tokens=0))
-        for req in list(self.sched._active.values()):
-            self.sched.cancel(req.rid, reason="error")
-        self.sched._queue.clear()
-        self.sched._adm = None        # abandon an in-flight admission
-        self.sched._done.clear()
+        reset_scheduler(self.sched)
 
     def _run_beam_job(self, rid: int):
         job = self._beam_jobs.pop(rid, None)
@@ -245,19 +280,37 @@ class ServingEngine:
         except Exception as e:             # noqa: BLE001
             if q is not None:
                 q.put(e)
+            if self.mesh is not None:
+                raise
 
     def _run(self):
+        try:
+            self._loop()
+        except Exception as e:             # noqa: BLE001 — ends the run
+            with self._work:
+                self.error = e
+                self._fail_all(str(e))
+            if self.on_error is not None:
+                self.on_error()
+
+    def _loop(self):
         sched = self.sched
         while True:
             with self._work:
                 while (not self._shutdown and not sched.pending
                        and not self._beam_order and not self._cancels):
-                    self._work.wait(timeout=1.0)
+                    if not self._work.wait(timeout=1.0):
+                        self._publish()         # the followers' heartbeat
                 if self._shutdown:
+                    self._publish(("shutdown",))
                     return
                 self._drain_cancels_locked()
                 beam_rid = (self._beam_order.pop(0)
                             if self._beam_order else None)
+                if beam_rid in self._beam_jobs:
+                    job = self._beam_jobs[beam_rid]
+                    self._publish(("beam", job["prompt"], job["max_new"],
+                                   job["beam_size"], job["kw"]))
             if beam_rid is not None:
                 # one queued beam job per loop turn, interleaved with
                 # scheduler steps. Runs OUTSIDE the condition lock: only
@@ -268,14 +321,18 @@ class ServingEngine:
                 self._run_beam_job(beam_rid)
             with self._work:
                 if self._shutdown:
+                    self._publish(("shutdown",))
                     return
                 self._drain_cancels_locked()
                 if not sched.pending:
                     continue
+                self._publish(("step",))
                 try:
                     sched.step()
                 except Exception as e:     # noqa: BLE001 — the serving thread must
-                    self._fail_all(str(e))  # survive any request error
+                    if self.mesh is not None:
+                        raise              # (off a mesh) survive any
+                    self._fail_all(str(e))  # request error
                     continue
                 # pump active slots, then finished requests
                 for req in list(sched._active.values()):
@@ -287,3 +344,37 @@ class ServingEngine:
                 for rid in [r for r in sched._done
                             if r not in self._streams]:
                     sched._done.pop(rid)
+
+
+def reset_scheduler(sched) -> None:
+    """Drop every request of a scheduler whose step raised: the active
+    slots are cancelled, the queue, an in-flight admission and the
+    finished results cleared."""
+    for req in list(sched._active.values()):
+        sched.cancel(req.rid, reason="error")
+    sched._queue.clear()
+    sched._adm = None              # abandon an in-flight admission
+    sched._done.clear()
+
+
+def follow(scheduler, mesh, beam_engine=None) -> None:
+    """A follower rank of a sharded server: replay rank 0's plans
+    (ServingEngine._publish) on this rank's scheduler and beam engine
+    until rank 0 shuts down. Results stay here; rank 0 answers. An error
+    propagates and ends the run (module docstring)."""
+    while True:
+        for op in comm.broadcast_plan(None, mesh):
+            kind = op[0]
+            if kind == "submit":
+                scheduler.submit(op[1], op[2], **op[3])
+            elif kind == "cancel":
+                scheduler.cancel(op[1])
+            elif kind == "step":
+                scheduler.step()
+            elif kind == "beam" and beam_engine is not None:
+                beam_engine.generate_beam_search(
+                    op[1], op[2], beam_size=op[3], return_all_beams=True,
+                    **op[4])
+            elif kind == "shutdown":
+                return
+        scheduler._done.clear()

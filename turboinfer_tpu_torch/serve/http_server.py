@@ -483,7 +483,10 @@ def make_server(engine: ServingEngine, host: str = "0.0.0.0",
 
 def serve_forever(engine: ServingEngine, host: str = "0.0.0.0",
                   port: int = 8000, verbose: bool = False):
+    """Serve until interrupted; raises the engine's error when a failure
+    ended a sharded run (serve/engine.py)."""
     srv = make_server(engine, host, port, verbose)
+    engine.on_error = srv.shutdown
     try:
         srv.serve_forever()
     except KeyboardInterrupt:
@@ -491,3 +494,6 @@ def serve_forever(engine: ServingEngine, host: str = "0.0.0.0",
     finally:
         srv.shutdown()
         engine.shutdown()
+    if engine.error is not None:
+        raise RuntimeError(f"serving stopped: {engine.error}") from \
+            engine.error
